@@ -10,20 +10,29 @@ exit code and no result line:
    hand-written kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) with ptxas' registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on CUDA tensors at the
-   shapes of the ee-llm-7b decode path, with its device time (CUDA events),
-   the plain version's, one PyTorch library call's where one computes the
-   same function, and the bound (bytes over 3.35 TB/s or operations over the
-   peak rate of the input type, whichever is larger); then a small model
-   served on the card and on the CPU must give the same streams;
+   shapes of the ee-llm-7b decode path (the paged decode attention at 8
+   slots, float32, bfloat16 and int8 pages), with its device time (CUDA
+   events), the plain version's, one PyTorch library call's where one
+   computes the same function, and the bound (bytes over 3.35 TB/s or
+   operations over the peak rate of the input type, whichever is larger);
+   then a small model served on the card and on the CPU must give the same
+   streams, sequentially and batched on dense and paged KV;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
    launch counter set to 0 before and read after;
-4. the kernel table as one JSON line, the ``nvidia-smi`` line, and the
-   status line ``{"ok": true, "device": {...}}``.
+4. the same model through the batched engine, ``ServingSystem.generate``
+   with 8 slots and 12 prompts of 128-512 tokens, on dense and paged KV
+   (bfloat16 and int8 pages) in the collm, cloud and standalone modes, with
+   the launch counters set to 0 before and read after;
+5. the kernel table as one JSON line (launches: phases 3 and 4), the
+   ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
+   {...}}``.
 
-``--profile`` adds a ``torch.profiler`` window over a few collaborative
-decode ticks (device time by kernel and the card's busy share).  Without a
+``--profile`` adds ``torch.profiler`` windows over a few collaborative
+decode ticks of the sequential loop and of the batched engine on bf16 and
+int8 pages (device time by kernel, the card's busy share, the host's
+costliest operators), and repeats phase 4's two paged runs in turns.  Without a
 CUDA card, or run from a directory without the repository, the script
 fails before printing any result.
 """
@@ -45,6 +54,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
 CLIENTS, PROMPT_LEN, MAX_NEW = 2, 512, 32
+SLOTS, BATCH_PROMPTS, PAGE_SIZE = 8, 12, 16     # phase 4
+FILLS = (128, 552)                      # phase 2 paged fills, keys a row
 MAX_SEQ = PROMPT_LEN + MAX_NEW + 8      # generate_sequential's ring size
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,       # dense tensor-core bf16
@@ -183,6 +194,152 @@ def check_decode_attn(dev, gen) -> dict:
                 replaces="src/repro/kernels/decode_attn/kernel.py:94",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=lib)
+
+
+def paged_inputs(dtype, dev, gen, *, holes=False, sets=1):
+    """Float32 K/V pages at ee-llm-7b's head shape (H = KV = 32, d = 128,
+    16-token pages) and, for each of ``sets`` tables, (q, pos, tbl, cur)
+    of 8 rows with ragged fills of 128-552 keys, pages handed out in
+    shuffled order.  ``holes`` leaves one row's second table entry
+    unmapped, punches never-written positions into the pages and maps
+    nothing for the last row (output 0).  The tables map disjoint pages of
+    one pool, so that timed calls in turn find their pages outside the L2
+    cache."""
+    h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
+    b, ps = SLOTS, PAGE_SIZE
+    n_lp = -(-FILLS[1] // ps)
+    fills = torch.randint(FILLS[0], FILLS[1] + 1, (sets, b), generator=gen,
+                          device=dev).tolist()
+    n_pages = 1 + sum(-(-f // ps) for row in fills for f in row)
+    kp = torch.randn((n_pages, ps, kv, d), generator=gen, device=dev)
+    vp = torch.randn((n_pages, ps, kv, d), generator=gen, device=dev)
+    pos = torch.full((n_pages, ps), -1, dtype=torch.int32, device=dev)
+    order = (1 + torch.randperm(n_pages - 1, generator=gen,
+                                device=dev)).tolist()
+    out = []
+    for row_fills in fills:
+        tbl = torch.full((b, n_lp), -1, dtype=torch.int32, device=dev)
+        cur = torch.tensor([f - 1 for f in row_fills], dtype=torch.int32,
+                           device=dev)
+        for bi, fill in enumerate(row_fills):
+            for lp in range(-(-fill // ps)):
+                pg = order.pop()
+                tbl[bi, lp] = pg
+                n = min(ps, fill - lp * ps)
+                pos[pg, :n] = torch.arange(lp * ps, lp * ps + n, device=dev)
+        if holes:
+            tbl[0, 1] = -1
+            tbl[-1] = -1
+            drop = torch.rand((n_pages, ps), generator=gen, device=dev) < 0.2
+            pos[drop] = -1
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+        out.append([q, pos, tbl, cur])
+    return kp, vp, out
+
+
+def paged_pool(kp, vp, dtype, int8: bool) -> dict:
+    """The pool the kernel reads: pages in ``dtype``, or int8 codes with
+    their per-(slot, kv head) scales quantized from the same pages."""
+    if not int8:
+        return dict(kp=kp.to(dtype), vp=vp.to(dtype))
+    from repro_torch.models.attention import quantize_kv_rows
+    kq, ks = quantize_kv_rows(kp)
+    vq, vs = quantize_kv_rows(vp)
+    return dict(kp=kq, vp=vq, k_scale=ks, v_scale=vs)
+
+
+def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
+    """Bytes the call must move: the K/V (and int8 scales) of its valid
+    keys, the position markers of its mapped pages, the table, cur, q and
+    out; operations: 4 per (head, valid key, element)."""
+    h, d = q.shape[1], q.shape[2]
+    kv, ps = pool["kp"].shape[2], pool["kp"].shape[1]
+    pages = torch.unique(tbl[tbl >= 0]).long()
+    rows = torch.nonzero(tbl >= 0)
+    p = pos[tbl[rows[:, 0], rows[:, 1]].long()]          # (mapped, ps)
+    c = cur[rows[:, 0]][:, None]
+    n_valid = int(((p >= 0) & (p <= c)).sum())
+    per_key = 2 * kv * d * pool["kp"].element_size()
+    if "k_scale" in pool:
+        per_key += 2 * kv * 4
+    nbytes = (n_valid * per_key + pages.numel() * ps * 4 + tbl.numel() * 4
+              + cur.numel() * 4 + 2 * q.numel() * q.element_size())
+    return nbytes, 4 * h * n_valid * d
+
+
+def check_decode_attn_paged(dev, gen) -> list:
+    from repro_torch.kernels.decode_attn.ops import decode_attn_paged
+    from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
+    from repro_torch.models.attention import paged_gather
+    variants = (("decode_attn_paged", False, ((torch.float32, 2e-5),
+                                              (torch.bfloat16, 2e-2))),
+                ("decode_attn_paged_int8", True, ((torch.bfloat16, 2e-2),)))
+    errs = {}
+    for name, int8, dtypes in variants:
+        err = 0.0
+        for dtype, tol in dtypes:
+            for holes in (False, True):
+                kp, vp, [(q, pos, tbl, cur)] = paged_inputs(
+                    dtype, dev, gen, holes=holes)
+                pool = paged_pool(kp, vp, dtype, int8)
+                scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
+                          if int8 else {})
+                args = (q, pool["kp"], pool["vp"], pos, tbl, cur)
+                got = decode_attn_paged(*args, **scales)
+                want = decode_attn_paged_ref(*args, **scales)
+                e = max_err(got, want)
+                if holes:
+                    check(bool(torch.all(got[-1] == 0)),
+                          f"{name}: the unmapped row is not 0")
+                print(f"{name} {str(dtype)[6:]} B={SLOTS} fills "
+                      f"{cur.min().item() + 1}-{cur.max().item() + 1}"
+                      f"{' holes+gaps+empty row' if holes else ''}: "
+                      f"max|err|={e:.3g} (tol {tol})")
+                check(e <= tol, f"{name} disagrees with its plain version")
+                err = max(err, e)
+        errs[name] = err
+    # timing at the serving shape: bf16 q, 8 slots, 4 tables over disjoint
+    # pages of one pool (> 50 MB), called in turn; both variants read the
+    # same tables and pages (int8 quantized from them), and bytes and
+    # operations are the mean over the four tables, as the times are
+    kp, vp, sets = paged_inputs(torch.bfloat16, dev, gen, sets=4)
+    h, d = CFG.n_heads, CFG.resolved_head_dim
+    rows = []
+    for name, int8, _ in variants:
+        pool = paged_pool(kp, vp, torch.bfloat16, int8)
+        scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
+                  if int8 else {})
+        calls = [(q, pool["kp"], pool["vp"], pos, tbl, cur)
+                 for q, pos, tbl, cur in sets]
+        n = len(calls)
+        ms = device_ms(lambda i: decode_attn_paged(*calls[i % n], **scales))
+        plain = device_ms(lambda i: decode_attn_paged_ref(*calls[i % n],
+                                                          **scales))
+        cache = {"kp": pool["kp"], "vp": pool["vp"]}
+        if int8:
+            cache.update(ks=pool["k_scale"], vs=pool["v_scale"])
+
+        def library(i):
+            q, pos, tbl, cur = sets[i % n]
+            k, v, kpos = paged_gather(dict(cache, pos=pos), tbl)
+            mask = (kpos >= 0) & (kpos <= cur[:, None])
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.view(SLOTS, h, 1, d), k.transpose(1, 2).to(q.dtype),
+                v.transpose(1, 2).to(q.dtype),
+                attn_mask=mask[:, None, None, :])
+
+        lib = device_ms(library)
+        counts = [paged_bytes_ops(pool, *s) for s in sets]
+        nbytes = sum(c[0] for c in counts) / n
+        ops = sum(c[1] for c in counts) / n
+        bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+        rows.append(dict(name=name,
+                         source="src/repro_torch/csrc/decode_attn_paged.cu",
+                         replaces="src/repro/kernels/decode_attn/kernel.py:236",
+                         max_abs_err=errs[name], ms=ms, plain_ms=plain,
+                         bound_ms=bnd, bound_by=by, library_ms=lib,
+                         bytes=nbytes))
+    return rows
 
 
 def exit_inputs(b, dtype, dev, gen, tie=None, hidden=None):
@@ -350,6 +507,23 @@ def check_small_model(dev) -> None:
               "card's stream differs from the CPU's")
         for f in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
             check(getattr(st, f) == getattr(want["stats"], f), f)
+    # the batched engine: paged on the card == dense on the card == CPU
+    prompts += [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+                for i, n in ((2, 17), (3, 33))]
+    for mode, wire in (("cloud", "float32"), ("collm", "int8")):
+        runs = {}
+        for name, model, layout in (("cpu", cpu, "dense"),
+                                    ("dense", gpu, "dense"),
+                                    ("paged", gpu, "paged")):
+            ccfg = CollmConfig(theta=theta, wire_format=wire, backfill=True,
+                               kv_layout=layout)
+            runs[name] = ServingSystem(model, ccfg).generate(
+                prompts, 16, mode, num_slots=3)
+        same = (runs["paged"]["tokens"] == runs["dense"]["tokens"]
+                == runs["cpu"]["tokens"])
+        print(f"small model batched {mode}/{wire}: paged card == dense card "
+              f"== CPU: {same}")
+        check(same, f"small model batched {mode}: the paged stream differs")
 
 
 # ---------------------------------------------------------------------------
@@ -357,12 +531,17 @@ def check_small_model(dev) -> None:
 # ---------------------------------------------------------------------------
 def kernel_ops() -> dict:
     """Each kernel's wrapper; ``wrapper.launches`` counts its launches."""
-    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ops import (decode_attn,
+                                                     decode_attn_paged,
+                                                     decode_attn_paged_int8)
     from repro_torch.kernels.exit_head.ops import exit_head
     from repro_torch.kernels.exit_quant.ops import exit_quant
     from repro_torch.kernels.quantize.ops import quantize_int8
-    return {"decode_attn": decode_attn, "exit_head": exit_head,
-            "quantize": quantize_int8, "exit_quant": exit_quant}
+    return {"decode_attn": decode_attn,
+            "decode_attn_paged": decode_attn_paged,
+            "decode_attn_paged_int8": decode_attn_paged_int8,
+            "exit_head": exit_head, "quantize": quantize_int8,
+            "exit_quant": exit_quant}
 
 
 def serve(model, prompts, mode, theta, wire, backfill=False):
@@ -418,23 +597,137 @@ def check_fused_upload(model, prompts, theta) -> None:
     check(same and e <= 1e-6, "fused_exit_upload differs from edge_step")
 
 
-def profile_ticks(model, prompts, theta) -> None:
-    """Device time by kernel over a few collaborative decode ticks."""
+# ---------------------------------------------------------------------------
+# phase 4: ee-llm-7b through the batched engine
+# ---------------------------------------------------------------------------
+def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
+                  kv_dtype="float32", backfill=False):
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    system = ServingSystem(model, CollmConfig(
+        theta=theta, wire_format=wire, backfill=backfill, kv_layout=layout,
+        page_size=PAGE_SIZE, kv_dtype=kv_dtype))
+    before = {n: op.launches for n, op in kernel_ops().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r = system.generate(prompts, MAX_NEW, mode=mode, num_slots=SLOTS)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    r["launched"] = {n: op.launches - before[n]
+                     for n, op in kernel_ops().items()}
+    sched = next(iter(system._schedulers.values()))
+    st = r["stats"]
+    check(all(len(t) == MAX_NEW and min(t) >= 0
+              and max(t) < model.cfg.vocab_size for t in r["tokens"]),
+          f"{label}: bad tokens")
+    print(f"batched {label:18s} mode={mode:10s} theta={theta:.6g} "
+          f"wire={wire:7s} tokens={st.tokens} tokens/s={st.tokens / dt:.2f} "
+          f"wall={dt:.2f}s exits_l1={st.exits_l1} exits_l2={st.exits_l2} "
+          f"cloud_requests={st.cloud_requests} upload_bytes={st.upload_bytes}"
+          f" kv_cache_bytes={sched.kv_cache_bytes()} peak_mem="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
+          f"pool={r['pool_stats']} launches={r['launched']}")
+    return r
+
+
+def phase4_prompts() -> list:
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, CFG.vocab_size, int(n))
+            for n in rng.integers(128, 513, BATCH_PROMPTS)]
+
+
+def serve_phase4(model, theta) -> None:
+    """12 prompts of 128-512 tokens through 8 slots (slots refill, pages
+    are freed and reused), on dense and paged KV."""
+    from repro_torch.serving.engine import token_agreement
+    prompts = phase4_prompts()
+    runs = {
+        "dense": serve_batched(model, prompts, "dense", "collm", theta,
+                               "float16", layout="dense"),
+        "paged": serve_batched(model, prompts, "paged", "collm", theta,
+                               "float16"),
+        "paged+backfill": serve_batched(model, prompts, "paged+backfill",
+                                        "collm", theta, "float16",
+                                        backfill=True),
+        "paged-int8": serve_batched(model, prompts, "paged-int8", "collm",
+                                    theta, "float16", kv_dtype="int8"),
+        "paged cloud": serve_batched(model, prompts, "paged cloud", "cloud",
+                                     1.0, "float32"),
+        "paged standalone": serve_batched(model, prompts, "paged standalone",
+                                          "standalone", theta, "float16"),
+        "paged theta=1": serve_batched(model, prompts, "paged theta=1",
+                                       "collm", 1.0, "float32"),
+    }
+    check(runs["paged theta=1"]["tokens"] == runs["paged cloud"]["tokens"],
+          "batched paged collm at theta=1 with a float32 wire differs from "
+          "paged cloud")
+    print("batched paged collm theta=1 float32 == paged cloud: True")
+    for name, r in runs.items():
+        launched = r["launched"]
+        if name == "dense":
+            check(launched["decode_attn"] > 0, "dense: decode_attn idle")
+        elif name == "paged-int8":
+            check(launched["decode_attn_paged_int8"] > 0
+                  and launched["quantize"] > 0,
+                  "paged-int8: int8 paged attention or int8 KV writes idle")
+        else:
+            check(launched["decode_attn_paged"] > 0,
+                  f"{name}: decode_attn_paged was not launched")
+    for name in ("dense", "paged", "paged+backfill", "paged-int8"):
+        st = runs[name]["stats"]
+        check(st.exits_l1 + st.exits_l2 > 0 and st.cloud_requests > 0,
+              f"{name}: the split theta gives no mix of exits and cloud "
+              f"requests")
+    for name in ("paged", "paged-int8"):
+        ags = [token_agreement(a, b) for a, b in
+               zip(runs[name]["tokens"], runs["dense"]["tokens"])]
+        same = sum(a == b for a, b in zip(runs[name]["tokens"],
+                                          runs["dense"]["tokens"]))
+        print(f"agreement {name} vs dense: {same}/{len(ags)} streams equal, "
+              f"mean LCS-F1 {float(np.mean(ags)):.4f}")
+
+
+def profile_window(label, fn) -> None:
+    """Device time by kernel, the card's busy share and the host's
+    costliest operators over one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        serve(model, [prompts[0][:64]], "collm", theta, "float16")
+        fn()
         wall = time.perf_counter() - t0
+    events = prof.key_averages()
     # kernel rows only: a CPU op's device time repeats its kernels'
-    rows = [(e.self_device_time_total, e.count, e.key)
-            for e in prof.key_averages()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
             if str(e.device_type).endswith("CUDA")]
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"profile: {len(rows)} kernels, device busy {busy:.3f}s of "
-          f"{wall:.3f}s wall ({busy / wall:.1%})")
+    print(f"profile {label}: {len(rows)} kernels, device busy {busy:.3f}s "
+          f"of {wall:.3f}s wall ({busy / wall:.1%})")
     for us, count, key in sorted(rows, reverse=True)[:12]:
         print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    cpu = [(e.self_cpu_time_total, e.count, e.key) for e in events
+           if str(e.device_type).endswith("CPU")]
+    print(f"  host: top operators by self time (under the profiler)")
+    for us, count, key in sorted(cpu, reverse=True)[:8]:
+        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+
+
+def profile_runs(model, prompts, theta) -> None:
+    """``--profile``: a few collaborative decode ticks of the sequential
+    loop, then the batched engine on bf16 and int8 pages (8 prompts, 32
+    new tokens) under the profiler, and the two paged runs of phase 4
+    twice more in turns without it (their run-to-run spread)."""
+    profile_window("sequential collm", lambda: serve(
+        model, [prompts[0][:64]], "collm", theta, "float16"))
+    batch = phase4_prompts()
+    for kv_dtype in ("float32", "int8"):
+        profile_window(f"batched paged {kv_dtype}", lambda: serve_batched(
+            model, batch[:SLOTS], f"profile {kv_dtype}", "collm", theta,
+            "float16", kv_dtype=kv_dtype))
+    for kv_dtype in ("float32", "int8", "int8", "float32"):
+        serve_batched(model, batch, f"repeat paged {kv_dtype}", "collm",
+                      theta, "float16", kv_dtype=kv_dtype)
 
 
 @torch.no_grad()
@@ -460,12 +753,14 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     cases = exit_cases(dev, gen)
-    rows = [check_decode_attn(dev, gen), check_exit_head(dev, gen, cases),
-            check_quantize(dev, gen), check_exit_quant(dev, gen, cases)]
+    rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
+            check_exit_head(dev, gen, cases), check_quantize(dev, gen),
+            check_exit_quant(dev, gen, cases)]
     del cases
     for r in rows:
         print(f"time {r['name']}: {r['ms'] * 1e3:.2f} us (bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}; plain "
+              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}"
+              f"{'; %.0f bytes' % r['bytes'] if 'bytes' in r else ''}; plain "
               f"{r['plain_ms'] * 1e3:.2f} us; library "
               f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)})")
     check_small_model(dev)
@@ -504,11 +799,19 @@ def main(argv=None) -> None:
     serve(model, prompts, "standalone", theta, "float16")
     check_fused_upload(model, prompts, theta)
     launches = {name: op.launches for name, op in ops.items()}
-    print(f"main-path launches: {launches}")
+    print(f"phase 3 (generate_sequential) launches: {launches}")
+    torch.cuda.empty_cache()
+
+    for op in ops.values():
+        op.launches = 0
+    serve_phase4(model, theta)
+    batched = {name: op.launches for name, op in ops.items()}
+    print(f"phase 4 (generate) launches: {batched}")
+    launches = {name: n + batched[name] for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     if args.profile:
-        profile_ticks(model, prompts, theta)
+        profile_runs(model, prompts, theta)
 
     for r in rows:
         r["route"] = "cuda"

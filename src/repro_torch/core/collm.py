@@ -1,6 +1,7 @@
 """CE-CoLLM co-inference steps (paper §4.4, Algorithm 1).
 
-Port of ``repro.core.collm`` for the sequential serving loop:
+Port of ``repro.core.collm`` for the sequential loop and the batched
+engine, on dense ring KV or a block-paged pool (float or int8 pages):
 
   * ``edge_step``        — edge partition (layers 1..l_ee2) with exits at
                            l_ee1/l_ee2; emits the quantized l_ee1 upload.
@@ -11,12 +12,19 @@ Port of ``repro.core.collm`` for the sequential serving loop:
                            the KV of early-exited tokens.
   * ``standalone_step``  — the paper's low-latency edge standalone mode.
   * ``full_step``        — undivided model (cloud-deployment baseline).
+  * ``*_prefill_padded`` — right-padded prompt prefill of one admission.
+  * ``cloud_step(write_mask=)``/``ring_cloud_steps`` — the batched
+                           engine's cloud call over the below-θ rows (and
+                           their backfill rings); the other rows' caches
+                           stay as they were.
 
 Exit decisions go through the ``exit_head`` kernel and the int8 wire format
-through the ``quantize`` kernel.  KV caches are updated in place.  The
-masked, ring, paged and fused steps of the batched engine are not ported
-yet (ROADMAP A.5), and ``CoLLM`` raises for any ``CollmConfig`` field that
-selects them.
+through the ``quantize`` kernel.  KV caches are updated in place, so a
+masked step never writes a masked-out row (the JAX package computes every
+row and merges the old ones back).  Speculative drafting, chunked prefill,
+prefix sharing, preemption, the cloud mesh and the fused step are not
+ported yet (ROADMAP A.5), and ``CoLLM`` raises for any ``CollmConfig``
+field that selects them.
 """
 from __future__ import annotations
 
@@ -135,8 +143,17 @@ class CoLLM:
         if ccfg.wire_format not in FORMATS:
             raise ValueError(f"wire_format must be one of {FORMATS}, got "
                              f"{ccfg.wire_format!r}")
+        if ccfg.kv_dtype not in ("float32", "int8"):
+            raise ValueError(f"kv_dtype must be 'float32' or 'int8', "
+                             f"got {ccfg.kv_dtype!r}")
+        if ccfg.kv_dtype == "int8" and ccfg.kv_layout != "paged":
+            raise ValueError('kv_dtype="int8" requires kv_layout="paged" '
+                             "(dense rings stay full precision)")
         ported = CollmConfig(theta=ccfg.theta, wire_format=ccfg.wire_format,
-                             backfill=ccfg.backfill)
+                             backfill=ccfg.backfill,
+                             kv_layout=ccfg.kv_layout,
+                             page_size=ccfg.page_size,
+                             kv_dtype=ccfg.kv_dtype)
         if ccfg != ported:
             changed = [f.name for f in dataclasses.fields(ccfg)
                        if getattr(ccfg, f.name) != getattr(ported, f.name)]
@@ -158,6 +175,22 @@ class CoLLM:
 
     def init_cloud_cache(self, batch: int, max_seq: int) -> Caches:
         return self.model.init_cache(batch, max_seq, self.cloud_segs)
+
+    def init_edge_cache_paged(self, batch: int, num_pages: int,
+                              page_size: int) -> Caches:
+        """Paged edge caches; ``batch`` rows address them through the block
+        table (attention-only partitions keep no per-row state)."""
+        del batch
+        return self.model.init_paged_cache(num_pages, page_size,
+                                           self.edge_segs,
+                                           kv_dtype=self.ccfg.kv_dtype)
+
+    def init_cloud_cache_paged(self, batch: int, num_pages: int,
+                               page_size: int) -> Caches:
+        del batch
+        return self.model.init_paged_cache(num_pages, page_size,
+                                           self.cloud_segs,
+                                           kv_dtype=self.ccfg.kv_dtype)
 
     # ------------------------------------------------------------------
     # exits
@@ -191,12 +224,52 @@ class CoLLM:
         return self.model.logits(x[:, -1:]), caches
 
     # ------------------------------------------------------------------
+    # right-padded prefill (one admission of the batch scheduler)
+    # ------------------------------------------------------------------
+    def edge_prefill_padded(self, tokens: torch.Tensor, true_len: int,
+                            caches: Caches):
+        """Edge prefill over a right-padded prompt (tokens: (1, Lb)).
+
+        Pad positions are causally invisible to real tokens, so the real
+        activations equal an unpadded prefill's; pad cache slots are
+        invalidated afterwards.  Exit decisions are evaluated at the TRUE
+        last position.  Returns (decisions, l_ee1 hidden sequence,
+        caches)."""
+        _, exit_h, caches, _ = self.model.prefill({"tokens": tokens}, caches,
+                                                  self.edge_segs)
+        decisions = {l: self.exit_decision(l, h[:, true_len - 1])
+                     for l, h in exit_h.items()}
+        caches = self.model.invalidate_cache_after(caches, true_len)
+        return decisions, exit_h[self.l_ee1], caches
+
+    def cloud_prefill_padded(self, h1_seq: torch.Tensor, true_len: int,
+                             caches: Caches):
+        """Cloud prefill over a right-padded prompt upload; logits (1,1,V)
+        at the true last position, pad cache slots invalidated."""
+        ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
+                                              device=h1_seq.device))
+        x, _, caches = self.model.run_segments(h1_seq, ctx, self.cloud_segs,
+                                               caches=caches,
+                                               collect_exits=False)
+        logits = self.model.logits(x[:, true_len - 1:true_len])
+        return logits, self.model.invalidate_cache_after(caches, true_len)
+
+    def full_prefill_padded(self, tokens: torch.Tensor, true_len: int,
+                            caches: Caches):
+        """Undivided-model prefill over a right-padded prompt (cloud
+        baseline rows of the batch scheduler)."""
+        x, _, caches, _ = self.model.prefill({"tokens": tokens}, caches)
+        logits = self.model.logits(x[:, true_len - 1:true_len])
+        return logits, self.model.invalidate_cache_after(caches, true_len)
+
+    # ------------------------------------------------------------------
     # decode steps
     # ------------------------------------------------------------------
-    def edge_step(self, token: torch.Tensor, caches: Caches,
-                  pos) -> EdgeStepOut:
+    def edge_step(self, token: torch.Tensor, caches: Caches, pos,
+                  block_tbl: Optional[torch.Tensor] = None) -> EdgeStepOut:
         _, exit_h, caches = self.model.decode_step(token, caches, pos,
-                                                   self.edge_segs)
+                                                   self.edge_segs,
+                                                   block_tbl=block_tbl)
         decisions = {l: self.exit_decision(l, h) for l, h in exit_h.items()}
         tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
         upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
@@ -219,14 +292,72 @@ class CoLLM:
                            "scale": s.reshape(*shape[:-1], 1)}
 
     def cloud_step(self, upload: Dict[str, torch.Tensor], caches: Caches,
-                   pos) -> Tuple[torch.Tensor, Caches]:
+                   pos, block_tbl: Optional[torch.Tensor] = None,
+                   write_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Caches]:
         """One uploaded hidden -> final logits (B, V) (paper Algorithm 1
         lines 29-37).  Also used for KV backfill of early-exited
-        positions."""
+        positions.  With ``write_mask`` it is the batched engine's cloud
+        call (the JAX package's ``cloud_step_masked``): rows with
+        mask=False keep their caches bit for bit, because the mask is the
+        KV write mask (dense rows write their old entry back, paged rows
+        write to the trash page), so no merge of old and new caches is
+        needed (JAX's ``_caches_where_rows``)."""
         hidden = dequantize(upload, self.model.dtype)
-        x, _, caches = self.model.decode_from_hidden(hidden, caches, pos,
-                                                     self.cloud_segs)
+        x, _, caches = self.model.decode_from_hidden(
+            hidden, caches, pos, self.cloud_segs, block_tbl=block_tbl,
+            write_mask=write_mask)
         return self.model.logits(x)[:, 0], caches
+
+    def invalidate_rows_after(self, caches: Caches, cut: torch.Tensor,
+                              block_tbl: Optional[torch.Tensor] = None
+                              ) -> Caches:
+        """Per-row KV rollback, in place: mark each row's self-attention
+        entries at positions >= ``cut[row]`` invalid (pos = -1).  Dense
+        rings match on the stored pos marker; paged nodes scatter a
+        per-page threshold through the block table.  Rows that are not
+        being rewound pass ``cut = INT32_MAX``."""
+        cut = torch.as_tensor(cut, dtype=torch.int32,
+                              device=self.model.device)
+        for layers in caches.values():
+            for c in layers:
+                node = c["self"]
+                if "kp" not in node:
+                    p = node["pos"]
+                    p.masked_fill_(p >= cut[:, None], -1)
+                    continue
+                p = node["pos"]
+                thr = torch.full((p.shape[0],), torch.iinfo(torch.int32).max,
+                                 dtype=torch.int32, device=p.device)
+                # the trash page (id 0) may collect several rows'
+                # thresholds; its markers are always -1, never >= a cut
+                dest = torch.where(block_tbl >= 0, block_tbl, 0).reshape(-1)
+                thr[dest.long()] = cut.repeat_interleave(block_tbl.shape[1])
+                p.masked_fill_(p >= thr[:, None], -1)
+        return caches
+
+    def ring_cloud_steps(self, ring: Dict[str, torch.Tensor],
+                         ring_pos: torch.Tensor, ring_valid: torch.Tensor,
+                         caches: Caches,
+                         block_tbl: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, Caches]:
+        """Drain a per-row upload ring through the cloud partition in order
+        (backfill).  ring: packet dict of stacked leaves with a leading
+        ring axis, e.g. {"data": (k, B, 1, d)}; ring_pos: (k, B) per-entry
+        positions; ring_valid: (k, B) bool — invalid entries leave the
+        row's cache and logits untouched.  Returns (per-row logits of each
+        row's LAST valid entry (B, V) float32, caches).  The JAX package's
+        ``lax.scan`` is a loop here."""
+        final = torch.zeros((ring_pos.shape[1], self.model.cfg.vocab_size),
+                            dtype=torch.float32, device=ring_pos.device)
+        for i in range(ring_pos.shape[0]):
+            # a copy of the row: the kernels take 16-byte aligned positions
+            logits, caches = self.cloud_step(
+                {k: v[i] for k, v in ring.items()}, caches,
+                ring_pos[i].clone(), block_tbl=block_tbl,
+                write_mask=ring_valid[i])
+            final = torch.where(ring_valid[i][:, None], logits.float(), final)
+        return final, caches
 
     def standalone_step(self, token: torch.Tensor, caches: Caches, pos):
         """Edge standalone (low-latency) mode: the last exit is the
@@ -236,9 +367,11 @@ class CoLLM:
         d = self.exit_decision(self.l_ee2, exit_h[self.l_ee2])
         return d.token, d, caches
 
-    def full_step(self, token: torch.Tensor, caches: Caches, pos):
+    def full_step(self, token: torch.Tensor, caches: Caches, pos,
+                  block_tbl: Optional[torch.Tensor] = None):
         """Undivided model — the cloud-deployment baseline."""
         x, _, caches = self.model.decode_step(token, caches, pos,
-                                              collect_exits=False)
+                                              collect_exits=False,
+                                              block_tbl=block_tbl)
         logits = self.model.logits(x)[:, 0]
         return logits.argmax(dim=-1).to(torch.int32), logits, caches

@@ -6,7 +6,7 @@ The paper uploads hidden states in float16; int8 with a per-row absmax
 scale is the beyond-paper format, quantized by the ``quantize`` kernel
 (``repro_torch.kernels.quantize``).  Wire sizes are computed from shapes.
 
-``CloudChannel`` is the request path of the sequential loop:
+``CloudChannel`` is the request path of both serving engines:
 ``submit(...) -> handle`` dispatches one cloud request, ``poll(now)``
 drains the replies that have arrived by virtual time ``now``.
 ``SyncChannel`` (zero latency, infinite deadline) is a blocking call.  The

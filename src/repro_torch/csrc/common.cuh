@@ -11,7 +11,7 @@
 namespace rt {
 
 // dtype codes passed from Python (kernels/_build.py callers)
-enum DType : int { kF32 = 0, kBF16 = 1 };
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {

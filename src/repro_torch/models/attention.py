@@ -1,12 +1,18 @@
 """Multi-head attention: GQA, optional bias, RoPE, sliding-window masks,
 the direct full-sequence path (training / prefill) and single-token decode
-over a dense ring KV cache.
+over a dense ring KV cache or a block-paged KV pool (float or int8 pages).
 
 Port of ``repro.models.attention``.  Decode attention goes through the
-``decode_attn`` kernel (``repro_torch.kernels.decode_attn``) instead of
-einsums.  KV rings are updated IN PLACE (``index_copy_`` / ``index_put_``)
-where the JAX package returns new arrays: the cache passed in is the cache
-returned.  The chunked and banded long-sequence paths are not ported yet.
+``decode_attn`` / ``decode_attn_paged`` kernels
+(``repro_torch.kernels.decode_attn``) instead of einsums, and int8 page
+writes through the ``quantize`` kernel.  Caches are updated IN PLACE
+(``index_copy_`` / ``index_put_``) where the JAX package returns new
+arrays: the cache passed in is the cache returned.  So a row excluded by a
+decode ``write_mask`` is never written (dense: its old entry is written
+back; paged: the write goes to the trash page with ``pos = -1``), where
+the JAX package computes every row and merges the old rows back.  The
+chunked and banded long-sequence paths and the chunked-prefill paged path
+(``chunk_attention_paged``) are not ported yet.
 """
 from __future__ import annotations
 
@@ -17,7 +23,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.decode_attn.ops import decode_attn
+from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_paged
+from repro_torch.kernels.quantize.ops import quantize_int8
 from repro_torch.models.common import apply_rope, dense_init_
 
 Cache = Dict[str, torch.Tensor]
@@ -138,6 +145,119 @@ def _cache_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Paged caches (block tables; see repro_torch.core.paging)
+# ---------------------------------------------------------------------------
+def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row int8 quantization of K/V entries: one absmax scale per
+    ``(..., kv_head)`` row over ``head_dim`` — the transport quantizer's
+    scaling, through the ``quantize`` kernel on the card.
+
+    x: (..., KV, d) -> (q int8 (..., KV, d), scale float32 (..., KV))."""
+    shape = x.shape
+    q, s = quantize_int8(x.reshape(-1, shape[-1]).contiguous())
+    return q.reshape(shape), s.reshape(shape[:-1])
+
+
+def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                          *, device=None, dtype=torch.float32,
+                          kv_dtype: str = "float32") -> Cache:
+    """Page-pool KV storage for ONE layer.  Physical page 0 is the trash
+    page (writes of unmapped rows land there); ``pos = -1`` marks an empty
+    page slot, so a freshly (re)allocated page is invisible to attention
+    until it is written.  ``kv_dtype="int8"`` stores int8 pages with
+    per-row absmax scales ``ks``/``vs`` (P+1, page_size, KV) float32;
+    ``"float32"`` keeps the pages in the model's dtype."""
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    p = num_pages + 1                              # + trash page
+    kw = dict(device=device)
+    if kv_dtype == "int8":
+        return {
+            "kp": torch.zeros((p, page_size, kvh, hd), dtype=torch.int8, **kw),
+            "vp": torch.zeros((p, page_size, kvh, hd), dtype=torch.int8, **kw),
+            "ks": torch.zeros((p, page_size, kvh), dtype=torch.float32, **kw),
+            "vs": torch.zeros((p, page_size, kvh), dtype=torch.float32, **kw),
+            "pos": torch.full((p, page_size), -1, dtype=torch.int32, **kw),
+        }
+    if kv_dtype != "float32":
+        raise ValueError(f"kv_dtype must be 'float32' or 'int8', "
+                         f"got {kv_dtype!r}")
+    return {
+        "kp": torch.zeros((p, page_size, kvh, hd), dtype=dtype, **kw),
+        "vp": torch.zeros((p, page_size, kvh, hd), dtype=dtype, **kw),
+        "pos": torch.full((p, page_size), -1, dtype=torch.int32, **kw),
+    }
+
+
+def _page_ids(pages, device) -> torch.Tensor:
+    """Physical page ids as a long tensor; entries < 0 -> the trash page."""
+    pages = torch.as_tensor(pages, device=device)
+    return torch.where(pages >= 0, pages, 0).long()
+
+
+def paged_scatter_prefill(cache: Cache, row: Cache, pages) -> Cache:
+    """Scatter a single-row dense prefill cache into physical pages, in
+    place.
+
+    ``row``: dense cache {"k": (1, L, KV, d), ...} as produced by prefill
+    on one stream (ring wide enough that slot ``s`` holds position ``s``).
+    ``pages``: (ceil(L / page_size),) physical page ids; entries ``< 0``
+    redirect to the trash page (right-pad positions beyond the pages the
+    allocator actually granted — their ``pos`` is already -1)."""
+    ps = cache["kp"].shape[1]
+    dest = _page_ids(pages, cache["kp"].device)
+    n_lp = dest.shape[0]
+
+    def tiles(x, fill):
+        x = x[0][:n_lp * ps]                       # drop batch axis, trim ring
+        pad = n_lp * ps - x.shape[0]
+        if pad:
+            x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+        return x.reshape((n_lp, ps) + x.shape[1:])
+
+    cache["pos"][dest] = tiles(row["pos"], -1).to(torch.int32)
+    if "ks" in cache:                              # int8 pages + scales
+        # rows are quantized one by one: only the paged part is needed
+        qk, sk = quantize_kv_rows(row["k"][:, :n_lp * ps])
+        qv, sv = quantize_kv_rows(row["v"][:, :n_lp * ps])
+        cache["kp"][dest] = tiles(qk, 0)
+        cache["vp"][dest] = tiles(qv, 0)
+        cache["ks"][dest] = tiles(sk, 0.0)
+        cache["vs"][dest] = tiles(sv, 0.0)
+    else:
+        cache["kp"][dest] = tiles(row["k"], 0).to(cache["kp"].dtype)
+        cache["vp"][dest] = tiles(row["v"], 0).to(cache["vp"].dtype)
+    return cache
+
+
+def paged_reset_pages(cache: Cache, pages) -> Cache:
+    """Invalidate the given physical pages (``pos = -1``) in place, so a
+    page freed from a retired stream never leaks stale K/V once
+    reallocated.  Entries ``< 0`` redirect to the trash page (already
+    invalid)."""
+    cache["pos"][_page_ids(pages, cache["pos"].device)] = -1
+    return cache
+
+
+def paged_gather(cache: Cache, block_tbl: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Materialize the logical (B, max_logical*page_size) K/V view of a
+    paged cache through the block table (unmapped pages read the trash page
+    and are masked via ``pos = -1``)."""
+    b, n_lp = block_tbl.shape
+    ps = cache["kp"].shape[1]
+    phys = torch.where(block_tbl >= 0, block_tbl, 0).long()
+    k, v = cache["kp"][phys], cache["vp"][phys]
+    if "ks" in cache:                              # dequantize int8 pages
+        k = k.float() * cache["ks"][phys][..., None]
+        v = v.float() * cache["vs"][phys][..., None]
+    k = k.reshape(b, n_lp * ps, *k.shape[3:])
+    v = v.reshape(b, n_lp * ps, *v.shape[3:])
+    kpos = torch.where(block_tbl[:, :, None] >= 0, cache["pos"][phys],
+                       -1).reshape(b, n_lp * ps)
+    return k, v, kpos
+
+
+# ---------------------------------------------------------------------------
 # Public forwards
 # ---------------------------------------------------------------------------
 def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
@@ -169,13 +289,10 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     return y, cache
 
 
-def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
-                     cache: Cache, pos: torch.Tensor, *, window: int = 0,
-                     use_rope: bool = True) -> Tuple[torch.Tensor, Cache]:
-    """Single-token decode.  x: (B,1,d); pos: (B,) int32 per-row positions
-    (continuous batching: every row decodes at its own offset).  Writes the
-    new K/V into the ring in place, then attends through the
-    ``decode_attn`` kernel (its plain version on the CPU)."""
+def _project_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                    pos: torch.Tensor, use_rope: bool):
+    """q (B,1,H,d), k/v (B,1,KV,d) of one new token per row, rotated to
+    its per-row position."""
     b = x.shape[0]
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
@@ -192,13 +309,85 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         knew = apply_rope(knew, pos[:, None], cfg.rope_theta)
+    return q, knew, vnew
+
+
+def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     cache: Cache, pos: torch.Tensor, *, window: int = 0,
+                     use_rope: bool = True,
+                     write_mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, Cache]:
+    """Single-token decode.  x: (B,1,d); pos: (B,) int32 per-row positions
+    (continuous batching: every row decodes at its own offset).  Writes the
+    new K/V into the ring in place, then attends through the
+    ``decode_attn`` kernel (its plain version on the CPU).  A row whose
+    ``write_mask`` (B,) bool is False keeps its ring bit for bit (its old
+    entry is written back); its output is meaningless."""
+    b = x.shape[0]
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    q, knew, vnew = _project_decode(p, cfg, x, pos, use_rope)
     size = cache["k"].shape[1]
     rows = torch.arange(b, device=x.device)
     slot = (pos % size).long()
-    cache["k"].index_put_((rows, slot), knew[:, 0].to(cache["k"].dtype))
-    cache["v"].index_put_((rows, slot), vnew[:, 0].to(cache["v"].dtype))
-    cache["pos"].index_put_((rows, slot), pos)
+    knew = knew[:, 0].to(cache["k"].dtype)
+    vnew = vnew[:, 0].to(cache["v"].dtype)
+    pnew = pos
+    if write_mask is not None:
+        keep = ~write_mask
+        knew = torch.where(keep[:, None, None], cache["k"][rows, slot], knew)
+        vnew = torch.where(keep[:, None, None], cache["v"][rows, slot], vnew)
+        pnew = torch.where(keep, cache["pos"][rows, slot], pos)
+    cache["k"].index_put_((rows, slot), knew)
+    cache["v"].index_put_((rows, slot), vnew)
+    cache["pos"].index_put_((rows, slot), pnew)
     out = decode_attn(q.reshape(b, h, hd).contiguous(), cache["k"],
                       cache["v"], cache["pos"], pos, window=window)
+    y = out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
+    return y, cache
+
+
+def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           cache: Cache, pos: torch.Tensor,
+                           block_tbl: torch.Tensor, *, window: int = 0,
+                           use_rope: bool = True,
+                           write_mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, Cache]:
+    """Single-token decode over a block-paged KV cache.
+
+    x: (B,1,d); pos: (B,) int32 per-row positions; block_tbl: (B,
+    max_logical) int32 physical page ids (-1 = unallocated).  Each row
+    writes its new K/V in place at page ``block_tbl[b, pos // page_size]``,
+    slot ``pos % page_size`` (int8 pools quantize K and V rows in one
+    ``quantize`` launch); rows without a mapping there — inactive slots, or
+    rows excluded by ``write_mask`` (masked cloud step) — are redirected to
+    the trash page with ``pos = -1``.  Attention then runs through the
+    ``decode_attn_paged`` kernel over the table."""
+    b = x.shape[0]
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    ps = cache["kp"].shape[1]
+    q, knew, vnew = _project_decode(p, cfg, x, pos, use_rope)
+    rows = torch.arange(b, device=x.device)
+    # out-of-range logical pages clamp to the last, as a JAX gather does
+    lp = (pos // ps).long().clamp(max=block_tbl.shape[1] - 1)
+    page = block_tbl[rows, lp]
+    ok = page >= 0
+    if write_mask is not None:
+        ok &= write_mask
+    dest = torch.where(ok, page, 0).long()
+    slot = (pos % ps).long()
+    cache["pos"].index_put_((dest, slot), torch.where(ok, pos, -1))
+    if "ks" in cache:                              # quantize on write
+        qkv, skv = quantize_kv_rows(torch.stack([knew[:, 0], vnew[:, 0]]))
+        cache["kp"].index_put_((dest, slot), qkv[0])
+        cache["vp"].index_put_((dest, slot), qkv[1])
+        cache["ks"].index_put_((dest, slot), skv[0])
+        cache["vs"].index_put_((dest, slot), skv[1])
+    else:
+        cache["kp"].index_put_((dest, slot), knew[:, 0].to(cache["kp"].dtype))
+        cache["vp"].index_put_((dest, slot), vnew[:, 0].to(cache["vp"].dtype))
+    out = decode_attn_paged(q.reshape(b, h, hd).contiguous(), cache["kp"],
+                            cache["vp"], cache["pos"], block_tbl, pos,
+                            k_scale=cache.get("ks"), v_scale=cache.get("vs"),
+                            window=window)
     y = out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
     return y, cache

@@ -5,6 +5,7 @@
     block_forward(block, cfg, x, ctx, cache)       -> (x, cache)
     block_decode(block, cfg, x, cache, ctx)        -> (x, cache)
     init_block_cache(cfg, batch, max_seq, window)  -> cache for ONE layer
+    init_block_cache_paged(cfg, num_pages, page_size) -> paged cache, ditto
 
 Caches are updated in place (see ``repro_torch.models.attention``).  Other
 block kinds (MoE, mamba2, xLSTM, shared attention, cross-attention) and
@@ -21,8 +22,10 @@ from torch import nn
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models.attention import (Attention, attention_forward,
-                                          decode_attention, init_attention,
-                                          init_attn_cache)
+                                          decode_attention,
+                                          decode_attention_paged,
+                                          init_attention, init_attn_cache,
+                                          init_paged_attn_cache)
 from repro_torch.models.common import dense_init_, rms_norm
 
 Cache = Dict[str, Any]
@@ -34,6 +37,8 @@ class BlockCtx:
     window: int = 0                            # sliding window for this layer
     causal: bool = True
     pos: Optional[torch.Tensor] = None         # decode positions (B,) int32
+    block_tbl: Optional[torch.Tensor] = None   # (B, max_logical) paged table
+    write_mask: Optional[torch.Tensor] = None  # (B,) rows allowed to write KV
 
 
 class MLP(nn.Module):
@@ -104,6 +109,17 @@ def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int,
                                     device=device, dtype=dtype)}
 
 
+def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
+                           *, device=None, dtype=torch.float32,
+                           kv_dtype: str = "float32") -> Cache:
+    """Paged variant: self-attention K/V lives in the shared page pool (no
+    batch axis — rows address it through their block table).
+    ``kv_dtype="int8"`` stores the pages quantized with per-row scales."""
+    return {"self": init_paged_attn_cache(cfg, num_pages, page_size,
+                                          device=device, dtype=dtype,
+                                          kv_dtype=kv_dtype)}
+
+
 def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
                   ctx: BlockCtx, cache: Optional[Cache] = None
                   ) -> Tuple[torch.Tensor, Optional[Cache]]:
@@ -120,10 +136,19 @@ def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
 
 def block_decode(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
                  cache: Cache, ctx: BlockCtx) -> Tuple[torch.Tensor, Cache]:
-    """Single-token decode (x: (B,1,d)); updates ``cache`` in place."""
+    """Single-token decode (x: (B,1,d)); updates ``cache`` in place.  A
+    paged cache (it holds ``kp``) decodes through the block table in
+    ``ctx``; ``ctx.write_mask`` keeps the masked-out rows' KV as it was."""
     h = _norm(x, block, cfg, "ln1")
-    att, _ = decode_attention(block.attn, cfg, h, cache["self"], ctx.pos,
-                              window=ctx.window, use_rope=cfg.use_rope)
+    if "kp" in cache["self"]:
+        att, _ = decode_attention_paged(
+            block.attn, cfg, h, cache["self"], ctx.pos, ctx.block_tbl,
+            window=ctx.window, use_rope=cfg.use_rope,
+            write_mask=ctx.write_mask)
+    else:
+        att, _ = decode_attention(block.attn, cfg, h, cache["self"], ctx.pos,
+                                  window=ctx.window, use_rope=cfg.use_rope,
+                                  write_mask=ctx.write_mask)
     x = x + att
     h2 = _norm(x, block, cfg, "ln2")
     return x + _mlp(block.mlp, cfg, h2), cache

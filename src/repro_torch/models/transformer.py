@@ -19,7 +19,8 @@ from torch import nn
 from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
 from repro_torch.models.blocks import (BlockCtx, DecoderBlock, block_decode,
                                        block_forward, init_block,
-                                       init_block_cache)
+                                       init_block_cache,
+                                       init_block_cache_paged)
 from repro_torch.models.common import embed_init_, rms_norm
 
 Caches = Dict[int, List[Dict[str, Any]]]
@@ -192,6 +193,23 @@ class Model(nn.Module):
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         seg_indices: Optional[Sequence[int]] = None,
+                         kv_dtype: str = "float32") -> Caches:
+        """Block-paged caches: self-attention K/V is pooled across rows in
+        ``num_pages`` pages of ``page_size`` tokens (plus a trash page) and
+        addressed through a per-row block table passed to ``decode_step``
+        (the pool has no batch axis).  ``kv_dtype="int8"`` stores pages
+        quantized with per-row scales; otherwise in the model's dtype."""
+        seg_indices = (range(len(self.segments)) if seg_indices is None
+                       else seg_indices)
+        return {si: [init_block_cache_paged(self.cfg, num_pages, page_size,
+                                            device=self.device,
+                                            dtype=self.dtype,
+                                            kv_dtype=kv_dtype)
+                     for _ in range(self.segments[si].length)]
+                for si in seg_indices}
+
     def invalidate_cache_after(self, caches: Caches, true_len: int) -> Caches:
         """Mark self-attention ring slots >= true_len invalid (pos = -1),
         in place — used after a right-padded prefill so pad positions never
@@ -240,18 +258,27 @@ class Model(nn.Module):
 
     def decode_step(self, token: torch.Tensor, caches: Caches, pos,
                     seg_indices: Optional[Sequence[int]] = None,
-                    collect_exits: bool = True):
+                    collect_exits: bool = True,
+                    block_tbl: Optional[torch.Tensor] = None,
+                    write_mask: Optional[torch.Tensor] = None):
         """token: (B,1); pos: scalar or per-row (B,) position ->
-        (final hidden (B,1,d), exit_hiddens, caches)."""
+        (final hidden (B,1,d), exit_hiddens, caches).  Paged caches need
+        ``block_tbl`` (B, max_logical) int32 on the model's device;
+        ``write_mask`` (B,) bool leaves the masked-out rows' KV as it
+        was."""
         seg_indices = seg_indices or self.all_segments()
         x = self.embed_tokens(token)
-        ctx = BlockCtx(pos=self._rows_pos(pos, token.shape[0]))
+        ctx = BlockCtx(pos=self._rows_pos(pos, token.shape[0]),
+                       block_tbl=block_tbl, write_mask=write_mask)
         return self.decode_segments(x, ctx, seg_indices, caches,
                                     collect_exits=collect_exits)
 
     def decode_from_hidden(self, hidden: torch.Tensor, caches: Caches, pos,
-                           seg_indices: Sequence[int]):
+                           seg_indices: Sequence[int],
+                           block_tbl: Optional[torch.Tensor] = None,
+                           write_mask: Optional[torch.Tensor] = None):
         """Cloud-partition decode: continue from an uploaded hidden state."""
-        ctx = BlockCtx(pos=self._rows_pos(pos, hidden.shape[0]))
+        ctx = BlockCtx(pos=self._rows_pos(pos, hidden.shape[0]),
+                       block_tbl=block_tbl, write_mask=write_mask)
         return self.decode_segments(hidden, ctx, seg_indices, caches,
                                     collect_exits=False)

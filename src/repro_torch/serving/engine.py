@@ -13,13 +13,27 @@ ContentManager.  Per generated token (Algorithm 1):
   3. the content manager releases unused uploads (paper) or backfills them
      through the cloud partition (beyond-paper exact-KV mode).
 
-``ServingSystem.generate_sequential`` runs one client at a time, batch 1,
-one Python iteration per token — the reference the batched engine of the
-JAX package is held token-identical to.  The batched ``BatchScheduler`` is
-not ported yet (ROADMAP A.5).
+Two execution engines implement that contract, as in the JAX package:
+
+  * ``BatchScheduler`` (``ServingSystem.generate``) — the continuous-
+    batching engine: a fixed pool of B slots stepped by one batched edge
+    step with per-row positions and exit gating, one masked cloud call per
+    tick for every below-θ row, finished slots refilled from the queue.
+    KV lives in per-slot dense rings (``kv_layout="dense"``) or in a
+    block-paged pool shared across slots (``"paged"``; float or int8
+    pages, admission back-pressure when pages run out).
+  * ``ServingSystem.generate_sequential`` — one client at a time, batch 1,
+    one Python iteration per token: the reference the batched engine is
+    held token-identical to.
+
+Greedy decoding over the blocking ``SyncChannel`` only; the other
+samplers and channels, ``CloudBatcher``, preemption, chunked prefill,
+prefix sharing, speculative drafting and fleet replay are not ported yet
+(ROADMAP A.5).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
@@ -30,10 +44,15 @@ import torch
 from repro_torch.core.collm import CoLLM, CollmConfig
 from repro_torch.core.content_manager import ContentManager
 from repro_torch.core.exits import first_confident_exit
+from repro_torch.core.paging import PagePool, pages_needed
 from repro_torch.core.transport import (TOKEN_BYTES, CloudChannel,
                                         StatePacket, SyncChannel,
                                         hidden_wire_bytes)
 from repro_torch.models.transformer import Caches, Model
+from repro_torch.serving.cloud_batcher import (_bucket, _reset_pages_tree,
+                                               _scatter_row,
+                                               _scatter_row_paged,
+                                               build_upload_ring)
 
 
 @dataclasses.dataclass
@@ -202,6 +221,597 @@ class EdgeClient:
         return out
 
 
+# ---------------------------------------------------------------------------
+# continuous-batching engine
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class Request:
+    """One client stream queued for the scheduler.  ``arrival_t`` is its
+    virtual arrival: the scheduler's clock when the run started (open-loop
+    arrivals and SLO targets are not ported yet)."""
+    device_id: str
+    prompt: np.ndarray
+    max_new: int
+    eos_id: Optional[int] = None
+    index: int = 0                   # submission order (result slot)
+    arrival_t: float = 0.0
+
+
+@dataclasses.dataclass
+class _Pending:
+    """One in-flight cloud request of a slot."""
+    pos: int                 # decode position the request serves
+    tok_index: int           # index in slot.tokens its token lands at
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One row of the batched pool.  Lifecycle:
+    FREE -> (admit: prefill + scatter row caches) ACTIVE
+         -> (decode ticks) ... -> (EOS / max_new) FINISHED -> FREE.
+
+    ``seq`` is the slot *generation*: it increments at every admission, so
+    a cloud reply issued by a retired stream can never be applied to the
+    slot's successor.  ``pending`` holds the in-flight cloud request (at
+    most one: the row stalls until it resolves)."""
+    index: int
+    req: Optional[Request] = None
+    stats: Optional[GenStats] = None
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    # virtual commit time of each entry of ``tokens``
+    emit_ts: List[float] = dataclasses.field(default_factory=list)
+    pos: int = 0
+    last_token: int = 0
+    active: bool = False
+    seq: int = 0
+    pending: Dict[int, _Pending] = dataclasses.field(default_factory=dict)
+
+
+class BatchScheduler:
+    """Continuous-batching multi-slot decode engine.
+
+    B client streams advance together under one batched edge step with
+    per-row positions; exits are gated per row; one masked cloud call
+    serves all below-θ rows of a tick; finished slots are refilled from
+    the queue.  KV lives in per-slot dense rings (``kv_layout="dense"``)
+    or in a block-paged pool shared across slots (``"paged"``, float or
+    int8 pages): admission allocates the prompt's pages and waits while
+    the pool cannot cover a request's worst case (conservative
+    back-pressure), each decode tick allocates a page only when a row
+    crosses a page boundary, and retirement frees the slot's pages and
+    invalidates them on the card.  The block table lives on the host
+    (``PagePool.block_table``); its device copy is rebuilt only after an
+    alloc or free changed it, and is shared by every layer of a step.
+
+    Each tick is the JAX engine's two-stage pipeline: the edge pass over
+    every row (rows stalled on a reply, and idle slots, flow through as
+    placeholders whose outputs are dropped and whose paged writes land on
+    the trash page), then one dispatch of this tick's below-θ rows into
+    the cloud channel.  Only the blocking ``SyncChannel`` is ported, so a
+    reply lands in the tick that dispatched it and no deadline can pass;
+    ``tick_time_s`` prices each tick in virtual time.  The late-reply
+    guard (the slot generation ``seq`` checked in ``_resolve``,
+    ``late_drops``, ``drop_in_flight`` at the end of a run) cannot fire
+    over a ``SyncChannel``; it is kept as the JAX engine has it, for the
+    asynchronous channel that ROADMAP A.5 ports next, and ``late_drops``
+    stays among ``generate``'s result keys as in JAX.  Not ported yet
+    (ROADMAP A.5), and refused: samplers other than greedy, other channels
+    (and with them deadlines and the standalone fallback after missed
+    ones), the shared ``CloudBatcher``, preemption and its schedule,
+    adaptive control, resume pricing, open-loop arrivals and SLOs."""
+
+    def __init__(self, collm: CoLLM, cm: ContentManager, num_slots: int,
+                 max_seq: int, mode: str = "collm", sampler: str = "greedy",
+                 max_ctx: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 channel: Optional[CloudChannel] = None,
+                 tick_time_s: float = 0.0, fallback_after: int = 0,
+                 cloud_batcher: Any = None, preempt_schedule: Any = None,
+                 adaptive: Any = None, resume_cost: Any = None):
+        if mode not in ("collm", "standalone", "cloud"):
+            raise ValueError(mode)
+        refused = {"sampler": sampler != "greedy",
+                   "channel": (channel is not None
+                               and type(channel) is not SyncChannel),
+                   "cloud_batcher": cloud_batcher is not None,
+                   "preempt_schedule": bool(preempt_schedule),
+                   "adaptive": adaptive is not None,
+                   "resume_cost": resume_cost is not None,
+                   "fallback_after": fallback_after > 0}
+        bad = [name for name, on in refused.items() if on]
+        if bad:
+            raise NotImplementedError(
+                f"BatchScheduler options {bad} are not ported yet (ROADMAP "
+                f"A.5): greedy decoding over a SyncChannel only")
+        self.collm = collm
+        self.model = collm.model
+        self.ccfg = collm.ccfg
+        self.cm = cm
+        self.B = num_slots
+        self.max_seq = max_seq
+        self.mode = mode
+        self.slots = [_Slot(index=i) for i in range(num_slots)]
+
+        self.channel = channel if channel is not None else SyncChannel()
+        self.tick_time_s = float(tick_time_s)
+        self.vnow = 0.0
+        self.last_virtual_time = 0.0
+        self.late_drops = 0          # replies dropped after slot moved on
+
+        self.layout = self.ccfg.kv_layout
+        if self.layout not in ("dense", "paged"):
+            raise ValueError(f"kv_layout {self.layout!r}")
+        self.pool: Optional[PagePool] = None
+        self._tbl_device: Optional[torch.Tensor] = None  # cached device table
+        if self.layout == "paged":
+            ps = self.ccfg.page_size
+            self.max_ctx = max_ctx or max_seq
+            n_pages = num_pages or num_slots * pages_needed(max_seq, ps)
+            self.pool = PagePool(n_pages, ps, num_slots,
+                                 pages_needed(self.max_ctx, ps))
+            row_seq = _bucket(self.max_ctx)
+        else:
+            self.max_ctx = max_seq
+            row_seq = max_seq
+        self._row_seq = row_seq        # single-row prefill cache capacity
+
+        # pooled caches, and one single-row prefill cache per partition
+        # that every admission reuses (a prefill rewrites slots [0, pad)
+        # and invalidates everything from the true length on)
+        if mode == "cloud":
+            self.main_caches = self._init_pool_cache(
+                self.model.init_cache,
+                lambda b, n, ps: self.model.init_paged_cache(
+                    n, ps, kv_dtype=self.ccfg.kv_dtype))
+            self._full_row0 = self.model.init_cache(1, row_seq)
+        else:
+            self.edge_caches = self._init_pool_cache(
+                collm.init_edge_cache, collm.init_edge_cache_paged)
+            self._edge_row0 = collm.init_edge_cache(1, row_seq)
+            if mode == "collm":
+                self.cloud_caches = self._init_pool_cache(
+                    collm.init_cloud_cache, collm.init_cloud_cache_paged)
+                self._cloud_row0 = collm.init_cloud_cache(1, row_seq)
+
+    def _init_pool_cache(self, dense_init, paged_init):
+        if self.layout == "paged":
+            return paged_init(self.B, self.pool.num_pages,
+                              self.pool.page_size)
+        return dense_init(self.B, self.max_seq)
+
+    def _trees(self) -> List[Caches]:
+        return [getattr(self, n) for n in
+                ("main_caches", "edge_caches", "cloud_caches")
+                if getattr(self, n, None) is not None]
+
+    def kv_cache_bytes(self) -> int:
+        """Device bytes held by the pooled KV caches (the number the paged
+        layout shrinks: num_pages x page_size instead of B x max_seq)."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for tree in self._trees() for layers in tree.values()
+                   for c in layers for leaf in c["self"].values())
+
+    def _block_tbl(self) -> Optional[torch.Tensor]:
+        """Device copy of the pool's block table, uploaded again only after
+        an alloc/free actually changed it (most ticks change nothing)."""
+        if self.pool is None:
+            return None
+        if self._tbl_device is None:
+            self._tbl_device = torch.tensor(self.pool.block_table,
+                                            device=self.model.device)
+        return self._tbl_device
+
+    # -- admission ----------------------------------------------------------
+    def _outstanding_pages(self) -> int:
+        """Worst-case pages still owed to the active streams, so that an
+        admitted stream can always finish."""
+        out = 0
+        for s in self.slots:
+            if not s.active or s.req is None:
+                continue
+            worst = pages_needed(len(s.req.prompt) + s.req.max_new,
+                                 self.pool.page_size)
+            out += max(0, worst - self.pool.owned_pages(s.index))
+        return out
+
+    def _admissible(self, req: Request, p_len: int, pad: int) -> bool:
+        """Capacity check.  Impossible requests raise; a request the paged
+        pool could serve but not *right now* stays queued (back-pressure).
+        The check is the conservative worst case, so a decode-time alloc
+        can never fail."""
+        if p_len + req.max_new > self.max_ctx or pad > self._row_seq:
+            raise ValueError(
+                f"request {req.device_id}: prompt {p_len} + max_new "
+                f"{req.max_new} exceeds max context {self.max_ctx}")
+        if self.pool is None:
+            return True
+        need_worst = pages_needed(p_len + req.max_new, self.pool.page_size)
+        if need_worst > self.pool.num_pages:
+            raise ValueError(
+                f"request {req.device_id}: needs {need_worst} pages but the "
+                f"pool only has {self.pool.num_pages}")
+        return need_worst <= (self.pool.free_pages
+                              - self._outstanding_pages())
+
+    def _reset_freed(self, freed: List[int]) -> None:
+        """Invalidate freed physical pages (pos = -1) on every cache tree
+        this engine holds, so reallocation can never leak their K/V."""
+        if not freed:
+            return
+        for tree in self._trees():
+            _reset_pages_tree(tree, freed)
+
+    def _alloc_page(self, idx: int, lp: int) -> None:
+        self.pool.alloc(idx, lp)
+        self._tbl_device = None
+
+    def _admit_pages(self, slot: _Slot, p_len: int, pad: int) -> np.ndarray:
+        """Allocate the prompt's pages now (later pages are alloc-on-write)
+        and return the scatter table (one physical id per logical bucket
+        page; -1 = trash for bucket padding past the prompt)."""
+        pool = self.pool
+        n_prompt = pages_needed(p_len, pool.page_size)
+        for lp in range(n_prompt):
+            self._alloc_page(slot.index, lp)
+        pages = np.full((pages_needed(pad, pool.page_size),), -1, np.int32)
+        pages[:n_prompt] = pool.block_table[slot.index, :n_prompt]
+        return pages
+
+    def _scatter_admit(self, full: Caches, row: Caches, slot: _Slot,
+                       pages: Optional[np.ndarray]) -> Caches:
+        if pages is None:
+            return _scatter_row(full, row, slot.index)
+        return _scatter_row_paged(full, row, slot.index, pages)
+
+    def _admit(self, queue) -> bool:
+        admitted = False
+        dev = self.model.device
+        for slot in self.slots:
+            if slot.active or slot.req is not None or not queue:
+                # a finished-but-uncollected slot keeps its req until
+                # _collect copies the results out — never reuse it here
+                continue
+            req: Request = queue[0]
+            prompt = np.asarray(req.prompt, np.int32)
+            p_len = len(prompt)
+            # right-padded prefill is exact: every ported block is
+            # attention, where pads are causally invisible to real tokens
+            pad = _bucket(p_len)
+            if not self._admissible(req, p_len, pad):
+                break                       # FIFO back-pressure: wait for pages
+            queue.popleft()
+            pages = (self._admit_pages(slot, p_len, pad)
+                     if self.pool is not None else None)
+            tokens = torch.zeros((1, pad), dtype=torch.long, device=dev)
+            tokens[0, :p_len] = torch.as_tensor(prompt, device=dev)
+            st = GenStats()
+            if self.mode == "cloud":
+                t0 = time.perf_counter()
+                logits, row = self.collm.full_prefill_padded(
+                    tokens, p_len, self._full_row0)
+                self.main_caches = self._scatter_admit(self.main_caches, row,
+                                                       slot, pages)
+                tok = int(logits[0, 0].argmax())
+                st.cloud_time += time.perf_counter() - t0
+            else:
+                t0 = time.perf_counter()
+                decisions, h1_seq, row = self.collm.edge_prefill_padded(
+                    tokens, p_len, self._edge_row0)
+                self.edge_caches = self._scatter_admit(self.edge_caches, row,
+                                                       slot, pages)
+                fetched = {l: (int(d.token[0]), float(d.confidence[0]))
+                           for l, d in decisions.items()}
+                st.edge_time += time.perf_counter() - t0
+
+                prefill_logits = None
+                if self.mode == "collm":
+                    t0 = time.perf_counter()
+                    logits, crow = self.collm.cloud_prefill_padded(
+                        h1_seq, p_len, self._cloud_row0)
+                    self.cloud_caches = self._scatter_admit(
+                        self.cloud_caches, crow, slot, pages)
+                    prefill_logits = logits[:, 0]
+                    st.cloud_time += time.perf_counter() - t0
+                    st.upload_bytes += hidden_wire_bytes(
+                        self.model.cfg.d_model, self.ccfg.wire_format,
+                        seq=p_len)
+                tok = self._first_token(fetched, prefill_logits, st)
+            st.tokens = 1
+            slot.req, slot.stats = req, st
+            slot.tokens = [tok]
+            slot.emit_ts = [self.vnow]
+            slot.last_token = tok
+            slot.pos = p_len
+            slot.active = True
+            slot.seq += 1            # late replies of the predecessor drop
+            slot.pending = {}
+            admitted = True
+            self._maybe_finish(slot)
+        return admitted
+
+    def _first_token(self, fetched: Dict, prefill_logits, st: GenStats) -> int:
+        """First token from the prompt's last position — same decision tree
+        as the sequential path."""
+        layers = sorted(fetched)
+        if self.mode == "standalone":
+            return fetched[layers[-1]][0]
+        for l in layers:
+            tok_l, conf_l = fetched[l]
+            if conf_l >= self.ccfg.theta:
+                return tok_l
+        # cloud already prefilled through the prompt: its last-position
+        # logits ARE the cloud answer for the first token
+        st.cloud_requests += 1
+        return int(prefill_logits[0].argmax())
+
+    def _finalize_latency(self, slot: _Slot) -> None:
+        """Fold the stream's per-token emission timestamps (virtual time)
+        into its stats at retirement: TTFT and inter-token gaps."""
+        ts = slot.emit_ts
+        if not ts:
+            return
+        slot.stats.ttft_s.append(ts[0] - slot.req.arrival_t)
+        slot.stats.token_lat_s.extend(b - a for a, b in zip(ts, ts[1:]))
+
+    # -- slot retirement ----------------------------------------------------
+    def _maybe_finish(self, slot: _Slot) -> bool:
+        req = slot.req
+        done = (len(slot.tokens) >= req.max_new
+                or (req.eos_id is not None
+                    and slot.tokens[-1] == req.eos_id))
+        done = done and not slot.pending
+        if done:
+            self._finalize_latency(slot)
+            if self.mode == "collm":
+                self.cm.end_of_sequence(req.device_id)
+            slot.active = False
+            if self.pool is not None:
+                self._free_pages(slot)
+        return done
+
+    def _runnable(self, s: _Slot) -> bool:
+        """A slot decodes this tick unless it is stalled on an in-flight
+        cloud reply."""
+        if not s.active or s.pending:
+            return False
+        if len(s.tokens) >= s.req.max_new:
+            return False
+        if (s.req.eos_id is not None and s.tokens
+                and s.tokens[-1] == s.req.eos_id):
+            return False
+        return True
+
+    def _free_pages(self, slot: _Slot) -> None:
+        """Bulk-free a retired slot's pages and invalidate them on device
+        (pos = -1) so reallocation can never leak its K/V."""
+        freed = self.pool.free_slot(slot.index)
+        self._tbl_device = None
+        self._reset_freed(freed)
+
+    # -- one decode tick ----------------------------------------------------
+    def tick(self) -> None:
+        """One step of the two-stage pipeline: resolve due replies, run the
+        edge pass for every row, dispatch this tick's below-θ cloud
+        requests, resolve again (a ``SyncChannel`` reply arrives within
+        the same tick)."""
+        self._resolve()
+        runnable = [s for s in self.slots if self._runnable(s)]
+        if not runnable:
+            # a SyncChannel reply lands in the tick that dispatched it, and
+            # a row at its end retires at once: an active slot can always
+            # decode
+            raise RuntimeError("scheduler wedged: active slots but no row "
+                               "can decode")
+        if self.pool is not None:
+            for s in runnable:
+                # alloc-on-write: this tick writes KV at s.pos
+                lp = s.pos // self.pool.page_size
+                if self.pool.block_table[s.index, lp] == -1:
+                    self._alloc_page(s.index, lp)
+        tokens = np.zeros((self.B, 1), np.int64)
+        pos = np.zeros((self.B,), np.int32)
+        for s in self.slots:
+            if s.active:     # stalled rows: placeholder decode, outputs dropped
+                tokens[s.index, 0] = s.last_token
+                pos[s.index] = s.pos
+        dev = self.model.device
+        tokens = torch.as_tensor(tokens, device=dev)
+        pos_t = torch.as_tensor(pos, device=dev)
+
+        self.vnow += self.tick_time_s    # this tick's edge compute (virtual)
+        if self.mode == "cloud":
+            self._tick_cloud(runnable, tokens, pos_t)
+        else:
+            self._tick_edge(runnable, tokens, pos_t)
+
+        for s in runnable:
+            s.pos += 1
+            self._maybe_finish(s)
+        self._resolve()
+
+    def _tick_cloud(self, runnable, tokens, pos) -> None:
+        t0 = time.perf_counter()
+        tok, _, self.main_caches = self.collm.full_step(
+            tokens, self.main_caches, pos, self._block_tbl())
+        next_tok = tok.cpu().numpy()
+        dt = (time.perf_counter() - t0) / len(runnable)
+        for s in runnable:
+            s.stats.cloud_time += dt
+            self._emit(s, int(next_tok[s.index]))
+
+    def _tick_edge(self, runnable, tokens, pos) -> None:
+        collm, ccfg = self.collm, self.ccfg
+        t0 = time.perf_counter()
+        out = collm.edge_step(tokens, self.edge_caches, pos, self._block_tbl())
+        self.edge_caches = out.caches
+        # one device->host copy per tick: exit token, exit flag, the l_ee2
+        # token and every exit's confidence (float64 holds all exactly)
+        layers = sorted(out.decisions)
+        host = torch.stack(
+            [out.token.double(), out.exited.double(),
+             out.decisions[collm.l_ee2].token.double()]
+            + [out.decisions[l].confidence.double() for l in layers]
+        ).cpu().numpy()
+        exit_toks = host[0].astype(np.int64)
+        exited = host[1] > 0
+        tok2 = host[2].astype(np.int64)
+        confs = dict(zip(layers, host[3:]))
+        edge_dt = (time.perf_counter() - t0) / len(runnable)
+
+        for s in runnable:
+            s.stats.edge_time += edge_dt
+            s.stats.tokens += 1
+            c1 = float(confs.get(collm.l_ee1, np.zeros(self.B))[s.index])
+            c2 = float(confs.get(collm.l_ee2, np.zeros(self.B))[s.index])
+            s.stats.confidences.append((c1, c2))
+
+        if self.mode == "standalone":
+            for s in runnable:
+                if s.stats.confidences[-1][0] >= ccfg.theta:
+                    s.stats.exits_l1 += 1
+                else:
+                    s.stats.exits_l2 += 1
+                self._emit(s, int(tok2[s.index]))
+            return
+
+        # parallel upload (always dispatched at l_ee1) — batched receive
+        up = out.upload
+        pkts = {s.index: StatePacket(
+            hidden={k: v[s.index:s.index + 1] for k, v in up.items()},
+            pos=s.pos) for s in runnable}
+        self.cm.upload_batch((s.req.device_id, s.pos, pkts[s.index])
+                             for s in runnable)
+        for s in runnable:
+            nb = pkts[s.index].nbytes()
+            s.stats.upload_bytes += nb
+            self.channel.notify_upload(s.index, nb, self.vnow)
+
+        needy = [s for s in runnable if not exited[s.index]]
+        if needy:
+            self._dispatch_cloud(needy, pos)
+        for s in runnable:
+            if exited[s.index]:
+                if s.stats.confidences[-1][0] >= ccfg.theta:
+                    s.stats.exits_l1 += 1
+                else:
+                    s.stats.exits_l2 += 1
+                self._emit(s, int(exit_toks[s.index]))
+            # else: needy — token arrives via the channel (_resolve)
+
+    def _dispatch_cloud(self, needy: List[_Slot], pos: torch.Tensor) -> None:
+        """Stage 2: one masked cloud call computes every below-θ slot of
+        the tick (with backfill, the ring of each row's pending uploads);
+        per-row requests enter the channel.  The logits stay on the card
+        until the drain materializes them."""
+        ccfg = self.ccfg
+        dev = self.model.device
+        t0 = time.perf_counter()
+        if ccfg.backfill:
+            rings = self.cm.take_uploads_upto_batch(
+                [(s.req.device_id, s.pos) for s in needy])
+            ring, ring_pos, valid = build_upload_ring(
+                [(s.index, pend) for s, pend in zip(needy, rings)], self.B)
+            logits, self.cloud_caches = self.collm.ring_cloud_steps(
+                ring, ring_pos, valid, self.cloud_caches, self._block_tbl())
+        else:
+            pkts = self.cm.take_upload_batch(
+                [(s.req.device_id, s.pos) for s in needy])
+            rows = torch.as_tensor([s.index for s in needy], device=dev)
+            dense = {}
+            for k, v in pkts[0].hidden.items():
+                dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
+                                       dtype=v.dtype, device=dev)
+                dense[k][rows] = torch.cat([p.hidden[k] for p in pkts])
+            mask = torch.zeros((self.B,), dtype=torch.bool, device=dev)
+            mask[rows] = True
+            logits, self.cloud_caches = self.collm.cloud_step(
+                dense, self.cloud_caches, pos, block_tbl=self._block_tbl(),
+                write_mask=mask)
+        group = {"logits": logits, "np": None}   # materialized at drain
+
+        dt = (time.perf_counter() - t0) / len(needy)
+        for s in needy:
+            s.stats.cloud_time += dt
+            h = self.channel.submit(
+                slot=s.index, seq=s.seq, pos=s.pos, reply=(group, s.index),
+                now=self.vnow, nbytes_up=TOKEN_BYTES, nbytes_down=TOKEN_BYTES)
+            s.pending[h] = _Pending(pos=s.pos, tok_index=len(s.tokens))
+
+    # -- reply drain --------------------------------------------------------
+    def _reply_token(self, rep) -> int:
+        """Materialize a reply group's tokens (once per dispatched batch)
+        and return this row's."""
+        group, row = rep.reply
+        if group["np"] is None:
+            group["np"] = group["logits"].argmax(dim=-1).cpu().numpy()
+        return int(group["np"][row])
+
+    def _resolve(self) -> None:
+        """Drain the replies that have arrived by the current virtual
+        time."""
+        for rep in self.channel.poll(self.vnow):
+            s = self.slots[rep.slot] if rep.slot < self.B else None
+            if (s is None or not s.active or s.seq != rep.seq
+                    or rep.handle not in s.pending):
+                # the slot retired or was refilled: a late reply must never
+                # land on its successor
+                self.late_drops += 1
+                continue
+            s.pending.pop(rep.handle)
+            s.stats.cloud_requests += 1
+            self._emit(s, self._reply_token(rep))
+            self._maybe_finish(s)
+
+    def _emit(self, slot: _Slot, tok: int) -> None:
+        slot.tokens.append(tok)
+        slot.emit_ts.append(self.vnow)
+        slot.last_token = tok
+        if self.mode == "cloud":
+            slot.stats.tokens += 1
+
+    # -- driver -------------------------------------------------------------
+    def _collect(self, results, stats) -> None:
+        """Retire finished slots (frees them for the next admission)."""
+        for s in self.slots:
+            if s.req is not None and not s.active:
+                results[s.req.index] = s.tokens
+                stats[s.req.index] = s.stats
+                s.req = None
+
+    def run(self, requests: Sequence[Request]):
+        """Drain a request list through the slot pool; returns
+        (token lists, per-request GenStats) in submission order."""
+        for i, r in enumerate(requests):
+            r.index = i
+            r.arrival_t += self.vnow
+        queue = collections.deque(requests)
+        results: List[Optional[List[int]]] = [None] * len(requests)
+        stats: List[Optional[GenStats]] = [None] * len(requests)
+        v0 = self.vnow
+        self.late_drops = 0
+        # a reused channel must not leak the previous run's in-flight
+        # replies into this run's trace
+        self.channel.reset()
+        while queue or any(s.active for s in self.slots):
+            admitted = self._admit(queue)
+            self._collect(results, stats)     # finished at admission
+            if any(s.active for s in self.slots):
+                self.tick()
+                self._collect(results, stats)
+            elif queue and not admitted:
+                # nothing active, nothing admitted, yet work remains: no
+                # tick can ever free pages (conservative admission makes
+                # this impossible; an admission that finished instantly
+                # sets ``admitted`` and refills)
+                raise RuntimeError(
+                    f"scheduler wedged: {len(queue)} queued, 0 active, "
+                    f"pool {self.pool and self.pool.free_pages} pages free")
+        # replies still in flight belong to retired slots — discard them
+        self.late_drops += self.channel.drop_in_flight()
+        self.last_virtual_time = self.vnow - v0
+        return results, stats
+
+
 class ServingSystem:
     """End-to-end multi-client co-inference on the model's device."""
 
@@ -210,6 +820,74 @@ class ServingSystem:
         self.ccfg = ccfg
         self.collm = CoLLM(model, ccfg)
         self.cloud = CloudServer(self.collm)
+        self._schedulers: Dict[tuple, BatchScheduler] = {}
+
+    @torch.no_grad()
+    def generate(self, prompts: Sequence[np.ndarray], max_new: int,
+                 mode: str = "collm", max_seq: Optional[int] = None, *,
+                 num_slots: Optional[int] = None, sampler: str = "greedy",
+                 eos_id: Optional[int] = None,
+                 max_ctx: Optional[int] = None,
+                 num_pages: Optional[int] = None,
+                 channel: Optional[CloudChannel] = None,
+                 tick_time_s: float = 0.0, fallback_after: int = 0,
+                 preempt_schedule: Optional[Sequence] = None,
+                 arrivals: Optional[Sequence[float]] = None,
+                 slo_ttft_s: Optional[float] = None,
+                 slo_tpot_s: Optional[float] = None,
+                 adaptive: Any = None, resume_cost: Any = None
+                 ) -> Dict[str, Any]:
+        """mode: collm | standalone | cloud.  One client per prompt, decoded
+        by the continuous-batching ``BatchScheduler`` (num_slots streams in
+        flight; defaults to min(len(prompts), 8)).  The KV layout follows
+        ``CollmConfig.kv_layout``; ``max_ctx``/``num_pages`` size the paged
+        pool (defaults: max_ctx = max_seq, num_pages = dense-equivalent);
+        ``tick_time_s`` is the virtual edge compute per decode tick.  The
+        other options exist to be refused: samplers other than greedy,
+        other channels, ``fallback_after``, preemption schedules, adaptive
+        control, resume pricing, open-loop ``arrivals`` and SLOs are not
+        ported yet (ROADMAP A.5).  Returns the JAX package's result
+        keys."""
+        if (arrivals is not None or slo_ttft_s is not None
+                or slo_tpot_s is not None):
+            raise NotImplementedError(
+                "open-loop arrivals and SLO targets (fleet replay) are not "
+                "ported yet (ROADMAP A.5)")
+        slots = num_slots or max(1, min(len(prompts), 8))
+        longest = max(len(p) for p in prompts)
+        max_seq = max_seq or (longest + max_new + 8)
+        max_seq = max(max_seq, _bucket(longest))
+        key = (mode, slots, max_seq, sampler, max_ctx, num_pages,
+               id(channel) if channel is not None else None,
+               tick_time_s, fallback_after)
+        sched = self._schedulers.get(key)
+        if sched is None:
+            # bounded cache: each scheduler owns pooled device caches
+            # (slots x max_seq x layers), so evict oldest beyond a few
+            while len(self._schedulers) >= 4:
+                self._schedulers.pop(next(iter(self._schedulers)))
+            sched = BatchScheduler(
+                self.collm, self.cloud.cm, slots, max_seq, mode=mode,
+                sampler=sampler, max_ctx=max_ctx, num_pages=num_pages,
+                channel=channel, tick_time_s=tick_time_s,
+                fallback_after=fallback_after,
+                preempt_schedule=preempt_schedule, adaptive=adaptive,
+                resume_cost=resume_cost)
+            self._schedulers[key] = sched
+        reqs = [Request(device_id=f"edge-{i}", prompt=np.asarray(p),
+                        max_new=max_new, eos_id=eos_id)
+                for i, p in enumerate(prompts)]
+        results, stats = sched.run(reqs)
+        return {"tokens": results, "stats": _aggregate(stats),
+                "per_client": stats, "cm_stats": self.cloud.cm.stats(),
+                "num_slots": slots,
+                "virtual_time": sched.last_virtual_time,
+                "late_drops": sched.late_drops,
+                "channel_stats": sched.channel.stats.as_row(),
+                "preemptions": 0, "oops": 0,
+                "adaptive": None,
+                "pool_stats": (dataclasses.asdict(sched.pool.stats)
+                               if sched.pool is not None else None)}
 
     @torch.no_grad()
     def generate_sequential(self, prompts: Sequence[np.ndarray],

@@ -1,0 +1,182 @@
+"""PyTorch port, slice level: properties of the batched engine
+(``ServingSystem.generate`` over ``BatchScheduler``) within the port, on
+the CPU, on the briefly trained tiny model of ``tests/test_torch_batched.py``
+(which holds the engine to the JAX package's streams and counters).
+
+float32 pages give the dense layout's streams; ``generate`` gives
+``generate_sequential``'s streams and counters; a second run through one
+scheduler reuses the freed pages; an impossible request raises; a masked
+cloud step leaves the masked-out rows' caches bit for bit; and every
+option that is not ported raises ``NotImplementedError``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from test_torch_batched import (COUNTERS, LAYOUTS, LENS, MAX_NEW,  # noqa: E402
+                                SLOTS, pair)
+from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
+from repro_torch.core.transport import CloudChannel, quantize  # noqa: E402
+from repro_torch.serving.engine import BatchScheduler, ServingSystem  # noqa: E402
+
+__all__ = ["pair"]          # the shared module-scoped fixture
+
+
+@pytest.mark.parametrize("mode,theta,backfill", [
+    ("collm", 0.2, False), ("collm", 0.8, True), ("collm", 1.0, False),
+    ("standalone", 0.2, False), ("cloud", 1.0, False)])
+def test_paged_equals_dense_in_port(pair, mode, theta, backfill):
+    """float32 pages hold what a dense ring holds: the same streams."""
+    prompts = pair[3]
+    d = ServingSystem(pair[2], CollmConfig(theta=theta, backfill=backfill)
+                      ).generate(prompts, MAX_NEW, mode=mode,
+                                 num_slots=SLOTS)
+    p = ServingSystem(pair[2], CollmConfig(theta=theta, backfill=backfill,
+                                           kv_layout="paged")
+                      ).generate(prompts, MAX_NEW, mode=mode,
+                                 num_slots=SLOTS)
+    assert p["tokens"] == d["tokens"]
+    for name in COUNTERS:
+        assert getattr(p["stats"], name) == getattr(d["stats"], name), name
+
+
+@pytest.mark.parametrize("layout,theta,wire,backfill", [
+    ("dense", 0.2, "float16", False), ("dense", 0.8, "int8", True),
+    ("paged", 0.2, "int8", True), ("paged", 1.0, "float16", False)])
+def test_generate_equals_generate_sequential(pair, layout, theta, wire,
+                                             backfill):
+    """Continuous batching emits the per-client loop's streams and
+    counters (refill and per-row positions exercised)."""
+    prompts = pair[3]
+    ccfg = CollmConfig(theta=theta, wire_format=wire, backfill=backfill,
+                       **LAYOUTS[layout])
+    seq = ServingSystem(pair[2], ccfg).generate_sequential(prompts, MAX_NEW)
+    bat = ServingSystem(pair[2], ccfg).generate(prompts, MAX_NEW,
+                                                num_slots=SLOTS)
+    assert bat["tokens"] == seq["tokens"]
+    for name in COUNTERS:
+        assert getattr(bat["stats"], name) == getattr(seq["stats"], name), \
+            name
+
+
+def test_page_reuse_engine_deterministic(pair):
+    """A second run through the same scheduler reuses the pages the first
+    freed (and reset); its streams are the same."""
+    tsys = ServingSystem(pair[2], CollmConfig(theta=0.2, kv_layout="paged",
+                                              kv_dtype="int8"))
+    r1 = tsys.generate(pair[3], MAX_NEW, num_slots=2)
+    r2 = tsys.generate(pair[3], MAX_NEW, num_slots=2)
+    assert r1["tokens"] == r2["tokens"]
+    assert r2["pool_stats"]["allocs"] == 2 * r1["pool_stats"]["allocs"]
+
+
+def test_impossible_request_raises(pair):
+    tsys = ServingSystem(pair[2], CollmConfig(theta=0.8, kv_layout="paged"))
+    with pytest.raises(ValueError, match="pages"):
+        # needs more pages than the whole pool ever has
+        tsys.generate(pair[3][:1], 60, num_slots=2, max_seq=16, max_ctx=80,
+                      num_pages=2)
+    with pytest.raises(ValueError, match="max context"):
+        tsys.generate(pair[3][:1], 60, num_slots=2, max_seq=16)
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@torch.no_grad()
+def test_masked_cloud_step_keeps_masked_rows(pair, layout):
+    """Rows masked out of a cloud step keep every cache leaf bit for bit;
+    the masked-in rows get what an unmasked step writes."""
+    tm = pair[2]
+    collm = CoLLM(tm, CollmConfig(**LAYOUTS[layout]))
+    b, ps = 3, 16
+    rng = np.random.default_rng(0)
+    tbl = None
+    if layout == "dense":
+        caches = collm.init_cloud_cache(b, 32)
+    else:
+        caches = collm.init_cloud_cache_paged(b, 6, ps)
+        tbl = torch.tensor([[1, 2], [3, 4], [5, 6]], dtype=torch.int32)
+    hidden = torch.from_numpy(rng.normal(size=(b, 1, tm.cfg.d_model)
+                                         ).astype(np.float32))
+    pos = torch.tensor([5, 17, 30], dtype=torch.int32)
+    # fill some history first, every row
+    for p0 in range(3):
+        collm.cloud_step(quantize(hidden * (p0 + 1), "float32"), caches,
+                         pos - 3 + p0, block_tbl=tbl)
+    before = _clone(caches)
+    mask = torch.tensor([True, False, True])
+    collm.cloud_step(quantize(hidden, "float32"), caches, pos,
+                     block_tbl=tbl, write_mask=mask)
+    ref = _clone(before)
+    collm.cloud_step(quantize(hidden, "float32"), ref, pos, block_tbl=tbl)
+    for (_, a), (_, w), (_, r) in zip(_leaves(before), _leaves(caches),
+                                      _leaves(ref)):
+        if layout == "dense":
+            assert torch.equal(w[1], a[1])           # masked-out row
+            assert torch.equal(w[[0, 2]], r[[0, 2]])
+        else:
+            # the masked-out row's pages, and every other page but the
+            # trash page, hold what they held
+            assert torch.equal(w[3:5], a[3:5])
+            assert torch.equal(w[[1, 2, 5, 6]], r[[1, 2, 5, 6]])
+
+
+def _clone(caches):
+    return {si: [{"self": {k: v.clone() for k, v in c["self"].items()}}
+                 for c in layers] for si, layers in caches.items()}
+
+
+def _leaves(caches):
+    return [(k, v) for layers in caches.values() for c in layers
+            for k, v in c["self"].items()]
+
+
+class _OtherChannel(CloudChannel):
+    pass
+
+
+REFUSED_GENERATE = {
+    "sampler": dict(sampler="temperature"),
+    "channel": dict(channel=_OtherChannel()),
+    "fallback_after": dict(fallback_after=2),
+    "preempt_schedule": dict(preempt_schedule=[(1, 0)]),
+    "adaptive": dict(adaptive=object()),
+    "resume_cost": dict(resume_cost=object()),
+    "arrivals": dict(arrivals=[0.0] * len(LENS)),
+    "slo": dict(slo_ttft_s=1.0),
+}
+REFUSED_CONFIG = {
+    "speculative": dict(speculative=True),
+    "spec_k": dict(speculative=True, spec_k=2),
+    "chunked_prefill": dict(kv_layout="paged", chunked_prefill=True),
+    "prefix_share": dict(kv_layout="paged", chunked_prefill=True,
+                         prefix_share=True),
+    "preemption": dict(kv_layout="paged", preemption="recompute"),
+    "cloud_mesh": dict(cloud_mesh=(1, 1)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED_GENERATE) + sorted(
+    REFUSED_CONFIG) + ["cloud_batcher"])
+def test_refused_options_raise(pair, name):
+    tm, prompts = pair[2], pair[3]
+    if name in REFUSED_CONFIG:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+            ServingSystem(tm, CollmConfig(**REFUSED_CONFIG[name]))
+        return
+    tsys = ServingSystem(tm, CollmConfig(kv_layout="paged"))
+    if name == "cloud_batcher":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+            BatchScheduler(tsys.collm, tsys.cloud.cm, 2, 32,
+                           cloud_batcher=object())
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        tsys.generate(prompts, 4, **REFUSED_GENERATE[name])
+
+
+def test_kv_dtype_checks(pair):
+    tm = pair[2]
+    with pytest.raises(ValueError, match="paged"):
+        CoLLM(tm, CollmConfig(kv_dtype="int8"))           # dense ring
+    with pytest.raises(ValueError, match="kv_dtype"):
+        CoLLM(tm, CollmConfig(kv_dtype="int4", kv_layout="paged"))

@@ -2,6 +2,10 @@
 PyTorch version on the same CUDA tensors, and the serving loop on the card
 against the same loop on the CPU.
 
+The batched engine (``ServingSystem.generate``) is held to the same: a
+small float32 model served on block-paged KV on the card gives the streams
+of the dense layout on the card and on the CPU.
+
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
 with a card:
@@ -23,14 +27,17 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.collm import CollmConfig  # noqa: E402
-from repro_torch.kernels.decode_attn.ops import decode_attn  # noqa: E402
-from repro_torch.kernels.decode_attn.ref import decode_attn_ref  # noqa: E402
+from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
+    decode_attn, decode_attn_paged, decode_attn_paged_int8)
+from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
+    decode_attn_paged_ref, decode_attn_ref)
 from repro_torch.kernels.exit_head.ops import exit_head  # noqa: E402
 from repro_torch.kernels.exit_head.ref import exit_head_ref  # noqa: E402
 from repro_torch.kernels.exit_quant.ops import exit_quant  # noqa: E402
 from repro_torch.kernels.exit_quant.ref import exit_quant_ref  # noqa: E402
 from repro_torch.kernels.quantize.ops import quantize_int8  # noqa: E402
 from repro_torch.kernels.quantize.ref import quantize_int8_ref  # noqa: E402
+from repro_torch.models.attention import quantize_kv_rows  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ServingSystem  # noqa: E402
 
@@ -78,6 +85,111 @@ def test_decode_attn_kernel(cuda, dtype, atol, b, h, kv, d, s, window):
     want = decode_attn_ref(q, k, v, pos, cur, window=window)
     assert got.dtype == dtype and torch.all(got[-1] == 0)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
+    """A page pool with ragged per-row fills through a scattered block
+    table (pages handed out in shuffled order, a hole in one row's table,
+    the last row with nothing mapped) and, with ``gaps``, positions that
+    were never written."""
+    n_pages = 1 + b * n_lp
+    kp = rng.normal(size=(n_pages, ps, kv, d)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, ps, kv, d)).astype(np.float32)
+    pos = np.full((n_pages, ps), -1, np.int32)
+    tbl = np.full((b, n_lp), -1, np.int32)
+    cur = np.zeros((b,), np.int32)
+    free = list(rng.permutation(np.arange(1, n_pages)))
+    for bi in range(b - 1):
+        fill = int(rng.integers(ps // 2, n_lp * ps))
+        cur[bi] = fill - 1
+        for lp in range(-(-fill // ps)):
+            if bi == 0 and lp == 1:
+                continue                      # a hole in the table
+            pg = int(free.pop())
+            tbl[bi, lp] = pg
+            n = min(ps, fill - lp * ps)
+            pos[pg, :n] = np.arange(lp * ps, lp * ps + n)
+            if gaps:
+                pos[pg, :n][rng.random(n) < 0.3] = -1
+    cur[-1] = n_lp * ps - 1                   # nothing mapped: output 0
+    return kp, vp, pos, tbl, cur
+
+
+@pytest.mark.parametrize("dtype,int8,atol", [
+    (torch.float32, False, 2e-5), (torch.bfloat16, False, 2e-2),
+    (torch.float16, False, 2e-3), (torch.bfloat16, True, 2e-2),
+    (torch.float32, True, 2e-5)])
+@pytest.mark.parametrize("b,h,kv,d,ps,n_lp,window,gaps", [
+    (8, 32, 32, 128, 16, 35, 0, False),   # ee-llm-7b decode, 8 slots
+    (3, 8, 2, 64, 16, 9, 48, True),       # GQA 4 with a window, gaps
+    (2, 16, 2, 128, 8, 12, 0, True),      # group of 8, 8-token pages
+    (3, 4, 2, 64, 32, 4, 0, False),       # group of 2, 32-token pages
+])
+def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
+                                  n_lp, window, gaps):
+    rng = np.random.default_rng(b * 100 + d + ps)
+    kp, vp, pos, tbl, cur = _paged_pool(b, kv, d, ps, n_lp, rng, gaps=gaps)
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32), cuda, dtype)
+    pos, tbl, cur = _t(pos, cuda), _t(tbl, cuda), _t(cur, cuda)
+    if int8:
+        kq, ks = quantize_kv_rows(_t(kp, cuda))
+        vq, vs = quantize_kv_rows(_t(vp, cuda))
+        op, args = decode_attn_paged_int8, (q, kq, vq, ks, vs, pos, tbl, cur)
+        want = decode_attn_paged_ref(q, kq, vq, pos, tbl, cur, window,
+                                     k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = _t(kp, cuda, dtype), _t(vp, cuda, dtype)
+        op, args = decode_attn_paged, (q, kp, vp, pos, tbl, cur)
+        want = decode_attn_paged_ref(q, kp, vp, pos, tbl, cur, window)
+    before = op.launches
+    got = op(*args, window=window)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1
+    assert got.dtype == dtype and torch.all(got[-1] == 0)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+PAGED_SMALL = ModelConfig(name="ee-small-64", arch_type="dense", n_layers=4,
+                          d_model=256, n_heads=4, n_kv_heads=2, head_dim=64,
+                          d_ff=512, vocab_size=500,
+                          exit_layers=(1, 2)).validate()
+
+
+@pytest.mark.parametrize("mode,backfill", [("collm", False),
+                                           ("collm", True), ("cloud", False),
+                                           ("standalone", False)])
+def test_generate_paged_on_the_card_matches_dense(cuda, mode, backfill):
+    """float32 weights from one seed: ``generate`` on block-paged KV on the
+    card (the paged kernel in every layer) gives the streams of the dense
+    layout on the card and on the CPU; more prompts than slots, so pages
+    are freed and reused.  int8 pages run the int8 variant to the end."""
+    cpu = build_model(PAGED_SMALL, device="cpu", seed=5)
+    gpu = build_model(PAGED_SMALL, device=cuda, seed=5)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, PAGED_SMALL.vocab_size, n)
+               for i, n in enumerate((24, 9, 40, 17, 30))]
+    full = ServingSystem(cpu, CollmConfig(theta=1.0)).generate(prompts, 16)
+    c = sorted(l1 for l1, _ in full["stats"].confidences)
+    theta = (c[len(c) // 2 - 1] + c[len(c) // 2]) / 2
+    kw = dict(theta=theta, backfill=backfill)
+    runs = {}
+    for name, dev, layout in (("cpu", cpu, {}), ("dense", gpu, {}),
+                              ("paged", gpu, dict(kv_layout="paged")),
+                              ("int8", gpu, dict(kv_layout="paged",
+                                                 kv_dtype="int8"))):
+        before = (decode_attn_paged.launches, decode_attn_paged_int8.launches)
+        runs[name] = ServingSystem(dev, CollmConfig(**kw, **layout)).generate(
+            prompts, 16, mode, num_slots=3)
+        runs[name]["launched"] = (decode_attn_paged.launches - before[0],
+                                  decode_attn_paged_int8.launches - before[1])
+    assert runs["paged"]["tokens"] == runs["dense"]["tokens"] \
+        == runs["cpu"]["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
+        assert getattr(runs["paged"]["stats"], name) == \
+            getattr(runs["cpu"]["stats"], name)
+    assert runs["paged"]["launched"][0] > 0 == runs["paged"]["launched"][1]
+    assert runs["int8"]["launched"][1] > 0 == runs["int8"]["launched"][0]
+    assert [len(t) for t in runs["int8"]["tokens"]] == [16] * len(prompts)
 
 
 def _exit_inputs(b, d, v, dev, dtype, tie=None, seed=0):

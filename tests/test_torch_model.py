@@ -322,7 +322,10 @@ def test_collm_rejects_unported_features():
                        n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
                        exit_layers=(1,))
     model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="kv_layout"):
-        CoLLM(model, CollmConfig(kv_layout="paged"))
+    # the paged layout is ported (tests/test_torch_batched.py); chunked
+    # prefill on it is not
+    CoLLM(model, CollmConfig(kv_layout="paged"))
+    with pytest.raises(NotImplementedError, match="chunked_prefill"):
+        CoLLM(model, CollmConfig(kv_layout="paged", chunked_prefill=True))
     with pytest.raises(ValueError):
         CoLLM(model, CollmConfig(wire_format="bfloat16"))

@@ -112,6 +112,22 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert [len(t) for t in r["tokens"]] == [5, 5]
 
 
+def test_serve_launcher_paged_int8_runs_on_cpu(capsys):
+    """The launcher serves through the batched engine on a paged int8 pool,
+    with more clients than slots."""
+    from repro_torch.launch import serve
+    r = serve.main(["--smoke", "--device", "cpu", "--clients", "3",
+                    "--num-slots", "2", "--prompt-len", "6", "--max-new",
+                    "5", "--kv-layout", "paged", "--kv-dtype", "int8",
+                    "--theta", "0.5"])
+    out = capsys.readouterr().out
+    assert "kv=paged/int8 slots=2" in out and "agreement vs cloud" in out
+    assert [len(t) for t in r["tokens"]] == [5, 5, 5]
+    assert r["pool_stats"]["allocs"] == r["pool_stats"]["frees"] > 0
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--kv-dtype", "int8"])
+
+
 def test_entry_points_never_fall_back_to_cpu():
     """No device means CUDA; without a card that raises instead of running
     on the CPU."""
