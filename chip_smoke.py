@@ -10,8 +10,9 @@ exit code and no result line:
    hand-written kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all at once) with ptxas' registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on CUDA tensors at the
-   shapes of the ee-llm-7b decode path (the paged decode attention at 8
-   slots, float32, bfloat16 and int8 pages), with its device time (CUDA
+   shapes of the ee-llm-7b decode path (the ring decode attention at B=1
+   and B=8, the paged one at 8 slots and at B=1, float32, bfloat16 and int8
+   pages), with its device time (CUDA
    events), the plain version's, one PyTorch library call's where one
    computes the same function, and the bound (bytes over 3.35 TB/s or
    operations over the peak rate of the input type, whichever is larger);
@@ -132,9 +133,25 @@ def build_kernels() -> None:
             m = re.search(r"Used (\d+) registers(.*)", line)
             if m and entry:
                 smem = re.search(r"(\d+) bytes smem", m.group(2))
-                print(f"  ptxas {name}: {entry[:72]} regs={m.group(1)} "
+                print(f"  ptxas {name}: {short_name(entry)} regs={m.group(1)} "
                       f"smem={smem.group(1) if smem else 0} B {spills}")
                 entry = None
+
+
+def short_name(mangled: str) -> str:
+    """A kernel's name and template arguments out of its mangled symbol
+    (``decode_attn_kernel<bf16,128,1>``), else its first 72 characters."""
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return mangled[:72]
+    args = re.sub(r"Li(\d+)E?", r",\1,", m.group(2))
+    for code, name in (("13__nv_bfloat16", "bf16,"), ("6__half", "f16,"),
+                       ("S1_", "same,")):
+        args = args.replace(code, name)
+    args = ",".join(a if a not in ("f", "a") else {"f": "f32", "a": "int8"}[a]
+                    for a in re.split(r",+", args.replace("fa", "f,a")
+                                      .replace("ff", "f,f")) if a)
+    return f"{m.group(1)}<{args}>"
 
 
 # ---------------------------------------------------------------------------
@@ -146,67 +163,100 @@ def attn_inputs(b, s, dtype, dev, gen, *, masked_row=False):
     k = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
     v = torch.randn((b, s, kv, d), generator=gen, device=dev).to(dtype)
     pos = torch.arange(s, dtype=torch.int32, device=dev).repeat(b, 1)
-    cur = torch.tensor([s - 1, 400, 131, 0][:b], dtype=torch.int32,
-                       device=dev)
+    cur = torch.tensor([s - 1, 400, 131, 0, s - 1, 300, 64, 17][:b],
+                       dtype=torch.int32, device=dev)
     if masked_row:
         pos[-1] = -1                          # a row with no valid key
     return q, k, v, pos, cur
 
 
-def check_decode_attn(dev, gen) -> dict:
+def time_ring(b, n_sets, dev, gen) -> dict:
+    """Device time of ``decode_attn`` at B=b, bf16, full 552-key rings,
+    beside its plain version and SDPA, on ``n_sets`` rings in turn (more
+    than the 50 MB L2 in all), with bytes and operations of the first."""
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
     s = MAX_SEQ
+    sets = [attn_inputs(b, s, torch.bfloat16, dev, gen)
+            for _ in range(n_sets)]
+    for _, _, _, _, cur in sets:
+        cur.fill_(s - 1)                      # every row attends all keys
+    ms = device_ms(lambda i: decode_attn(*sets[i % n_sets]))
+    plain = device_ms(lambda i: decode_attn_ref(*sets[i % n_sets]))
+    h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
+    sdpa = [(q.view(b, h, 1, d), k.transpose(1, 2).contiguous(),
+             v.transpose(1, 2).contiguous(),
+             ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :])
+            for q, k, v, pos, cur in sets]
+    lib = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        *sdpa[i % n_sets][:3], attn_mask=sdpa[i % n_sets][3]))
+    q, k, v, pos, cur = sets[0]
+    n_valid = int(((pos >= 0) & (pos <= cur[:, None])).sum())
+    nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4 + b * 4
+              + 2 * n_valid * kv * d * k.element_size())
+    bnd, by = bound_ms(nbytes, 4 * h * n_valid * d, torch.bfloat16)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by=by, bytes=nbytes)
+
+
+def check_decode_attn(dev, gen) -> dict:
+    """The ring kernel against its plain version: float32 and bf16; B=1
+    and B=4 (the split plan cuts S in splits) and B=8 (it does not); a row
+    with no valid key; a window; a window that leaves only the last split
+    valid; S=1 and S below one split.  Timed at B=1 (the sequential loop)
+    and B=8 (the dense engine's 8 slots)."""
+    from repro_torch.kernels.decode_attn.ops import (RING_ALIGN,
+                                                     RING_MIN_KEYS,
+                                                     decode_attn, split_plan)
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    s = MAX_SEQ
+    splits, per = split_plan(s, CFG.n_kv_heads, align=RING_ALIGN,
+                             min_per=RING_MIN_KEYS)
+    last = s - (splits - 1) * per             # keys of the last split
     err = 0.0
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
-        for b, window, masked in ((1, 0, False), (4, 0, True),
-                                  (4, 128, False)):
-            q, k, v, pos, cur = attn_inputs(b, s, dtype, dev, gen,
+        for b, n, window, masked in ((1, s, 0, False), (4, s, 0, True),
+                                     (4, s, 128, False), (8, s, 0, True),
+                                     (1, s, last, False), (2, 1, 0, False),
+                                     (2, 40, 0, False)):
+            q, k, v, pos, cur = attn_inputs(b, n, dtype, dev, gen,
                                             masked_row=masked)
+            cur = cur.clamp(max=n - 1)
             got = decode_attn(q, k, v, pos, cur, window=window)
             want = decode_attn_ref(q, k, v, pos, cur, window=window)
             e = max_err(got, want)
             if masked:
                 check(bool(torch.all(got[-1] == 0)), "masked row is not 0")
-            print(f"decode_attn {str(dtype)[6:]} B={b} S={s} window={window}"
+            print(f"decode_attn {str(dtype)[6:]} B={b} S={n} window={window}"
                   f"{' masked-row' if masked else ''}: max|err|={e:.3g} "
                   f"(tol {tol})")
             check(e <= tol, f"decode_attn disagrees with its plain version")
             err = max(err, e)
-    # timing at the decode path's shape: B=1, bf16, a full ring; 12 rings
-    # (108 MB) in turn, so every launch finds its K/V outside the 50 MB L2
-    sets = [attn_inputs(1, s, torch.bfloat16, dev, gen) for _ in range(12)]
-    ms = device_ms(lambda i: decode_attn(*sets[i % 12]))
-    plain = device_ms(lambda i: decode_attn_ref(*sets[i % 12]))
-    h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
-    sdpa = [(q.view(1, h, 1, d), k.transpose(1, 2).contiguous(),
-             v.transpose(1, 2).contiguous(),
-             ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :])
-            for q, k, v, pos, cur in sets]
-    lib = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        *sdpa[i % 12][:3], attn_mask=sdpa[i % 12][3]))
-    q, k, v, pos, cur = sets[0]
-    n_valid = int(((pos >= 0) & (pos <= cur[:, None])).sum())
-    nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4 + 4
-              + 2 * n_valid * kv * d * k.element_size())
-    bnd, by = bound_ms(nbytes, 4 * h * n_valid * d, torch.bfloat16)
-    return dict(name="decode_attn", source="src/repro_torch/csrc/decode_attn.cu",
-                replaces="src/repro/kernels/decode_attn/kernel.py:94",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=lib)
+    q, k, v, pos, cur = attn_inputs(1, s, torch.bfloat16, dev, gen)
+    again = [decode_attn(q, k, v, pos, cur) for _ in range(2)]
+    check(torch.equal(*again), "decode_attn differs between two calls")
+    print(f"decode_attn bf16 B=1 in {splits} splits: two calls "
+          f"bit-identical: True")
+    # B=1: 12 rings (108 MB) in turn; B=8: 4 rings of 72 MB
+    row = dict(name="decode_attn",
+               source="src/repro_torch/csrc/decode_attn.cu",
+               replaces="src/repro/kernels/decode_attn/kernel.py:94",
+               max_abs_err=err, **time_ring(1, 12, dev, gen))
+    row["b8"] = time_ring(8, 4, dev, gen)
+    return row
 
 
-def paged_inputs(dtype, dev, gen, *, holes=False, sets=1):
+def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS):
     """Float32 K/V pages at ee-llm-7b's head shape (H = KV = 32, d = 128,
     16-token pages) and, for each of ``sets`` tables, (q, pos, tbl, cur)
-    of 8 rows with ragged fills of 128-552 keys, pages handed out in
+    of ``b`` rows with ragged fills of 128-552 keys, pages handed out in
     shuffled order.  ``holes`` leaves one row's second table entry
     unmapped, punches never-written positions into the pages and maps
     nothing for the last row (output 0).  The tables map disjoint pages of
     one pool, so that timed calls in turn find their pages outside the L2
     cache."""
     h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
-    b, ps = SLOTS, PAGE_SIZE
+    ps = PAGE_SIZE
     n_lp = -(-FILLS[1] // ps)
     fills = torch.randint(FILLS[0], FILLS[1] + 1, (sets, b), generator=gen,
                           device=dev).tolist()
@@ -267,20 +317,76 @@ def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
     return nbytes, 4 * h * n_valid * d
 
 
-def check_decode_attn_paged(dev, gen) -> list:
+PAGED_VARIANTS = (("decode_attn_paged", False, ((torch.float32, 2e-5),
+                                                 (torch.bfloat16, 2e-2))),
+                  ("decode_attn_paged_int8", True, ((torch.bfloat16, 2e-2),)))
+
+
+def time_paged(b, n_sets, dev, gen) -> dict:
+    """Device time of both paged variants at ``b`` rows, bf16 q, on
+    ``n_sets`` tables over disjoint pages of one pool (more than the 50 MB
+    L2 in all) called in turn, beside the plain version and paged_gather +
+    SDPA.  Both variants read the same tables and pages (int8 quantized
+    from them); bytes and operations are the mean over the tables, as the
+    times are."""
     from repro_torch.kernels.decode_attn.ops import decode_attn_paged
     from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
     from repro_torch.models.attention import paged_gather
-    variants = (("decode_attn_paged", False, ((torch.float32, 2e-5),
-                                              (torch.bfloat16, 2e-2))),
-                ("decode_attn_paged_int8", True, ((torch.bfloat16, 2e-2),)))
+    kp, vp, sets = paged_inputs(torch.bfloat16, dev, gen, sets=n_sets, b=b)
+    h, d = CFG.n_heads, CFG.resolved_head_dim
+    out = {}
+    for name, int8, _ in PAGED_VARIANTS:
+        pool = paged_pool(kp, vp, torch.bfloat16, int8)
+        scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
+                  if int8 else {})
+        calls = [(q, pool["kp"], pool["vp"], pos, tbl, cur)
+                 for q, pos, tbl, cur in sets]
+        ms = device_ms(lambda i: decode_attn_paged(*calls[i % n_sets],
+                                                   **scales))
+        plain = device_ms(lambda i: decode_attn_paged_ref(*calls[i % n_sets],
+                                                          **scales))
+        cache = {"kp": pool["kp"], "vp": pool["vp"]}
+        if int8:
+            cache.update(ks=pool["k_scale"], vs=pool["v_scale"])
+
+        def library(i):
+            q, pos, tbl, cur = sets[i % n_sets]
+            k, v, kpos = paged_gather(dict(cache, pos=pos), tbl)
+            mask = (kpos >= 0) & (kpos <= cur[:, None])
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.view(b, h, 1, d), k.transpose(1, 2).to(q.dtype),
+                v.transpose(1, 2).to(q.dtype),
+                attn_mask=mask[:, None, None, :])
+
+        lib = device_ms(library)
+        counts = [paged_bytes_ops(pool, *s) for s in sets]
+        nbytes = sum(c[0] for c in counts) / n_sets
+        ops = sum(c[1] for c in counts) / n_sets
+        bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
+        out[name] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                         bound_by=by, bytes=nbytes)
+    return out
+
+
+def check_decode_attn_paged(dev, gen) -> list:
+    """Both paged variants against their plain version: 8 slots with
+    ragged fills, with holes, gaps and a row with nothing mapped, with a
+    single mapped page a row, and one row (its pages cut in splits).  Timed
+    at 8 slots (the batched engine) and at B=1."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn_paged
+    from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
     errs = {}
-    for name, int8, dtypes in variants:
+    for name, int8, dtypes in PAGED_VARIANTS:
         err = 0.0
         for dtype, tol in dtypes:
-            for holes in (False, True):
+            for label, b, holes in (("", SLOTS, False),
+                                    (" holes+gaps+empty row", SLOTS, True),
+                                    (" one page a row", SLOTS, False),
+                                    ("", 1, False)):
                 kp, vp, [(q, pos, tbl, cur)] = paged_inputs(
-                    dtype, dev, gen, holes=holes)
+                    dtype, dev, gen, holes=holes, b=b)
+                if label == " one page a row":
+                    tbl[:, 1:] = -1
                 pool = paged_pool(kp, vp, dtype, int8)
                 scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
                           if int8 else {})
@@ -291,55 +397,18 @@ def check_decode_attn_paged(dev, gen) -> list:
                 if holes:
                     check(bool(torch.all(got[-1] == 0)),
                           f"{name}: the unmapped row is not 0")
-                print(f"{name} {str(dtype)[6:]} B={SLOTS} fills "
+                print(f"{name} {str(dtype)[6:]} B={b} fills "
                       f"{cur.min().item() + 1}-{cur.max().item() + 1}"
-                      f"{' holes+gaps+empty row' if holes else ''}: "
-                      f"max|err|={e:.3g} (tol {tol})")
+                      f"{label}: max|err|={e:.3g} (tol {tol})")
                 check(e <= tol, f"{name} disagrees with its plain version")
                 err = max(err, e)
         errs[name] = err
-    # timing at the serving shape: bf16 q, 8 slots, 4 tables over disjoint
-    # pages of one pool (> 50 MB), called in turn; both variants read the
-    # same tables and pages (int8 quantized from them), and bytes and
-    # operations are the mean over the four tables, as the times are
-    kp, vp, sets = paged_inputs(torch.bfloat16, dev, gen, sets=4)
-    h, d = CFG.n_heads, CFG.resolved_head_dim
-    rows = []
-    for name, int8, _ in variants:
-        pool = paged_pool(kp, vp, torch.bfloat16, int8)
-        scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
-                  if int8 else {})
-        calls = [(q, pool["kp"], pool["vp"], pos, tbl, cur)
-                 for q, pos, tbl, cur in sets]
-        n = len(calls)
-        ms = device_ms(lambda i: decode_attn_paged(*calls[i % n], **scales))
-        plain = device_ms(lambda i: decode_attn_paged_ref(*calls[i % n],
-                                                          **scales))
-        cache = {"kp": pool["kp"], "vp": pool["vp"]}
-        if int8:
-            cache.update(ks=pool["k_scale"], vs=pool["v_scale"])
-
-        def library(i):
-            q, pos, tbl, cur = sets[i % n]
-            k, v, kpos = paged_gather(dict(cache, pos=pos), tbl)
-            mask = (kpos >= 0) & (kpos <= cur[:, None])
-            return torch.nn.functional.scaled_dot_product_attention(
-                q.view(SLOTS, h, 1, d), k.transpose(1, 2).to(q.dtype),
-                v.transpose(1, 2).to(q.dtype),
-                attn_mask=mask[:, None, None, :])
-
-        lib = device_ms(library)
-        counts = [paged_bytes_ops(pool, *s) for s in sets]
-        nbytes = sum(c[0] for c in counts) / n
-        ops = sum(c[1] for c in counts) / n
-        bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
-        rows.append(dict(name=name,
-                         source="src/repro_torch/csrc/decode_attn_paged.cu",
-                         replaces="src/repro/kernels/decode_attn/kernel.py:236",
-                         max_abs_err=errs[name], ms=ms, plain_ms=plain,
-                         bound_ms=bnd, bound_by=by, library_ms=lib,
-                         bytes=nbytes))
-    return rows
+    # 8 slots: 4 tables over one pool of > 50 MB; B=1: 12 tables
+    t8, t1 = time_paged(SLOTS, 4, dev, gen), time_paged(1, 12, dev, gen)
+    return [dict(name=name, source="src/repro_torch/csrc/decode_attn_paged.cu",
+                 replaces="src/repro/kernels/decode_attn/kernel.py:236",
+                 max_abs_err=errs[name], **t8[name], b1=t1[name])
+            for name, _, _ in PAGED_VARIANTS]
 
 
 def exit_inputs(b, dtype, dev, gen, tie=None, hidden=None):
@@ -524,6 +593,15 @@ def check_small_model(dev) -> None:
         print(f"small model batched {mode}/{wire}: paged card == dense card "
               f"== CPU: {same}")
         check(same, f"small model batched {mode}: the paged stream differs")
+
+
+def print_time(label, r) -> None:
+    lib = r["library_ms"]
+    print(f"time {label}: {r['ms'] * 1e3:.2f} us (bound "
+          f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}"
+          f"{'; %.0f bytes' % r['bytes'] if 'bytes' in r else ''}; plain "
+          f"{r['plain_ms'] * 1e3:.2f} us; library "
+          f"{'-' if lib is None else '%.2f us' % (lib * 1e3)})")
 
 
 # ---------------------------------------------------------------------------
@@ -758,11 +836,10 @@ def main(argv=None) -> None:
             check_exit_quant(dev, gen, cases)]
     del cases
     for r in rows:
-        print(f"time {r['name']}: {r['ms'] * 1e3:.2f} us (bound "
-              f"{r['bound_ms'] * 1e3:.2f} us by {r['bound_by']}"
-              f"{'; %.0f bytes' % r['bytes'] if 'bytes' in r else ''}; plain "
-              f"{r['plain_ms'] * 1e3:.2f} us; library "
-              f"{'-' if r['library_ms'] is None else '%.2f us' % (r['library_ms'] * 1e3)})")
+        print_time(r["name"], r)
+        for shape in ("b8", "b1"):
+            if shape in r:
+                print_time(f"{r['name']} ({shape.upper()})", r[shape])
     check_small_model(dev)
     torch.cuda.empty_cache()
 

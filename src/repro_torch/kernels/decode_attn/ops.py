@@ -3,13 +3,16 @@ cache (``csrc/decode_attn.cu``) and the block-paged pool with float or int8
 pages (``csrc/decode_attn_paged.cu``).
 
 A CUDA tensor goes through the hand-written kernel (or the wrapper raises);
-a CPU tensor goes through the plain version in ``ref.py``.  Each wrapper's
-``launches`` counts its kernel launches (the paged kernel's int8 variant
-counts on ``decode_attn_paged_int8``)."""
+a CPU tensor goes through the plain version in ``ref.py``.  Where the (row,
+kv head) pairs cannot fill the card, both kernels cut the keys of a row
+in splits (:func:`split_plan`), one block each, which merge inside the
+same launch (a thread block cluster), so one call is one CUDA launch.
+Each wrapper's ``launches`` counts calls that went to the kernel (the
+paged kernel's int8 variant counts on ``decode_attn_paged_int8``)."""
 from __future__ import annotations
 
 from ctypes import c_int, c_void_p
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,7 +22,36 @@ from repro_torch.kernels.decode_attn.ref import (decode_attn_paged_ref,
 
 HEAD_DIMS = (32, 64, 128, 256)
 GROUPS = (1, 2, 4, 8)
-_ARGTYPES = [c_int, c_int] + [c_void_p] * 6 + [c_int] * 6 + [c_void_p]
+_ARGTYPES = [c_int, c_int] + [c_void_p] * 6 + [c_int] * 8 + [c_void_p]
+
+SMS = 132               # streaming multiprocessors of an H100 SXM
+MAX_SPLITS = 8          # blocks of a thread block cluster (portable limit)
+RING_ALIGN = 16         # ring keys of a split: whole tiles at d = 128
+RING_MIN_KEYS = 192     # ring keys of a split, at least (fewer lose more
+                        # to the merge than they gain on the H100)
+PAGED_MIN_PAGES = 2     # logical pages of a split, at least
+
+
+def split_plan(n: int, pairs: int, *, align: int = 1,
+               min_per: int = 1) -> Tuple[int, int]:
+    """Cut the ``n`` units (ring keys, or logical pages) of each of
+    ``pairs`` (row, kv head) pairs into contiguous splits, one block each.
+    With at least one pair per SM nothing is cut (a split costs its merge
+    and, measured on the H100, loses more than it balances); with fewer,
+    ``pairs * splits`` blocks aim at one per SM, at most ``MAX_SPLITS``
+    splits a pair.
+
+    Returns ``(splits, per)``: split ``i`` covers units ``[i * per,
+    min(n, (i + 1) * per))``.  ``per`` is a multiple of ``align`` (or
+    ``n``) and at least ``min_per`` where ``n`` allows; every split is
+    non-empty and every unit lies in exactly one."""
+    if n < 1 or pairs < 1:
+        raise ValueError(f"split_plan: n={n}, pairs={pairs}")
+    want = 1 if pairs >= SMS else min(MAX_SPLITS, -(-SMS // pairs))
+    per = -(-n // want)
+    per = max(min_per, -(-per // align) * align)
+    per = min(per, n)
+    return -(-n // per), per
 
 
 def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,12 +79,15 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attn: head_dim {d} / group {h}/{kvh} not "
                          f"supported (head_dim in {HEAD_DIMS}, H/KV in "
                          f"{GROUPS})")
+    splits, per = split_plan(s, b * kvh, align=RING_ALIGN,
+                             min_per=RING_MIN_KEYS)
     out = torch.empty_like(q)
     fn = _build.function("decode_attn", "decode_attn_launch", _ARGTYPES)
     _build.check("decode_attn", fn(
         dev.index, _build.DTYPE_CODES[q.dtype], _build.ptr(q), _build.ptr(k),
         _build.ptr(v), _build.ptr(pos_ids), _build.ptr(cur_pos),
-        _build.ptr(out), b, h, kvh, s, d, int(window), _build.stream(q)))
+        _build.ptr(out), b, h, kvh, s, d, int(window), splits, per,
+        _build.stream(q)))
     decode_attn.launches += 1
     return out
 
@@ -62,7 +97,7 @@ decode_attn.launches = 0
 
 PAGED_HEAD_DIMS = (64, 128)
 _PAGED_CODES = {**_build.DTYPE_CODES, torch.float16: 2}
-_PAGED_ARGTYPES = [c_int] * 3 + [c_void_p] * 9 + [c_int] * 7 + [c_void_p]
+_PAGED_ARGTYPES = [c_int] * 3 + [c_void_p] * 9 + [c_int] * 9 + [c_void_p]
 
 
 def decode_attn_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
@@ -135,6 +170,7 @@ def _paged_launch(q, kp, vp, k_scale, v_scale, pos_pages, block_tbl,
         raise ValueError(f"{op}: head_dim {d} / group {h}/{kvh} not "
                          f"supported (head_dim in {PAGED_HEAD_DIMS}, H/KV "
                          f"in {GROUPS})")
+    splits, per = split_plan(n_lp, b * kvh, min_per=PAGED_MIN_PAGES)
     out = torch.empty_like(q)
     null = c_void_p(None)
     fn = _build.function("decode_attn_paged", "decode_attn_paged_launch",
@@ -145,7 +181,7 @@ def _paged_launch(q, kp, vp, k_scale, v_scale, pos_pages, block_tbl,
         _build.ptr(k_scale) if quantized else null,
         _build.ptr(v_scale) if quantized else null, _build.ptr(pos_pages),
         _build.ptr(block_tbl), _build.ptr(cur_pos), _build.ptr(out), b, h,
-        kvh, ps, n_lp, d, int(window), _build.stream(q)))
+        kvh, ps, n_lp, d, int(window), splits, per, _build.stream(q)))
     return out
 
 

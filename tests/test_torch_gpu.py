@@ -28,7 +28,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.collm import CollmConfig  # noqa: E402
 from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
-    decode_attn, decode_attn_paged, decode_attn_paged_int8)
+    PAGED_MIN_PAGES, RING_ALIGN, RING_MIN_KEYS, decode_attn,
+    decode_attn_paged, decode_attn_paged_int8, split_plan)
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_paged_ref, decode_attn_ref)
 from repro_torch.kernels.exit_head.ops import exit_head  # noqa: E402
@@ -85,6 +86,40 @@ def test_decode_attn_kernel(cuda, dtype, atol, b, h, kv, d, s, window):
     want = decode_attn_ref(q, k, v, pos, cur, window=window)
     assert got.dtype == dtype and torch.all(got[-1] == 0)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,s,window", [
+    (1, 552, 0),        # the sequential loop's decode shape: split in 3
+    (8, 552, 0),        # the dense engine's 8 slots
+    (2, 1, 0),          # one key
+    (2, 40, 0),         # fewer keys than one split
+    (1, 552, None),     # a window that leaves only the last split valid
+])
+def test_decode_attn_kernel_splits(cuda, dtype, atol, b, s, window):
+    """ee-llm-7b's heads (H = KV = 32, d = 128) at the shapes where the
+    split plan cuts S or does not; two calls give the same bits (the
+    splits merge in a fixed order, without atomics)."""
+    h, kv, d = 32, 32, 128
+    splits, per = split_plan(s, b * kv, align=RING_ALIGN,
+                             min_per=RING_MIN_KEYS)
+    if window is None:
+        assert splits > 1
+        window = s - (splits - 1) * per       # keys of the last split
+    rng = np.random.default_rng(b * 1000 + s)
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32), cuda, dtype)
+    k = _t(rng.normal(size=(b, s, kv, d)).astype(np.float32), cuda, dtype)
+    v = _t(rng.normal(size=(b, s, kv, d)).astype(np.float32), cuda, dtype)
+    pos = _t(np.broadcast_to(np.arange(s, dtype=np.int32), (b, s)).copy(),
+             cuda)
+    cur = _t(np.full((b,), s - 1, np.int32), cuda)
+    got = decode_attn(q, k, v, pos, cur, window=window)
+    again = decode_attn(q, k, v, pos, cur, window=window)
+    torch.cuda.synchronize()
+    want = decode_attn_ref(q, k, v, pos, cur, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got, again)
 
 
 def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
@@ -147,6 +182,43 @@ def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
     assert op.launches == before + 1
     assert got.dtype == dtype and torch.all(got[-1] == 0)
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,int8,atol", [
+    (torch.float32, False, 2e-5), (torch.bfloat16, False, 2e-2),
+    (torch.float16, False, 2e-3), (torch.bfloat16, True, 2e-2)])
+@pytest.mark.parametrize("b,h,kv,d,n_lp,one_page", [
+    (8, 32, 32, 128, 35, True),    # 8 slots, a single mapped page a row
+    (2, 8, 2, 64, 40, False),      # 4 (row, kv head) pairs: pages split
+    (1, 32, 32, 128, 35, False),   # ee-llm-7b at one row: pages split
+])
+def test_decode_attn_paged_kernel_splits(cuda, dtype, int8, atol, b, h, kv,
+                                         d, n_lp, one_page):
+    ps = 16
+    splits, _ = split_plan(n_lp, b * kv, min_per=PAGED_MIN_PAGES)
+    assert (splits == 1) == one_page
+    rng = np.random.default_rng(b * 100 + n_lp)
+    kp, vp, pos, tbl, cur = _paged_pool(b + 1, kv, d, ps, n_lp, rng,
+                                        gaps=True)
+    kp, vp, pos, tbl, cur = kp, vp, pos, tbl[:b], cur[:b]
+    if one_page:
+        tbl[:, 1:] = -1
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32), cuda, dtype)
+    pos, tbl, cur = _t(pos, cuda), _t(tbl, cuda), _t(cur, cuda)
+    if int8:
+        kq, ks = quantize_kv_rows(_t(kp, cuda))
+        vq, vs = quantize_kv_rows(_t(vp, cuda))
+        args, kw = (q, kq, vq, pos, tbl, cur), dict(k_scale=ks, v_scale=vs)
+    else:
+        args, kw = (q, _t(kp, cuda, dtype), _t(vp, cuda, dtype), pos, tbl,
+                    cur), {}
+    got = decode_attn_paged(*args, **kw)
+    again = decode_attn_paged(*args, **kw)
+    torch.cuda.synchronize()
+    want = decode_attn_paged_ref(*args, **kw)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(got, again)
 
 
 PAGED_SMALL = ModelConfig(name="ee-small-64", arch_type="dense", n_layers=4,
