@@ -12,12 +12,16 @@ exit code and no result line:
 2. each kernel against its plain PyTorch version on CUDA tensors at the
    shapes of the ee-llm-7b decode path (the ring decode attention at B=1
    and B=8, the paged one at 8 slots and at B=1, float32, bfloat16 and int8
-   pages), with its device time (CUDA
+   pages; the wire quantizer at 1 and 8 rows; the int8 page writes, a
+   decode step at 8 slots and at B=1 and a 512-token prefill scatter, every
+   pool byte, beside PR 13's torch sequence for the same write), with its
+   device time (CUDA
    events), the plain version's, one PyTorch library call's where one
    computes the same function, and the bound (bytes over 3.35 TB/s or
-   operations over the peak rate of the input type, whichever is larger);
+   operations over the peak rate of the type they run in, whichever is
+   larger);
    then a small model served on the card and on the CPU must give the same
-   streams, sequentially and batched on dense and paged KV;
+   streams, sequentially and batched on dense, paged and int8-paged KV;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -491,16 +495,23 @@ def tie_rows(n, dtype, dev):
 
 
 def check_quantize(dev, gen) -> dict:
+    """The wire quantizer against its plain version, bit for bit, at the
+    wire packet's shapes and at every layout of the kernel (a warp a row,
+    narrower loads, a block of 256 or 1024 threads a row); timed at (1,
+    4096) and (8, 4096) bf16."""
     from repro_torch.kernels.quantize.ops import quantize_int8
     from repro_torch.kernels.quantize.ref import quantize_int8_ref
     err = 0.0
     d = CFG.d_model
-    for label, x in ((f"bf16 (1,{d})", torch.randn(
-                         (1, d), generator=gen, device=dev).bfloat16()),
-                     (f"bf16 (8,{d})", torch.randn(
-                         (8, d), generator=gen, device=dev).bfloat16() * 9),
-                     ("f32 .5 ties + zero row",
-                      tie_rows(4, torch.float32, dev))):
+    cases = [(f"bf16 (1,{d})", torch.randn(
+                 (1, d), generator=gen, device=dev).bfloat16()),
+             (f"bf16 (8,{d})", torch.randn(
+                 (8, d), generator=gen, device=dev).bfloat16() * 9),
+             ("f32 .5 ties + zero row", tie_rows(4, torch.float32, dev))]
+    for n, width in ((9, 130), (2, 257), (1, 12288)):
+        cases.append((f"f32 ({n},{width})", torch.randn(
+            (n, width), generator=gen, device=dev) * 5))
+    for label, x in cases:
         (q, s), (qr, sr) = quantize_int8(x), quantize_int8_ref(x)
         e = max(max_err(q, qr), max_err(s, sr))
         print(f"quantize {label}: max|err|={e:.3g} (exact codes and scales)")
@@ -510,14 +521,208 @@ def check_quantize(dev, gen) -> dict:
     half = torch.tensor([[127.0, 2.5, 3.5, -0.5] + [0.0] * 4], device=dev)
     check(quantize_int8(half)[0][0, :4].tolist() == [127, 2, 4, 0],
           "quantize does not round half to even")
-    x = torch.randn((1, d), generator=gen, device=dev).bfloat16()
-    ms = device_ms(lambda i: quantize_int8(x))
-    plain = device_ms(lambda i: quantize_int8_ref(x))
-    bnd, by = bound_ms(x.numel() * 3 + 4, 3 * x.numel(), torch.bfloat16)
+    out = {}
+    for n in (1, SLOTS):
+        x = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+        ms = device_ms(lambda i: quantize_int8(x))
+        plain = device_ms(lambda i: quantize_int8_ref(x))
+        nbytes = x.numel() * 3 + 4 * n
+        bnd, by = bound_ms(nbytes, 3 * x.numel(), torch.float32)
+        out[n] = dict(ms=ms, plain_ms=plain, bound_ms=bnd, bound_by=by,
+                      library_ms=None, bytes=nbytes)
     return dict(name="quantize", source="src/repro_torch/csrc/quantize.cu",
                 replaces="src/repro/kernels/quantize/kernel.py:31",
-                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
-                bound_by=by, library_ms=None)
+                max_abs_err=err, **out[1], b8=out[SLOTS])
+
+
+def kv_pool(n_pages, dev, gen) -> dict:
+    """An int8 page pool at ee-llm-7b's head shape with stale random
+    contents, so that an entry left unwritten shows."""
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    shape = (n_pages, PAGE_SIZE, kv)
+    return {"kp": torch.randint(-127, 128, shape + (d,), generator=gen,
+                                device=dev, dtype=torch.int8),
+            "vp": torch.randint(-127, 128, shape + (d,), generator=gen,
+                                device=dev, dtype=torch.int8),
+            "ks": torch.rand(shape, generator=gen, device=dev),
+            "vs": torch.rand(shape, generator=gen, device=dev),
+            "pos": torch.randint(-1, 600, shape[:2], generator=gen,
+                                 device=dev, dtype=torch.int32)}
+
+
+def pool_err(a, b) -> float:
+    """The largest difference between two pools: every marker; codes and
+    scales outside the trash page 0 (rows that share one of its slots
+    leave either row's codes there)."""
+    return max([max_err(a["pos"], b["pos"])]
+               + [max_err(a[k][1:], b[k][1:]) for k in ("kp", "vp", "ks",
+                                                         "vs")])
+
+
+def write_inputs(b, dtype, dev, gen, *, masked=False):
+    """One decode step's write of ``b`` rows into a pool of 35 pages a row
+    (552 keys): pages in shuffled order, positions drawn from 0-551; row
+    1's entry unmapped, row 2 past its table, row 7 at a negative
+    position; with ``masked``, every third row masked out."""
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    n_lp = -(-FILLS[1] // PAGE_SIZE)
+    pool = kv_pool(1 + b * n_lp, dev, gen)
+    tbl = (1 + torch.randperm(b * n_lp, generator=gen, device=dev)).view(
+        b, n_lp).int()
+    pos = torch.randint(0, FILLS[1], (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if b >= 8:
+        tbl[1, pos[1] // PAGE_SIZE] = -1
+        pos[2] = n_lp * PAGE_SIZE + 3
+        pos[7] = -3
+    mask = (torch.arange(b, device=dev) % 3 != 2) if masked else None
+    knew = (torch.randn((b, kv, d), generator=gen, device=dev) * 4).to(dtype)
+    vnew = (torch.randn((b, kv, d), generator=gen, device=dev) * 4).to(dtype)
+    return pool, (knew, vnew, pos, tbl, mask)
+
+
+def scatter_inputs(length, n_real, pages, dtype, dev, gen):
+    """A prefilled row of ``length`` ring slots (positions 0..n_real-1,
+    then -1) over ``pages`` (ids; < 0 the trash page) of a fresh pool."""
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    pool = kv_pool(1 + max(pages), dev, gen)
+    ar = torch.arange(length, device=dev, dtype=torch.int32)
+    row = {"k": torch.randn((1, length, kv, d), generator=gen,
+                            device=dev).to(dtype) * 3,
+           "v": torch.randn((1, length, kv, d), generator=gen,
+                            device=dev).to(dtype) * 3,
+           "pos": torch.where(ar < n_real, ar, -1)[None]}
+    return pool, (row, torch.tensor(pages, dtype=torch.int32, device=dev))
+
+
+def clone_pool(pool) -> dict:
+    return {k: v.clone() for k, v in pool.items()}
+
+
+def host_ms(fn, iters: int = 50) -> float:
+    """Wall time per call of ``fn(i)`` on the host clock, from the first
+    call issued to the last finished on the card."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(i)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def device_ops(fn) -> int:
+    """Device operations (kernels, copies, fills) that one call of ``fn``
+    runs, counted by ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA"))
+
+
+def time_page_write(name, op, ref, pool, args, nbytes, nelem) -> dict:
+    """Device time of one page-write entry beside its plain version and
+    PR 13's torch sequence (the plain version quantizing through the wire
+    kernel), each sequence's host wall time per call and device operations
+    per call."""
+    from repro_torch.kernels.quantize.ops import quantize_int8
+    pr13 = lambda: ref(pool, *args, quantize=quantize_int8)  # noqa: E731
+    r = dict(ms=device_ms(lambda i: op(pool, *args)),
+             plain_ms=device_ms(lambda i: ref(pool, *args)),
+             pr13_ms=device_ms(lambda i: pr13()),
+             host_ms=host_ms(lambda i: op(pool, *args)),
+             pr13_host_ms=host_ms(lambda i: pr13()),
+             ops=device_ops(lambda: op(pool, *args)),
+             pr13_ops=device_ops(pr13), library_ms=None, bytes=nbytes)
+    r["bound_ms"], r["bound_by"] = bound_ms(nbytes, 3 * nelem, torch.float32)
+    print(f"time {name} PR-13 torch sequence: {r['pr13_ms'] * 1e3:.2f} us "
+          f"device, {r['pr13_host_ms'] * 1e3:.2f} us wall a call, "
+          f"{r['pr13_ops']} device ops a call; the kernel "
+          f"{r['host_ms'] * 1e3:.2f} us wall a call, {r['ops']} device ops")
+    return r
+
+
+def check_kv_write(dev, gen) -> dict:
+    """``quantize_kv_write`` against its plain version and against PR 13's
+    sequence, every pool byte outside page 0's codes and scales, at 8
+    slots (with and without a mask, bf16 and f32) and at B=1; timed at 8
+    slots and at B=1 (bf16)."""
+    from repro_torch.kernels.quantize.ops import (quantize_int8,
+                                                  quantize_kv_write)
+    from repro_torch.kernels.quantize.ref import quantize_kv_write_ref
+    err = 0.0
+    for b, dtype, masked in ((SLOTS, torch.bfloat16, True),
+                             (SLOTS, torch.float32, False),
+                             (1, torch.bfloat16, False)):
+        pool, args = write_inputs(b, dtype, dev, gen, masked=masked)
+        want = quantize_kv_write_ref(clone_pool(pool), *args)
+        old = quantize_kv_write_ref(clone_pool(pool), *args,
+                                    quantize=quantize_int8)
+        got = quantize_kv_write(pool, *args)
+        e, e_old = pool_err(got, want), pool_err(old, want)
+        print(f"quantize_kv_write {str(dtype)[6:]} B={b}"
+              f"{' masked' if masked else ''}: pool max|err|={e:.3g} vs "
+              f"plain, PR-13 sequence {e_old:.3g} (exact)")
+        check(e == 0 and e_old == 0,
+              "quantize_kv_write disagrees with its plain version")
+        err = max(err, e)
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    out = {}
+    for b in (SLOTS, 1):
+        pool, args = write_inputs(b, torch.bfloat16, dev, gen)
+        nelem = 2 * b * kv * d
+        nbytes = nelem * 2 + 8 * b + nelem + 2 * b * kv * 4 + 4 * b
+        out[b] = time_page_write(f"quantize_kv_write (B={b})",
+                                 quantize_kv_write, quantize_kv_write_ref,
+                                 pool, args, nbytes, nelem)
+    return dict(name="quantize_kv_write",
+                source="src/repro_torch/csrc/quantize.cu",
+                replaces="src/repro/kernels/quantize/kernel.py:31",
+                max_abs_err=err, **out[SLOTS], b1=out[1])
+
+
+def check_kv_scatter(dev, gen) -> dict:
+    """``quantize_kv_scatter`` against its plain version and PR 13's
+    sequence: a 512-token prefill over 32 pages, and a 500-slot ring over
+    34 pages (fills past it, the last two pages unmapped); timed at 512
+    tokens (bf16)."""
+    from repro_torch.kernels.quantize.ops import (quantize_int8,
+                                                  quantize_kv_scatter)
+    from repro_torch.kernels.quantize.ref import quantize_kv_scatter_ref
+    main = (512, 500, list(range(32, 0, -1)))
+    err = 0.0
+    for (length, n_real, pages), dtype in (
+            (main, torch.bfloat16),
+            ((500, 480, list(range(1, 33)) + [-1, -1]), torch.float32)):
+        pool, args = scatter_inputs(length, n_real, pages, dtype, dev, gen)
+        want = quantize_kv_scatter_ref(clone_pool(pool), *args)
+        old = quantize_kv_scatter_ref(clone_pool(pool), *args,
+                                      quantize=quantize_int8)
+        got = quantize_kv_scatter(pool, *args)
+        e, e_old = pool_err(got, want), pool_err(old, want)
+        print(f"quantize_kv_scatter {str(dtype)[6:]} ring {length} over "
+              f"{len(pages)} pages: pool max|err|={e:.3g} vs plain, PR-13 "
+              f"sequence {e_old:.3g} (exact)")
+        check(e == 0 and e_old == 0,
+              "quantize_kv_scatter disagrees with its plain version")
+        err = max(err, e)
+    pool, args = scatter_inputs(*main, torch.bfloat16, dev, gen)
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    n_tok = len(main[2]) * PAGE_SIZE
+    nelem = 2 * n_tok * kv * d
+    nbytes = (nelem * 2 + 4 * n_tok + 4 * len(main[2]) + nelem
+              + 2 * n_tok * kv * 4 + 4 * n_tok)
+    r = time_page_write("quantize_kv_scatter (512 tokens)",
+                        quantize_kv_scatter, quantize_kv_scatter_ref, pool,
+                        args, nbytes, nelem)
+    return dict(name="quantize_kv_scatter",
+                source="src/repro_torch/csrc/quantize.cu",
+                replaces="src/repro/kernels/quantize/kernel.py:31",
+                max_abs_err=err, **r)
 
 
 def check_exit_quant(dev, gen, cases) -> dict:
@@ -576,23 +781,30 @@ def check_small_model(dev) -> None:
               "card's stream differs from the CPU's")
         for f in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
             check(getattr(st, f) == getattr(want["stats"], f), f)
-    # the batched engine: paged on the card == dense on the card == CPU
+    # the batched engine: paged on the card == dense on the card == CPU;
+    # int8 pages on the card == int8 pages on the CPU
     prompts += [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
                 for i, n in ((2, 17), (3, 33))]
     for mode, wire in (("cloud", "float32"), ("collm", "int8")):
         runs = {}
-        for name, model, layout in (("cpu", cpu, "dense"),
-                                    ("dense", gpu, "dense"),
-                                    ("paged", gpu, "paged")):
+        for name, model, layout, kv_dtype in (
+                ("cpu", cpu, "dense", "float32"),
+                ("dense", gpu, "dense", "float32"),
+                ("paged", gpu, "paged", "float32"),
+                ("cpu int8", cpu, "paged", "int8"),
+                ("int8", gpu, "paged", "int8")):
             ccfg = CollmConfig(theta=theta, wire_format=wire, backfill=True,
-                               kv_layout=layout)
+                               kv_layout=layout, kv_dtype=kv_dtype)
             runs[name] = ServingSystem(model, ccfg).generate(
                 prompts, 16, mode, num_slots=3)
         same = (runs["paged"]["tokens"] == runs["dense"]["tokens"]
                 == runs["cpu"]["tokens"])
+        same8 = runs["int8"]["tokens"] == runs["cpu int8"]["tokens"]
         print(f"small model batched {mode}/{wire}: paged card == dense card "
-              f"== CPU: {same}")
+              f"== CPU: {same}; int8 pages card == CPU: {same8}")
         check(same, f"small model batched {mode}: the paged stream differs")
+        check(same8, f"small model batched {mode}: the int8-page stream on "
+              f"the card differs from the CPU's")
 
 
 def print_time(label, r) -> None:
@@ -614,11 +826,15 @@ def kernel_ops() -> dict:
                                                      decode_attn_paged_int8)
     from repro_torch.kernels.exit_head.ops import exit_head
     from repro_torch.kernels.exit_quant.ops import exit_quant
-    from repro_torch.kernels.quantize.ops import quantize_int8
+    from repro_torch.kernels.quantize.ops import (quantize_int8,
+                                                  quantize_kv_scatter,
+                                                  quantize_kv_write)
     return {"decode_attn": decode_attn,
             "decode_attn_paged": decode_attn_paged,
             "decode_attn_paged_int8": decode_attn_paged_int8,
             "exit_head": exit_head, "quantize": quantize_int8,
+            "quantize_kv_write": quantize_kv_write,
+            "quantize_kv_scatter": quantize_kv_scatter,
             "exit_quant": exit_quant}
 
 
@@ -695,6 +911,8 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
     r["launched"] = {n: op.launches - before[n]
                      for n, op in kernel_ops().items()}
     sched = next(iter(system._schedulers.values()))
+    r["paged_layers"] = sum("kp" in c["self"] for tree in sched._trees()
+                            for layers in tree.values() for c in layers)
     st = r["stats"]
     check(all(len(t) == MAX_NEW and min(t) >= 0
               and max(t) < model.cfg.vocab_size for t in r["tokens"]),
@@ -746,9 +964,16 @@ def serve_phase4(model, theta) -> None:
         if name == "dense":
             check(launched["decode_attn"] > 0, "dense: decode_attn idle")
         elif name == "paged-int8":
+            # one write per int8 attention call, one scatter per prefilled
+            # paged layer of each admitted prompt
             check(launched["decode_attn_paged_int8"] > 0
-                  and launched["quantize"] > 0,
-                  "paged-int8: int8 paged attention or int8 KV writes idle")
+                  and launched["quantize_kv_write"]
+                  == launched["decode_attn_paged_int8"]
+                  and launched["quantize_kv_scatter"]
+                  == BATCH_PROMPTS * r["paged_layers"],
+                  f"paged-int8: int8 page writes {launched} do not follow "
+                  f"the int8 attention calls and {BATCH_PROMPTS} x "
+                  f"{r['paged_layers']} prefilled layers")
         else:
             check(launched["decode_attn_paged"] > 0,
                   f"{name}: decode_attn_paged was not launched")
@@ -833,6 +1058,7 @@ def main(argv=None) -> None:
     cases = exit_cases(dev, gen)
     rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
             check_exit_head(dev, gen, cases), check_quantize(dev, gen),
+            check_kv_write(dev, gen), check_kv_scatter(dev, gen),
             check_exit_quant(dev, gen, cases)]
     del cases
     for r in rows:

@@ -28,6 +28,7 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 template <int BYTES> struct Raw;
+template <> struct Raw<1> { using type = unsigned char; };
 template <> struct Raw<2> { using type = unsigned short; };
 template <> struct Raw<4> { using type = unsigned int; };
 template <> struct Raw<8> { using type = uint2; };
@@ -73,6 +74,21 @@ __device__ __forceinline__ float int8_scale(float absmax) {
 }
 __device__ __forceinline__ int8_t int8_code(float x, float scale) {
   return (int8_t)fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f);
+}
+
+// The int8 codes of N consecutive floats under one scale, written in one
+// store of N bytes (dst aligned to N).
+template <int N>
+__device__ __forceinline__ void store_codes(int8_t* __restrict__ dst,
+                                            const float* x, float scale) {
+  using R = typename Raw<N>::type;
+  union {
+    R raw;
+    int8_t code[N];
+  } u;
+#pragma unroll
+  for (int i = 0; i < N; ++i) u.code[i] = int8_code(x[i], scale);
+  *reinterpret_cast<R*>(dst) = u.raw;
 }
 
 }  // namespace rt

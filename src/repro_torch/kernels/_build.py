@@ -123,10 +123,12 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def require(op: str, name: str, t: torch.Tensor, *, device: torch.device,
-            shape: Sequence[int], dtypes) -> None:
+            shape: Sequence[int], dtypes, align: int = 16) -> None:
     """Validate one kernel operand before its pointer crosses to C: the
     kernel's device, one of ``dtypes``, exactly ``shape``, contiguous and
-    16-byte aligned (the kernels use 16-byte vector loads)."""
+    ``align``-byte aligned (16 for operands that the kernels read with
+    16-byte vector loads; an operand read element by element needs only
+    its element's alignment)."""
     if t.device != device or device.type != "cuda":
         raise ValueError(f"{op}: {name} is on {t.device}; the kernel needs "
                          f"every operand on one CUDA device ({device})")
@@ -138,5 +140,5 @@ def require(op: str, name: str, t: torch.Tensor, *, device: torch.device,
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{op}: {name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{op}: {name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{op}: {name} must be {align}-byte aligned")

@@ -4,8 +4,10 @@ over a dense ring KV cache or a block-paged KV pool (float or int8 pages).
 
 Port of ``repro.models.attention``.  Decode attention goes through the
 ``decode_attn`` / ``decode_attn_paged`` kernels
-(``repro_torch.kernels.decode_attn``) instead of einsums, and int8 page
-writes through the ``quantize`` kernel.  Caches are updated IN PLACE
+(``repro_torch.kernels.decode_attn``) instead of einsums, and each int8
+page write (a decode step's K/V, a prefilled row's scatter) through one
+launch of a ``quantize`` kernel (``quantize_kv_write`` /
+``quantize_kv_scatter``).  Caches are updated IN PLACE
 (``index_copy_`` / ``index_put_``) where the JAX package returns new
 arrays: the cache passed in is the cache returned.  So a row excluded by a
 decode ``write_mask`` is never written (dense: its old entry is written
@@ -24,7 +26,11 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attn.ops import decode_attn, decode_attn_paged
-from repro_torch.kernels.quantize.ops import quantize_int8
+from repro_torch.kernels.quantize.ops import (quantize_int8,
+                                              quantize_kv_scatter,
+                                              quantize_kv_write)
+from repro_torch.kernels.quantize.ref import (page_slots, page_tiles,
+                                              quantize_rows)
 from repro_torch.models.common import apply_rope, dense_init_
 
 Cache = Dict[str, torch.Tensor]
@@ -153,9 +159,7 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     scaling, through the ``quantize`` kernel on the card.
 
     x: (..., KV, d) -> (q int8 (..., KV, d), scale float32 (..., KV))."""
-    shape = x.shape
-    q, s = quantize_int8(x.reshape(-1, shape[-1]).contiguous())
-    return q.reshape(shape), s.reshape(shape[:-1])
+    return quantize_rows(x, quantize_int8)
 
 
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -202,30 +206,21 @@ def paged_scatter_prefill(cache: Cache, row: Cache, pages) -> Cache:
     on one stream (ring wide enough that slot ``s`` holds position ``s``).
     ``pages``: (ceil(L / page_size),) physical page ids; entries ``< 0``
     redirect to the trash page (right-pad positions beyond the pages the
-    allocator actually granted — their ``pos`` is already -1)."""
-    ps = cache["kp"].shape[1]
-    dest = _page_ids(pages, cache["kp"].device)
-    n_lp = dest.shape[0]
-
-    def tiles(x, fill):
-        x = x[0][:n_lp * ps]                       # drop batch axis, trim ring
-        pad = n_lp * ps - x.shape[0]
-        if pad:
-            x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
-        return x.reshape((n_lp, ps) + x.shape[1:])
-
-    cache["pos"][dest] = tiles(row["pos"], -1).to(torch.int32)
+    allocator actually granted — their ``pos`` is already -1).  int8
+    pages take K, V, scales and markers in one ``quantize_kv_scatter``
+    launch."""
+    dev = cache["kp"].device
     if "ks" in cache:                              # int8 pages + scales
-        # rows are quantized one by one: only the paged part is needed
-        qk, sk = quantize_kv_rows(row["k"][:, :n_lp * ps])
-        qv, sv = quantize_kv_rows(row["v"][:, :n_lp * ps])
-        cache["kp"][dest] = tiles(qk, 0)
-        cache["vp"][dest] = tiles(qv, 0)
-        cache["ks"][dest] = tiles(sk, 0.0)
-        cache["vs"][dest] = tiles(sv, 0.0)
-    else:
-        cache["kp"][dest] = tiles(row["k"], 0).to(cache["kp"].dtype)
-        cache["vp"][dest] = tiles(row["v"], 0).to(cache["vp"].dtype)
+        return quantize_kv_scatter(
+            cache, row, torch.as_tensor(pages, dtype=torch.int32, device=dev))
+    ps = cache["kp"].shape[1]
+    dest = _page_ids(pages, dev)
+    n_lp = dest.shape[0]
+    cache["pos"][dest] = page_tiles(row["pos"], n_lp, ps, -1).to(torch.int32)
+    cache["kp"][dest] = page_tiles(row["k"], n_lp, ps, 0).to(
+        cache["kp"].dtype)
+    cache["vp"][dest] = page_tiles(row["v"], n_lp, ps, 0).to(
+        cache["vp"].dtype)
     return cache
 
 
@@ -357,32 +352,22 @@ def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     x: (B,1,d); pos: (B,) int32 per-row positions; block_tbl: (B,
     max_logical) int32 physical page ids (-1 = unallocated).  Each row
     writes its new K/V in place at page ``block_tbl[b, pos // page_size]``,
-    slot ``pos % page_size`` (int8 pools quantize K and V rows in one
-    ``quantize`` launch); rows without a mapping there — inactive slots, or
-    rows excluded by ``write_mask`` (masked cloud step) — are redirected to
-    the trash page with ``pos = -1``.  Attention then runs through the
-    ``decode_attn_paged`` kernel over the table."""
+    slot ``pos % page_size`` (int8 pools quantize and write K, V, scales
+    and markers in one ``quantize_kv_write`` launch); rows without a
+    mapping there — inactive slots, or rows excluded by ``write_mask``
+    (masked cloud step) — are redirected to the trash page with
+    ``pos = -1``.  Attention then runs through the ``decode_attn_paged``
+    kernel over the table."""
     b = x.shape[0]
     hd, h = cfg.resolved_head_dim, cfg.n_heads
-    ps = cache["kp"].shape[1]
     q, knew, vnew = _project_decode(p, cfg, x, pos, use_rope)
-    rows = torch.arange(b, device=x.device)
-    # out-of-range logical pages clamp to the last, as a JAX gather does
-    lp = (pos // ps).long().clamp(max=block_tbl.shape[1] - 1)
-    page = block_tbl[rows, lp]
-    ok = page >= 0
-    if write_mask is not None:
-        ok &= write_mask
-    dest = torch.where(ok, page, 0).long()
-    slot = (pos % ps).long()
-    cache["pos"].index_put_((dest, slot), torch.where(ok, pos, -1))
     if "ks" in cache:                              # quantize on write
-        qkv, skv = quantize_kv_rows(torch.stack([knew[:, 0], vnew[:, 0]]))
-        cache["kp"].index_put_((dest, slot), qkv[0])
-        cache["vp"].index_put_((dest, slot), qkv[1])
-        cache["ks"].index_put_((dest, slot), skv[0])
-        cache["vs"].index_put_((dest, slot), skv[1])
+        quantize_kv_write(cache, knew[:, 0], vnew[:, 0], pos, block_tbl,
+                          write_mask)
     else:
+        dest, slot, ok = page_slots(pos, block_tbl, write_mask,
+                                    cache["kp"].shape[1])
+        cache["pos"].index_put_((dest, slot), torch.where(ok, pos, -1))
         cache["kp"].index_put_((dest, slot), knew[:, 0].to(cache["kp"].dtype))
         cache["vp"].index_put_((dest, slot), vnew[:, 0].to(cache["vp"].dtype))
     out = decode_attn_paged(q.reshape(b, h, hd).contiguous(), cache["kp"],

@@ -36,8 +36,10 @@ from repro_torch.kernels.exit_head.ops import exit_head  # noqa: E402
 from repro_torch.kernels.exit_head.ref import exit_head_ref  # noqa: E402
 from repro_torch.kernels.exit_quant.ops import exit_quant  # noqa: E402
 from repro_torch.kernels.exit_quant.ref import exit_quant_ref  # noqa: E402
-from repro_torch.kernels.quantize.ops import quantize_int8  # noqa: E402
-from repro_torch.kernels.quantize.ref import quantize_int8_ref  # noqa: E402
+from repro_torch.kernels.quantize.ops import (  # noqa: E402
+    quantize_int8, quantize_kv_scatter, quantize_kv_write)
+from repro_torch.kernels.quantize.ref import (  # noqa: E402
+    quantize_int8_ref, quantize_kv_scatter_ref, quantize_kv_write_ref)
 from repro_torch.models.attention import quantize_kv_rows  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ServingSystem  # noqa: E402
@@ -319,6 +321,115 @@ def test_quantize_kernel_half_even_ties_and_zero_row(cuda, dtype):
     assert float(s[-1]) == np.float32(1e-12) and not q[-1].any()
     row = _t(np.array([[127, 2.5, 3.5, -0.5] + [0] * 4], np.float32), cuda)
     assert quantize_int8(row)[0][0, :4].tolist() == [127, 2, 4, 0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d", [
+    (1, 4096), (8, 4096),             # the wire row, 1 and 8 rows
+    (3, 8), (9, 130), (5, 100),       # a warp a row: narrower loads
+    (4, 256), (2, 257),               # the warp / block boundary, odd d
+    (2, 8192), (1, 12288),            # a block of 256, of 1024 threads
+])
+def test_quantize_kernel_shapes(cuda, dtype, n, d):
+    """The wire quantizer at every layout of the kernel, bit for bit."""
+    rng = np.random.default_rng(n * d)
+    x = (rng.normal(size=(n, d)) * rng.choice([0.01, 1.0, 300.0], (n, 1)))
+    x = _t(x.astype(np.float32), cuda, dtype)
+    before = quantize_int8.launches
+    q, s = quantize_int8(x)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    qr, sr = quantize_int8_ref(x)
+    assert torch.equal(q, qr) and torch.equal(s, sr)
+
+
+PS = 16
+
+
+def _kv_pool(rng, num_pages, kvh, d, dev):
+    """An int8 page pool with stale random contents."""
+    return {
+        "kp": _t(rng.integers(-127, 128, (num_pages, PS, kvh, d), np.int8),
+                 dev),
+        "vp": _t(rng.integers(-127, 128, (num_pages, PS, kvh, d), np.int8),
+                 dev),
+        "ks": _t(rng.random((num_pages, PS, kvh), np.float32), dev),
+        "vs": _t(rng.random((num_pages, PS, kvh), np.float32), dev),
+        "pos": _t(rng.integers(-1, 50, (num_pages, PS), np.int32), dev),
+    }
+
+
+def _clone(pool):
+    return {k: v.clone() for k, v in pool.items()}
+
+
+def _same_kv_pool(got, want):
+    """Every marker; codes and scales outside the trash page 0 (rows that
+    share one of its slots leave either row's codes there)."""
+    assert torch.equal(got["pos"], want["pos"])
+    for k in ("kp", "vp", "ks", "vs"):
+        assert torch.equal(got[k][1:], want[k][1:]), k
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("b", [1, 8])
+def test_quantize_kv_write_kernel(cuda, b, d, dtype, masked):
+    """A decode step's int8 page write in one launch against its plain
+    version: rows with their own pages; row 1's entry unmapped, row 2 past
+    its table, row 7 at a negative position; some rows masked."""
+    rng = np.random.default_rng(b * 10 + d + masked)
+    kvh, n_lp = 4, 3
+    pool = _kv_pool(rng, 1 + b * n_lp, kvh, d, cuda)
+    tbl = (1 + rng.permutation(b * n_lp)).reshape(b, n_lp).astype(np.int32)
+    pos = rng.integers(0, n_lp * PS, b).astype(np.int32)
+    if b > 1:
+        tbl[1, pos[1] // PS] = -1
+        pos[2] = n_lp * PS + 3
+        pos[7] = -3
+    mask = None
+    if masked:
+        mask = _t(np.arange(b) % 3 != 2, cuda)
+    knew = _t((rng.normal(size=(b, kvh, d)) * 5).astype(np.float32), cuda,
+              dtype)
+    vnew = _t((rng.normal(size=(b, kvh, d)) * 5).astype(np.float32), cuda,
+              dtype)
+    vnew[0, 0] = 0
+    args = (knew, vnew, _t(pos, cuda), _t(tbl, cuda), mask)
+    want = quantize_kv_write_ref(_clone(pool), *args)
+    before = quantize_kv_write.launches
+    got = quantize_kv_write(pool, *args)
+    torch.cuda.synchronize()
+    assert quantize_kv_write.launches == before + 1
+    _same_kv_pool(got, want)
+
+
+@pytest.mark.parametrize("case", ["short", "long", "first"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantize_kv_scatter_kernel(cuda, d, dtype, case):
+    """A prefilled row's int8 scatter in one launch against its plain
+    version: a ring shorter than its pages (fills past it), longer
+    (trimmed), and unmapped page ids."""
+    rng = np.random.default_rng(d + len(case))
+    kvh = 4
+    length, n_real, pages = {"short": (40, 27, [5, 2, 3, -1]),
+                             "long": (80, 80, [3, 1, 4, 6]),
+                             "first": (48, 48, [-1, 2, 5])}[case]
+    pool = _kv_pool(rng, 7, kvh, d, cuda)
+    pos = np.where(np.arange(length) < n_real, np.arange(length), -1)
+    row = {k: _t((rng.normal(size=(1, length, kvh, d)) * 3).astype(
+        np.float32), cuda, dtype) for k in ("k", "v")}
+    row["k"][0, 1, 0] = 0
+    row["pos"] = _t(pos[None].astype(np.int32), cuda)
+    pages = _t(np.array(pages, np.int32), cuda)
+    want = quantize_kv_scatter_ref(_clone(pool), row, pages)
+    before = quantize_kv_scatter.launches
+    got = quantize_kv_scatter(pool, row, pages)
+    torch.cuda.synchronize()
+    assert quantize_kv_scatter.launches == before + 1
+    _same_kv_pool(got, want)
 
 
 @pytest.mark.parametrize("mode,theta,wire,backfill", [
