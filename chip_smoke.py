@@ -21,7 +21,9 @@ exit code and no result line:
    operations over the peak rate of the type they run in, whichever is
    larger);
    then a small model served on the card and on the CPU must give the same
-   streams, sequentially and batched on dense, paged and int8-paged KV;
+   streams, sequentially and batched on dense, paged and int8-paged KV,
+   under deadline misses with the standalone fallback, and as N engines
+   behind one batched cloud (equal to N engines with a cloud each);
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -30,7 +32,18 @@ exit code and no result line:
    with 8 slots and 12 prompts of 128-512 tokens, on dense and paged KV
    (bfloat16 and int8 pages) in the collm, cloud and standalone modes, with
    the launch counters set to 0 before and read after;
-5. the kernel table as one JSON line (launches: phases 3 and 4), the
+5. the paper's adaptive serving on the same model and prompts, paged
+   bfloat16 KV, collm at phase 3's split θ, float16 wire, with the launch
+   counters set to 0 before and read after: (a) an ``AsyncSimChannel``
+   with an infinite deadline (phase 4's paged streams), (b) the same
+   blocking (``overlap=False``), (c) a ``ScriptedChannel`` whose replies
+   miss their deadline, with ``fallback_after=2``, (d) temperature / top-k
+   sampling twice from one seed, (e) ``generate_multi``: 8 single-slot
+   engines behind one ``CloudBatcher`` against 8 engines each with its own
+   cloud, both over ``AsyncSimChannel``s sharing a batching or a FIFO
+   ``CloudServicePoint`` (the paper's knee), and (f) the batched cloud on
+   dense KV with an int8 wire;
+6. the kernel table as one JSON line (launches: phases 3 to 5), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
@@ -60,6 +73,8 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 CLIENTS, PROMPT_LEN, MAX_NEW = 2, 512, 32
 SLOTS, BATCH_PROMPTS, PAGE_SIZE = 8, 12, 16     # phase 4
+ENGINES = 8                                     # phase 5 (e), (f)
+KNEE_NET = dict(up_bw=3.8e6, down_bw=8e6, rtt=0.003)  # a WiFi-class link
 FILLS = (128, 552)                      # phase 2 paged fills, keys a row
 MAX_SEQ = PROMPT_LEN + MAX_NEW + 8      # generate_sequential's ring size
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
@@ -805,6 +820,69 @@ def check_small_model(dev) -> None:
         check(same, f"small model batched {mode}: the paged stream differs")
         check(same8, f"small model batched {mode}: the int8-page stream on "
               f"the card differs from the CPU's")
+    check_small_adaptive(cpu, gpu, prompts, theta)
+
+
+def same_run(a, b) -> bool:
+    """Streams, counters and virtual-time results of two runs."""
+    fields = ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes",
+              "deadline_misses", "fallbacks")
+    return (a["tokens"] == b["tokens"]
+            and all(getattr(a["stats"], f) == getattr(b["stats"], f)
+                    for f in fields)
+            and a["virtual_time"] == b["virtual_time"]
+            and a["late_drops"] == b["late_drops"]
+            and a["channel_stats"] == b["channel_stats"])
+
+
+def knee_channels(n, batched):
+    """n ``AsyncSimChannel``s on a WiFi-class link sharing one cloud
+    service point: batching (window 4 ms, up to n a step) or FIFO; 8 ms a
+    service step."""
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
+    svc = (CloudServicePoint(0.008, batch_window_s=0.004, max_batch=n)
+           if batched else CloudServicePoint(0.008))
+    return [AsyncSimChannel(NetworkParams(**KNEE_NET), service=svc)
+            for _ in range(n)], svc
+
+
+def check_small_adaptive(cpu, gpu, prompts, theta) -> None:
+    """Phase 5's paths (c) and (e) on the small model: deadline misses
+    with the standalone fallback, and N engines behind one batched cloud
+    against N engines with a cloud each; the card equals the CPU, and
+    batched equals FIFO."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.transport import ScriptedChannel
+    from repro_torch.serving.engine import ServingSystem
+    ccfg = CollmConfig(theta=theta, kv_layout="paged")
+    runs = [ServingSystem(m, ccfg).generate(
+        prompts, 16, num_slots=3, tick_time_s=0.005, fallback_after=2,
+        channel=ScriptedChannel([0.5], deadline_s=0.02)) for m in (cpu, gpu)]
+    st = runs[1]["stats"]
+    print(f"small model deadline misses + fallback: card == CPU: "
+          f"{same_run(*runs)} (misses {st.deadline_misses}, fallbacks "
+          f"{st.fallbacks}, late drops {runs[1]['late_drops']})")
+    check(same_run(*runs) and st.deadline_misses > 0 and st.fallbacks > 0,
+          "small model under deadline misses: the card differs from the CPU")
+    # θ = 1: every token is a cloud request, so the engines' requests
+    # meet in the batcher's waves
+    ccfg = CollmConfig(theta=1.0, kv_layout="paged")
+    multi = {}
+    for batched in (True, False):
+        for name, m in (("cpu", cpu), ("card", gpu)):
+            chans, _ = knee_channels(len(prompts), batched)
+            multi[batched, name] = ServingSystem(m, ccfg).generate_multi(
+                prompts, 16, cloud_batch=batched, channels=chans,
+                tick_time_s=0.01)
+    same = [same_run(multi[b, "card"], multi[b, "cpu"]) for b in (True,
+                                                                   False)]
+    eq = multi[True, "card"]["tokens"] == multi[False, "card"]["tokens"]
+    row = multi[True, "card"]["batcher"]
+    print(f"small model generate_multi: card == CPU batched {same[0]}, "
+          f"FIFO {same[1]}; batched == FIFO: {eq}; batcher {row}")
+    check(all(same) and eq and row["mean_batch"] > 1,
+          "small model generate_multi: card, CPU, batched and FIFO differ")
 
 
 def print_time(label, r) -> None:
@@ -933,10 +1011,9 @@ def phase4_prompts() -> list:
             for n in rng.integers(128, 513, BATCH_PROMPTS)]
 
 
-def serve_phase4(model, theta) -> None:
+def serve_phase4(model, theta) -> dict:
     """12 prompts of 128-512 tokens through 8 slots (slots refill, pages
-    are freed and reused), on dense and paged KV."""
-    from repro_torch.serving.engine import token_agreement
+    are freed and reused), on dense and paged KV; returns the runs."""
     prompts = phase4_prompts()
     runs = {
         "dense": serve_batched(model, prompts, "dense", "collm", theta,
@@ -983,12 +1060,144 @@ def serve_phase4(model, theta) -> None:
               f"{name}: the split theta gives no mix of exits and cloud "
               f"requests")
     for name in ("paged", "paged-int8"):
-        ags = [token_agreement(a, b) for a, b in
-               zip(runs[name]["tokens"], runs["dense"]["tokens"])]
-        same = sum(a == b for a, b in zip(runs[name]["tokens"],
-                                          runs["dense"]["tokens"]))
-        print(f"agreement {name} vs dense: {same}/{len(ags)} streams equal, "
-              f"mean LCS-F1 {float(np.mean(ags)):.4f}")
+        print(f"agreement {name} vs dense: "
+              f"{agreement(runs[name]['tokens'], runs['dense']['tokens'])}")
+    return runs
+
+
+def agreement(a, b) -> str:
+    from repro_torch.serving.engine import token_agreement
+    ags = [token_agreement(x, y) for x, y in zip(a, b)]
+    same = sum(x == y for x, y in zip(a, b))
+    return (f"{same}/{len(ags)} streams equal, mean LCS-F1 "
+            f"{float(np.mean(ags)):.4f}")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: ee-llm-7b through the paper's adaptive serving
+# ---------------------------------------------------------------------------
+def adaptive_run(label, fn):
+    """Run ``fn`` (a ``generate`` or ``generate_multi``) synchronised, check
+    its streams, print its host and virtual times and counters."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = r["stats"]
+    check(all(len(t) == MAX_NEW and min(t) >= 0 and max(t) < CFG.vocab_size
+              for t in r["tokens"]), f"{label}: bad tokens")
+    print(f"adaptive {label:26s} tokens={st.tokens} tokens/s="
+          f"{st.tokens / dt:.2f} wall={dt:.2f}s virtual_t="
+          f"{r['virtual_time']:.6f}s exits_l1={st.exits_l1} "
+          f"exits_l2={st.exits_l2} cloud_requests={st.cloud_requests} "
+          f"deadline_misses={st.deadline_misses} fallbacks={st.fallbacks} "
+          f"stall={st.stall_s:.6f}s overlap={st.overlap_s:.6f}s "
+          f"late_drops={r['late_drops']} channel={r['channel_stats']}"
+          + (f" batcher={r['batcher']}" if "batcher" in r else ""))
+    return r
+
+
+def serve_phase5(model, theta, paged) -> None:
+    """Phase 4's 12 prompts (8 for the multi-engine runs) on paged bf16 KV
+    with a float16 wire: the channel options (a)-(c) and the sampler (d)
+    at the split θ; one batched cloud for 8 edge clients against 8 clouds
+    (e) and the batched cloud on dense KV with an int8 wire (f) at θ = 0.8,
+    as ``tests/test_cloud_batcher.py`` sets up the knee (with random
+    weights no token exits there: every token is a cloud request).
+    ``paged`` is phase 4's paged bf16 run."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel, ScriptedChannel
+    from repro_torch.kernels.decode_attn.ops import decode_attn_paged
+    from repro_torch.serving.cloud_batcher import CloudBatcher
+    from repro_torch.serving.engine import ServingSystem
+    prompts = phase4_prompts()
+    ccfg = CollmConfig(theta=theta, wire_format="float16", kv_layout="paged",
+                       page_size=PAGE_SIZE)
+
+    def gen(label, **kw):
+        system = ServingSystem(model, ccfg)
+        return adaptive_run(label, lambda: system.generate(
+            prompts, MAX_NEW, num_slots=SLOTS, **kw))
+
+    def sim():
+        return AsyncSimChannel(NetworkParams(), service_s=0.008)
+
+    a = gen("(a) async, no deadline", channel=sim(), tick_time_s=0.01)
+    check(a["tokens"] == paged["tokens"] and a["stats"].deadline_misses == 0,
+          "(a): the async streams differ from phase 4's paged run")
+    b = gen("(b) blocking", channel=sim(), tick_time_s=0.01, overlap=False)
+    check(b["tokens"] == a["tokens"]
+          and b["virtual_time"] >= a["virtual_time"],
+          "(b): the blocking run differs from (a) or finished earlier")
+    print(f"(a) == phase 4 paged: True; (b) == (a): True; virtual time "
+          f"{a['virtual_time']:.6f} s overlapped, {b['virtual_time']:.6f} s "
+          f"blocking")
+    c = gen("(c) deadline + fallback", tick_time_s=0.005, fallback_after=2,
+            channel=ScriptedChannel([0.5], deadline_s=0.02))
+    st, n = c["stats"], len(prompts)
+    served = st.exits_l1 + st.exits_l2 + st.cloud_requests
+    sent = c["channel_stats"]["requests"]
+    check(st.deadline_misses > 0 and st.fallbacks >= 1
+          and c["late_drops"] == st.deadline_misses
+          and st.tokens - n <= served <= st.tokens
+          and (st.cloud_requests - n + st.deadline_misses <= sent
+               <= st.cloud_requests + st.deadline_misses),
+          "(c): misses, fallbacks, late drops or the accounting are off")
+    d = [gen(f"(d) temperature, run {i}", sampler="temperature",
+             temperature=0.8, top_k=50, seed=0) for i in (1, 2)]
+    check(d[0]["tokens"] == d[1]["tokens"], "(d): one seed, two streams")
+    print(f"(d) two runs from seed 0 equal: True; vs greedy (phase 4 "
+          f"paged): {agreement(d[0]['tokens'], paged['tokens'])}")
+
+    # (e): launches of paged attention inside the batcher's waves, i.e. on
+    # its pooled cloud cache, counted by wrapping its wave step
+    pool_launches = [0]
+    wave = CloudBatcher._compute
+
+    def counted(self, entries):
+        before = decode_attn_paged.launches
+        wave(self, entries)
+        pool_launches[0] += decode_attn_paged.launches - before
+
+    multi = {}
+    knee = CollmConfig(theta=0.8, wire_format="float16", kv_layout="paged",
+                       page_size=PAGE_SIZE)
+    CloudBatcher._compute = counted
+    try:
+        for batched in (True, False):
+            chans, svc = knee_channels(ENGINES, batched)
+            system = ServingSystem(model, knee)
+            multi[batched] = adaptive_run(
+                f"(e) {'batched cloud' if batched else 'FIFO clouds'}",
+                lambda: system.generate_multi(
+                    prompts[:ENGINES], MAX_NEW, cloud_batch=batched,
+                    channels=chans, tick_time_s=0.01))
+            multi[batched]["busy_s"] = svc.busy_s
+            multi[batched]["batches"] = svc.batches
+    finally:
+        CloudBatcher._compute = wave
+    bat, fifo = multi[True], multi[False]
+    print(f"(e) batched vs FIFO: virtual time {bat['virtual_time']:.6f} vs "
+          f"{fifo['virtual_time']:.6f} s, service busy {bat['busy_s']:.6f} vs "
+          f"{fifo['busy_s']:.6f} s in {bat['batches']} vs {fifo['batches']} "
+          f"steps; paged attention launches on the batcher's pool "
+          f"{pool_launches[0]}; streams "
+          f"{agreement(fifo['tokens'], bat['tokens'])}")
+    check(bat["batcher"]["mean_batch"] > 1,
+          "(e): the batcher served no wave of more than one row")
+    check(pool_launches[0] > 0,
+          "(e): no paged attention launch on the batcher's pool")
+    check(bat["virtual_time"] < fifo["virtual_time"]
+          and bat["busy_s"] < fifo["busy_s"],
+          "(e): the batched cloud is not below the FIFO clouds")
+    dense = ServingSystem(model, CollmConfig(theta=0.8, wire_format="int8"))
+    chans, _ = knee_channels(ENGINES, True)
+    f = adaptive_run("(f) batched cloud, dense int8", lambda:
+                     dense.generate_multi(prompts[:ENGINES], MAX_NEW,
+                                          channels=chans, tick_time_s=0.01))
+    check(f["batcher"]["mean_batch"] > 1, "(f): no batched wave")
 
 
 def profile_window(label, fn) -> None:
@@ -1107,10 +1316,20 @@ def main(argv=None) -> None:
 
     for op in ops.values():
         op.launches = 0
-    serve_phase4(model, theta)
+    phase4 = serve_phase4(model, theta)
     batched = {name: op.launches for name, op in ops.items()}
     print(f"phase 4 (generate) launches: {batched}")
-    launches = {name: n + batched[name] for name, n in launches.items()}
+    torch.cuda.empty_cache()
+
+    for op in ops.values():
+        op.launches = 0
+    serve_phase5(model, theta, phase4["paged"])
+    adaptive = {name: op.launches for name, op in ops.items()}
+    print(f"phase 5 (adaptive serving) launches: {adaptive}")
+    for name in ("decode_attn", "decode_attn_paged", "exit_head", "quantize"):
+        check(adaptive[name] > 0, f"{name} was not launched in phase 5")
+    launches = {name: n + batched[name] + adaptive[name]
+                for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     if args.profile:

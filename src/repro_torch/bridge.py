@@ -41,7 +41,8 @@ def params_from_jax(np_params: Dict[str, Any],
     extra = set(np_params) - _TOP_LEVEL
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
-                                  f"parts of the model not ported yet")
+                                  f"parts of the model not ported yet "
+                                  f"(ROADMAP A.9)")
     state = {"embed": _tensor(np_params["embed"]),
              "final_norm": _tensor(np_params["final_norm"])}
     if "lm_head" in np_params:

@@ -1,7 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
 The port serves the dense early-exit decoder; the JAX package's other ten
-architectures are listed in ROADMAP.md as still to be ported.
+architectures are still to be ported (ROADMAP A.9).
 """
 from __future__ import annotations
 

@@ -13,18 +13,18 @@ engine, on dense ring KV or a block-paged pool (float or int8 pages):
   * ``standalone_step``  — the paper's low-latency edge standalone mode.
   * ``full_step``        — undivided model (cloud-deployment baseline).
   * ``*_prefill_padded`` — right-padded prompt prefill of one admission.
-  * ``cloud_step(write_mask=)``/``ring_cloud_steps`` — the batched
-                           engine's cloud call over the below-θ rows (and
-                           their backfill rings); the other rows' caches
-                           stay as they were.
+  * ``cloud_step(write_mask=)``/``ring_cloud_steps``/
+    ``ring_cloud_steps_all`` — the batched engines' cloud call over the
+                           below-θ rows (and their backfill rings); the
+                           other rows' caches stay as they were.
 
 Exit decisions go through the ``exit_head`` kernel and the int8 wire format
-through the ``quantize`` kernel.  KV caches are updated in place, so a
-masked step never writes a masked-out row (the JAX package computes every
-row and merges the old ones back).  Speculative drafting, chunked prefill,
-prefix sharing, preemption, the cloud mesh and the fused step are not
-ported yet (ROADMAP A.5), and ``CoLLM`` raises for any ``CollmConfig``
-field that selects them.
+through the ``quantize`` kernel; a sampler other than greedy asks for the
+exit logits too (``with_logits=True``), which the kernel never writes.  KV
+caches are updated in place, so a masked step never writes a masked-out row
+(the JAX package computes every row and merges the old ones back).
+``CoLLM`` raises for any ``CollmConfig`` field that selects a feature not
+ported yet, naming its ROADMAP queue item (``UNPORTED_FIELDS``).
 """
 from __future__ import annotations
 
@@ -39,6 +39,16 @@ from repro_torch.core.transport import FORMATS, dequantize, quantize
 from repro_torch.kernels.exit_quant.ops import exit_quant
 from repro_torch.models.blocks import BlockCtx
 from repro_torch.models.transformer import Caches, Model
+
+
+# CollmConfig fields the port refuses, with the ROADMAP queue-A item that
+# ports each: the fused step's upload ring and speculative drafting (A.3),
+# preemption (A.4), chunked prefill and prefix sharing (A.5), the cloud
+# mesh (A.11)
+UNPORTED_FIELDS = {"max_pending": "A.3", "speculative": "A.3",
+                   "spec_k": "A.3", "preemption": "A.4",
+                   "preempt_policy": "A.4", "chunked_prefill": "A.5",
+                   "prefix_share": "A.5", "cloud_mesh": "A.11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,17 +159,15 @@ class CoLLM:
         if ccfg.kv_dtype == "int8" and ccfg.kv_layout != "paged":
             raise ValueError('kv_dtype="int8" requires kv_layout="paged" '
                              "(dense rings stay full precision)")
-        ported = CollmConfig(theta=ccfg.theta, wire_format=ccfg.wire_format,
-                             backfill=ccfg.backfill,
-                             kv_layout=ccfg.kv_layout,
-                             page_size=ccfg.page_size,
-                             kv_dtype=ccfg.kv_dtype)
-        if ccfg != ported:
-            changed = [f.name for f in dataclasses.fields(ccfg)
-                       if getattr(ccfg, f.name) != getattr(ported, f.name)]
+        default = CollmConfig()
+        changed = {name: item for name, item in UNPORTED_FIELDS.items()
+                   if getattr(ccfg, name) != getattr(default, name)}
+        if changed:
             raise NotImplementedError(
-                f"CollmConfig fields {changed} select batched-engine "
-                f"features that are not ported yet (ROADMAP A.5)")
+                f"CollmConfig fields {sorted(changed)} select features that "
+                f"are not ported yet ("
+                + ", ".join(f"{n}: ROADMAP {i}"
+                            for n, i in sorted(changed.items())) + ")")
         self.model = model
         self.ccfg = ccfg
         self.l_ee1 = cfg.exit_layers[0]
@@ -195,11 +203,18 @@ class CoLLM:
     # ------------------------------------------------------------------
     # exits
     # ------------------------------------------------------------------
-    def exit_decision(self, layer: int, hidden: torch.Tensor) -> ExitDecision:
-        """The exit head at ``layer`` on a (B, d) or (B, 1, d) hidden."""
+    def exit_decision(self, layer: int, hidden: torch.Tensor,
+                      with_logits: bool = False) -> ExitDecision:
+        """The exit head at ``layer`` on a (B, d) or (B, 1, d) hidden.  The
+        decision comes from the ``exit_head`` kernel; ``with_logits`` adds
+        the (B, V) exit logits a sampler draws from (plain PyTorch)."""
         m = self.model
-        return evaluate_exit(hidden, m.unembed_weight(),
-                             m.exit_norms[str(layer)], m.cfg.norm_eps)
+        d = evaluate_exit(hidden, m.unembed_weight(),
+                          m.exit_norms[str(layer)], m.cfg.norm_eps)
+        if with_logits:
+            h2 = hidden.reshape(hidden.shape[0], hidden.shape[-1])
+            d = d._replace(logits=m.exit_logits(layer, h2))
+        return d
 
     # ------------------------------------------------------------------
     # prefill (prompt processing)
@@ -227,7 +242,7 @@ class CoLLM:
     # right-padded prefill (one admission of the batch scheduler)
     # ------------------------------------------------------------------
     def edge_prefill_padded(self, tokens: torch.Tensor, true_len: int,
-                            caches: Caches):
+                            caches: Caches, with_logits: bool = False):
         """Edge prefill over a right-padded prompt (tokens: (1, Lb)).
 
         Pad positions are causally invisible to real tokens, so the real
@@ -237,7 +252,8 @@ class CoLLM:
         caches)."""
         _, exit_h, caches, _ = self.model.prefill({"tokens": tokens}, caches,
                                                   self.edge_segs)
-        decisions = {l: self.exit_decision(l, h[:, true_len - 1])
+        decisions = {l: self.exit_decision(l, h[:, true_len - 1],
+                                           with_logits)
                      for l, h in exit_h.items()}
         caches = self.model.invalidate_cache_after(caches, true_len)
         return decisions, exit_h[self.l_ee1], caches
@@ -266,11 +282,13 @@ class CoLLM:
     # decode steps
     # ------------------------------------------------------------------
     def edge_step(self, token: torch.Tensor, caches: Caches, pos,
-                  block_tbl: Optional[torch.Tensor] = None) -> EdgeStepOut:
+                  block_tbl: Optional[torch.Tensor] = None,
+                  with_logits: bool = False) -> EdgeStepOut:
         _, exit_h, caches = self.model.decode_step(token, caches, pos,
                                                    self.edge_segs,
                                                    block_tbl=block_tbl)
-        decisions = {l: self.exit_decision(l, h) for l, h in exit_h.items()}
+        decisions = {l: self.exit_decision(l, h, with_logits)
+                     for l, h in exit_h.items()}
         tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
         upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
         return EdgeStepOut(decisions, tok, exited, upload, caches)
@@ -348,16 +366,38 @@ class CoLLM:
         row's cache and logits untouched.  Returns (per-row logits of each
         row's LAST valid entry (B, V) float32, caches).  The JAX package's
         ``lax.scan`` is a loop here."""
+        final, _, caches = self._ring_pass(ring, ring_pos, ring_valid, caches,
+                                           block_tbl, keep_all=False)
+        return final, caches
+
+    def ring_cloud_steps_all(self, ring: Dict[str, torch.Tensor],
+                             ring_pos: torch.Tensor, ring_valid: torch.Tensor,
+                             caches: Caches,
+                             block_tbl: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor, Caches]:
+        """``ring_cloud_steps`` that also returns EVERY entry's logits:
+        (last-valid logits (B, V) f32, per-entry logits (k, B, V) f32 with
+        invalid entries zeroed, caches).  The ``CloudBatcher``'s ring waves
+        take this form."""
+        return self._ring_pass(ring, ring_pos, ring_valid, caches, block_tbl,
+                               keep_all=True)
+
+    def _ring_pass(self, ring, ring_pos, ring_valid, caches, block_tbl,
+                   keep_all: bool):
         final = torch.zeros((ring_pos.shape[1], self.model.cfg.vocab_size),
                             dtype=torch.float32, device=ring_pos.device)
+        steps = []
         for i in range(ring_pos.shape[0]):
             # a copy of the row: the kernels take 16-byte aligned positions
             logits, caches = self.cloud_step(
                 {k: v[i] for k, v in ring.items()}, caches,
                 ring_pos[i].clone(), block_tbl=block_tbl,
                 write_mask=ring_valid[i])
-            final = torch.where(ring_valid[i][:, None], logits.float(), final)
-        return final, caches
+            valid = ring_valid[i][:, None]
+            final = torch.where(valid, logits.float(), final)
+            if keep_all:
+                steps.append(torch.where(valid, logits.float(), 0.0))
+        return final, (torch.stack(steps) if keep_all else None), caches
 
     def standalone_step(self, token: torch.Tensor, caches: Caches, pos):
         """Edge standalone (low-latency) mode: the last exit is the

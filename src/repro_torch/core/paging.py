@@ -20,9 +20,9 @@ Physical page 0 is reserved as the **trash page**: rows without a mapping
 ``pos = -1``.
 
 The radix prefix index (``prefix_cache=True``: shared pages, copy-on-write,
-LRU eviction), victim selection and the host swap store serve prefix
-sharing and preemption, which are not ported yet (ROADMAP A.5); the pool
-raises for ``prefix_cache=True``.
+LRU eviction) serves prefix sharing (ROADMAP A.5), and victim selection and
+the host swap store serve preemption (ROADMAP A.4); neither is ported yet,
+and the pool raises for ``prefix_cache=True``.
 
 This module is pure host-side bookkeeping (numpy block table + Python free
 list); the device-side paged cache layout lives in

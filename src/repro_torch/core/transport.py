@@ -1,17 +1,28 @@
 """Edge<->cloud transport: wire formats, quantization, packet accounting and
 the cloud channel protocol (paper §4.2/§4.3).
 
-Port of the wire half and the channel base of ``repro.core.transport``.
-The paper uploads hidden states in float16; int8 with a per-row absmax
-scale is the beyond-paper format, quantized by the ``quantize`` kernel
+Port of ``repro.core.transport`` for the token-activation packet.  The
+paper uploads hidden states in float16; int8 with a per-row absmax scale
+is the beyond-paper format, quantized by the ``quantize`` kernel
 (``repro_torch.kernels.quantize``).  Wire sizes are computed from shapes.
+The recurrent-state packets (``quantize_tree``, ``make_packet``,
+``open_packet``) serve the non-dense architectures and are not ported yet
+(ROADMAP A.9).
 
-``CloudChannel`` is the request path of both serving engines:
-``submit(...) -> handle`` dispatches one cloud request, ``poll(now)``
-drains the replies that have arrived by virtual time ``now``.
-``SyncChannel`` (zero latency, infinite deadline) is a blocking call.  The
-simulated and scripted channels and the shared cloud service point are not
-ported yet (ROADMAP A.4).
+``CloudChannel`` is the request path of both serving engines, in virtual
+time:
+
+  * ``submit(...) -> handle`` dispatches one cloud request; the engine
+    keeps decoding while the reply is in flight;
+  * ``poll(now)`` drains the replies that have arrived by ``now``, in
+    arrival order;
+  * every request carries a deadline; the engine commits the edge token
+    when the reply misses it (the paper's latency-aware early exit).
+
+``SyncChannel`` (zero latency, infinite deadline) is a blocking call;
+``AsyncSimChannel`` prices each request with ``netsim.NetworkParams``-style
+link parameters and a ``CloudServicePoint`` shared by every client;
+``ScriptedChannel`` replays an explicit per-request latency trace.
 """
 from __future__ import annotations
 
@@ -119,7 +130,8 @@ def packet_breakdown(packet: Pytree) -> Dict[str, int]:
 class StatePacket:
     """What crosses the edge->cloud boundary for one upload (paper fig 3
     step 3): the quantized l_ee1 token activation, and (SSM/hybrid
-    architectures, not ported yet) boundary recurrent-state snapshots."""
+    architectures, not ported yet: ROADMAP A.9) boundary recurrent-state
+    snapshots."""
     hidden: Dict[str, torch.Tensor]                # quantized (B,1,d)
     states: Optional[Pytree] = None                # quantized recurrent states
     pos: Any = None                                # token position(s)
@@ -137,6 +149,91 @@ class StatePacket:
         bd["pos"] = (4 * int(np.asarray(self.pos).size)
                      if self.pos is not None else 0)
         return bd
+
+
+# ---------------------------------------------------------------------------
+# Cloud service point (the shared cloud server queue, in virtual time)
+# ---------------------------------------------------------------------------
+class CloudServicePoint:
+    """The cloud server's service queue, shared by every client channel.
+
+    With the default knobs (``batch_window_s=0``, ``max_batch=1``) every
+    request occupies the server for ``service_s`` back to back: N
+    concurrent clients serialize, the saturation knee of the paper's Fig 4.
+    With batching on, requests that become ready within ``batch_window_s``
+    of the first one (up to ``max_batch``) share ONE ``service_s``, the
+    masked batched cloud step the ``CloudBatcher`` executes, so the knee
+    moves from N*service_s to service_s + window.
+
+    ``service(ready_t, service_s=None)`` books one request that is ready at
+    virtual time ``ready_t`` and returns its completion time; a joining
+    request with a larger service cost stretches the batch's completion.
+    ``window_controller`` is duck-typed: anything with ``observe(ready_t,
+    point) -> window`` and ``reset()`` retunes the window on every booking
+    (``None`` keeps the static knob).  Both ``netsim.simulate`` and
+    ``AsyncSimChannel`` price the cloud through this class."""
+
+    def __init__(self, service_s: float = 0.0, *,
+                 batch_window_s: float = 0.0, max_batch: int = 1,
+                 window_controller: Any = None):
+        if max_batch < 1:
+            raise ValueError("max_batch must be >= 1")
+        if batch_window_s > 0.0 and max_batch == 1:
+            # the window would delay every request with nothing ever
+            # joining a batch: strictly worse than FIFO
+            raise ValueError("batch_window_s > 0 requires max_batch > 1 "
+                             "(a window with max_batch=1 never coalesces)")
+        self.service_s = float(service_s)
+        self.batch_window_s = float(batch_window_s)
+        self._init_window_s = self.batch_window_s
+        self.max_batch = int(max_batch)
+        self.window_controller = window_controller
+        self.reset()
+
+    def reset(self) -> None:
+        """Forget all virtual-time state (a fresh run on a reused point)."""
+        self._free = 0.0           # when the server is next idle
+        self._close_t = -math.inf  # open batch's accumulation window end
+        self._start_t = 0.0        # open batch's service start
+        self._done_t = 0.0         # open batch's completion
+        self._count = 0            # requests in the open batch
+        self.batches = 0           # total batched service steps booked
+        self.requests = 0
+        self.busy_s = 0.0          # summed server busy time (per batch)
+        self.batch_window_s = self._init_window_s
+        if self.window_controller is not None:
+            self.window_controller.reset()
+
+    @property
+    def batched(self) -> bool:
+        return self.max_batch > 1 or self.batch_window_s > 0.0
+
+    def service(self, ready_t: float, service_s: Optional[float] = None
+                ) -> float:
+        svc = self.service_s if service_s is None else float(service_s)
+        self.requests += 1
+        if self.window_controller is not None:
+            self.batch_window_s = float(
+                self.window_controller.observe(ready_t, self))
+        if self._count and self._count < self.max_batch \
+                and ready_t <= self._close_t:
+            # join the open batch: one masked step serves this request too;
+            # a costlier member (backfill ring) stretches the completion
+            self._count += 1
+            stretched = max(self._done_t, self._start_t + svc)
+            self.busy_s += stretched - self._done_t
+            self._done_t = stretched
+            self._free = max(self._free, self._done_t)
+            return self._done_t
+        # open a new batch: wait out the accumulation window, then serve
+        self.batches += 1
+        self._count = 1
+        self._close_t = ready_t + self.batch_window_s
+        self._start_t = max(self._close_t, self._free)
+        self._done_t = self._start_t + svc
+        self._free = self._done_t
+        self.busy_s += svc
+        return self._done_t
 
 
 # ---------------------------------------------------------------------------
@@ -223,6 +320,12 @@ class CloudChannel:
             return None
         return min(r.arrival_t for r in self._inflight.values())
 
+    def arrival_of(self, handle: int) -> Optional[float]:
+        """Arrival time of one in-flight request (None once drained): the
+        blocking drain waits for a whole dispatch batch with this."""
+        req = self._inflight.get(handle)
+        return None if req is None else req.arrival_t
+
     def in_flight(self) -> int:
         return len(self._inflight)
 
@@ -253,3 +356,76 @@ class SyncChannel(CloudChannel):
 
     def __init__(self):
         super().__init__(deadline_s=math.inf)
+
+
+class AsyncSimChannel(CloudChannel):
+    """Virtual-time network channel priced by ``netsim.NetworkParams``.
+
+    Each engine slot owns its WiFi-class link (paper §5: one link per edge
+    client); the cloud is a ``CloudServicePoint`` shared by every request,
+    the accounting ``netsim.simulate`` uses.  Passing one ``service`` to
+    several channels models N edge clients sharing one cloud server.
+
+      arrival = cloud_done + rtt/2 + nbytes_down / down_bw
+      cloud_done = service.service(uplink_arrival)
+      uplink_arrival = max(now, uplink_free[slot]) + nbytes_up/up_bw + rtt/2
+
+    ``net`` is duck-typed: anything with up_bw / down_bw / rtt fields."""
+
+    def __init__(self, net: Any, *, service_s: float = 0.0,
+                 deadline_s: float = math.inf,
+                 service: Optional[CloudServicePoint] = None):
+        super().__init__(deadline_s=deadline_s)
+        self.net = net
+        self._own_service = service is None
+        self.service = (CloudServicePoint(service_s) if service is None
+                        else service)
+        self._uplink_free: Dict[int, float] = {}
+
+    def _latency(self, slot: int, now: float, nbytes_up: int,
+                 nbytes_down: int) -> float:
+        link_free = max(now, self._uplink_free.get(slot, 0.0))
+        up_arr = link_free + nbytes_up / self.net.up_bw + self.net.rtt / 2
+        self._uplink_free[slot] = link_free + nbytes_up / self.net.up_bw
+        cloud_done = self.service.service(up_arr)
+        arrival = (cloud_done + self.net.rtt / 2
+                   + nbytes_down / self.net.down_bw)
+        return arrival - now
+
+    def notify_upload(self, slot: int, nbytes: int, now: float) -> None:
+        super().notify_upload(slot, nbytes, now)
+        # the l_ee1 upload occupies this client's uplink: a request issued
+        # right after it queues behind it
+        link_free = max(now, self._uplink_free.get(slot, 0.0))
+        self._uplink_free[slot] = link_free + nbytes / self.net.up_bw
+
+    def reset(self) -> None:
+        super().reset()
+        self._uplink_free.clear()
+        # a shared service point is reset once per run by ``run_multi``,
+        # not once per channel
+        if self._own_service:
+            self.service.reset()
+
+
+class ScriptedChannel(CloudChannel):
+    """Replay an explicit per-request latency trace (request i takes
+    ``latencies[i % len]`` virtual seconds): the deterministic harness of
+    the deadline-miss and reply-reordering tests."""
+
+    def __init__(self, latencies, *, deadline_s: float = math.inf):
+        super().__init__(deadline_s=deadline_s)
+        self.latencies = list(latencies)
+        if not self.latencies:
+            raise ValueError("ScriptedChannel needs at least one latency")
+        self._i = 0
+
+    def _latency(self, slot: int, now: float, nbytes_up: int,
+                 nbytes_down: int) -> float:
+        lat = float(self.latencies[self._i % len(self.latencies)])
+        self._i += 1
+        return lat
+
+    def reset(self) -> None:
+        super().reset()
+        self._i = 0          # a reused channel replays the trace from the top

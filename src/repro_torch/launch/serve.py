@@ -11,17 +11,32 @@ or ``--device cpu``.  Weights are random, initialised from ``--seed``.
 ``--kv-layout paged`` shares a block-paged KV pool across the slots
 (``--page-size`` tokens a page, ``--num-pages`` pages; the default pool
 equals the dense rings); ``--kv-dtype int8`` stores the pages quantized.
+
+``--channel sim`` prices every cloud request on a WiFi-class link in
+virtual time (``--tick-time`` of edge compute a decode tick, a
+``--deadline`` after which the edge token is committed); ``--cloud-batch``
+serves one single-slot engine per client against one shared cloud
+(``ServingSystem.generate_multi``), whose requests a ``CloudBatcher``
+computes in masked waves and, with ``--channel sim``, a batching
+``CloudServicePoint`` (``--service-s`` a step, ``--batch-window``) prices:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --clients 4 --channel sim --cloud-batch
+
 Prints the run's stats and, for the collm and standalone modes, the token
 agreement against the undivided model (``--mode cloud``).
 """
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.collm import CollmConfig
+from repro_torch.core.netsim import NetworkParams
+from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
 from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
 from repro_torch.models.registry import build_model
 from repro_torch.serving.engine import ServingSystem, token_agreement
@@ -58,6 +73,23 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None,
                     help="paged pool size; a smaller pool delays "
                          "admissions until pages free up")
+    ap.add_argument("--channel", default="sync", choices=["sync", "sim"],
+                    help="sim: WiFi-class async channel in virtual time")
+    ap.add_argument("--deadline", type=float, default=math.inf,
+                    help="per-request reply budget (virtual s); a miss "
+                         "commits the edge token")
+    ap.add_argument("--tick-time", type=float, default=0.01,
+                    help="virtual edge compute per decode tick (sim)")
+    ap.add_argument("--cloud-batch", action="store_true",
+                    help="multi-client mode: one engine per client, cloud "
+                         "requests coalesced by the shared CloudBatcher")
+    ap.add_argument("--batch-window", type=float, default=0.004,
+                    help="cloud service accumulation window (virtual s, "
+                         "--cloud-batch with --channel sim)")
+    ap.add_argument("--service-s", type=float, default=0.008,
+                    help="virtual cost of one cloud service step (the "
+                         "shared cloud of --cloud-batch with --channel "
+                         "sim)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the prompts")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
@@ -69,6 +101,10 @@ def main(argv=None):
         ap.error("--num-pages/--page-size need --kv-layout paged")
     if args.kv_layout != "paged" and args.kv_dtype != "float32":
         ap.error("--kv-dtype int8 needs --kv-layout paged")
+    if args.cloud_batch and (args.num_slots is not None
+                             or args.num_pages is not None):
+        # one single-slot engine per client, pools sized per engine
+        ap.error("--num-slots/--num-pages do not apply to --cloud-batch")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
@@ -82,20 +118,52 @@ def main(argv=None):
         kv_layout=args.kv_layout, page_size=args.page_size,
         kv_dtype=args.kv_dtype))
     gen_kw = dict(num_slots=args.num_slots, num_pages=args.num_pages)
-    r = system.generate(prompts, args.max_new, mode=args.mode, **gen_kw)
+    if args.cloud_batch:
+        multi_kw = {}
+        if args.channel == "sim":
+            # a single client has nobody to coalesce with: plain FIFO
+            svc = CloudServicePoint(
+                args.service_s,
+                batch_window_s=args.batch_window if args.clients > 1 else 0.0,
+                max_batch=args.clients)
+            multi_kw.update(
+                channels=[AsyncSimChannel(NetworkParams(),
+                                          deadline_s=args.deadline,
+                                          service=svc)
+                          for _ in range(args.clients)],
+                tick_time_s=args.tick_time)
+        r = system.generate_multi(prompts, args.max_new, mode=args.mode,
+                                  cloud_batch=True, **multi_kw)
+        slots = f"engines={r['n_engines']}"
+    else:
+        run_kw = dict(gen_kw)
+        if args.channel == "sim":
+            run_kw.update(channel=AsyncSimChannel(NetworkParams(),
+                                                  deadline_s=args.deadline),
+                          tick_time_s=args.tick_time)
+        r = system.generate(prompts, args.max_new, mode=args.mode, **run_kw)
+        slots = f"slots={r['num_slots']}"
     st = r["stats"]
-    sched = next(iter(system._schedulers.values()))
     print(f"mode={args.mode} theta={args.theta} wire={args.wire} "
           f"backfill={args.backfill} device={model.device} "
           f"dtype={args.dtype} kv={args.kv_layout}/{args.kv_dtype} "
-          f"slots={r['num_slots']}")
+          f"{slots} channel={args.channel} cloud_batch={args.cloud_batch}")
     print(f"tokens={st.tokens} exits@l1={st.exits_l1} exits@l2={st.exits_l2} "
           f"cloud_requests={st.cloud_requests} "
           f"request_rate={st.request_rate:.2%}")
     print(f"upload={st.upload_bytes/1e3:.1f}KB edge_t={st.edge_time:.2f}s "
           f"cloud_t={st.cloud_time:.2f}s")
-    print(f"kv_cache_bytes={sched.kv_cache_bytes()} "
-          f"pool={r['pool_stats']}")
+    if args.channel == "sim":
+        print(f"virtual_t={r['virtual_time']:.3f}s "
+              f"deadline_misses={st.deadline_misses} "
+              f"fallbacks={st.fallbacks} stall={st.stall_s:.3f}s "
+              f"overlap={st.overlap_s:.3f}s late_drops={r['late_drops']}")
+    if "batcher" in r:
+        print(f"cloud batcher: {r['batcher']}")
+    if not args.cloud_batch:
+        sched = next(iter(system._schedulers.values()))
+        print(f"kv_cache_bytes={sched.kv_cache_bytes()} "
+              f"pool={r['pool_stats']}")
     if args.mode != "cloud":
         base = system.generate(prompts, args.max_new, mode="cloud", **gen_kw)
         ags = [token_agreement(a, b)

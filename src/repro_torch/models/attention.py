@@ -13,8 +13,9 @@ arrays: the cache passed in is the cache returned.  So a row excluded by a
 decode ``write_mask`` is never written (dense: its old entry is written
 back; paged: the write goes to the trash page with ``pos = -1``), where
 the JAX package computes every row and merges the old rows back.  The
-chunked and banded long-sequence paths and the chunked-prefill paged path
-(``chunk_attention_paged``) are not ported yet.
+chunked and banded long-sequence paths (ROADMAP A.8) and the
+chunked-prefill paged path (``chunk_attention_paged``, ROADMAP A.5) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -274,7 +275,7 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     if (window and s > window) or s * s > _DIRECT_LIMIT:
         raise NotImplementedError(
             "banded / chunked long-sequence attention is not ported yet "
-            "(ROADMAP A.2); the direct path covers S*S <= 2**22 without a "
+            "(ROADMAP A.8); the direct path covers S*S <= 2**22 without a "
             "window shorter than S")
     out = _direct_attention(q, k, v, positions, positions, causal=causal,
                             window=window, prefix_len=prefix_len, scale=scale)

@@ -9,7 +9,7 @@
 
 Caches are updated in place (see ``repro_torch.models.attention``).  Other
 block kinds (MoE, mamba2, xLSTM, shared attention, cross-attention) and
-layer norms are not ported yet and raise.
+layer norms are not ported yet (ROADMAP A.9) and raise.
 """
 from __future__ import annotations
 
@@ -66,7 +66,7 @@ class DecoderBlock(nn.Module):
         super().__init__()
         if kind != DENSE:
             raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                      f"yet (ROADMAP A.7)")
+                                      f"yet (ROADMAP A.9)")
         kw = dict(device=device, dtype=dtype)
         self.attn = Attention(cfg, **kw)
         self.mlp = MLP(cfg, **kw)

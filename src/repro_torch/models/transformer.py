@@ -75,7 +75,7 @@ class Model(nn.Module):
                 or cfg.norm_type != "rms"):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense rotary rms-norm decoder is "
-                f"ported yet (ROADMAP A.7)")
+                f"ported yet (ROADMAP A.9)")
         self.segments = build_segments(cfg)
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)

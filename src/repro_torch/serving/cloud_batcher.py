@@ -1,21 +1,37 @@
-"""Pooled-cache helpers of the batched engine.
+"""Cross-engine cloud batching, and the pooled-cache helpers of the batched
+engine.
 
-Port of the helper half of ``repro.serving.cloud_batcher``: the admission
-scatters of a prefilled row into the pooled (dense or paged) caches, the
-page invalidation of retired streams, and the backfill upload ring.  The
-``CloudBatcher`` itself (one pooled cloud cache shared by several engines)
-is not ported yet (ROADMAP A.5).
+Port of ``repro.serving.cloud_batcher`` without the mesh (ROADMAP A.11):
+
+  * the admission scatters of a prefilled row into the pooled (dense or
+    paged) caches, the page invalidation of retired streams, and the
+    backfill upload ring;
+  * ``CloudBatcher``: one cloud partition serving N edge clients (each its
+    own single-slot ``BatchScheduler``) out of a pooled, batch-major cloud
+    KV cache, one pool row per client stream.  Requests queue at submit
+    time (their uploads are popped from the ContentManager then) and are
+    computed lazily: the first reply an engine drains calls ``flush``,
+    which serves every queued request in waves of at most one row per
+    cloud slot, each wave ONE masked cloud step.
+
+Chunked admission and prefix sharing (ROADMAP A.5), speculative draft
+verification (A.3) and preemption's restore and swap (A.4) are not ported
+yet; their methods raise.
 
 Caches are ``{segment index: [per-layer cache, ...]}`` with the batch at
 axis 0 of every dense leaf, and are written in place.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.content_manager import ContentManager
+from repro_torch.core.paging import PagePool, pages_needed
 from repro_torch.models.attention import (paged_reset_pages,
                                           paged_scatter_prefill)
 
@@ -110,3 +126,295 @@ def build_upload_ring(entries, batch: int):
     valid = torch.zeros((depth, batch), dtype=torch.bool, device=dev)
     valid[idx] = True
     return ring, ring_pos, valid
+
+
+# ---------------------------------------------------------------------------
+# the batcher
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class _Entry:
+    """One queued cloud request awaiting a batched step."""
+    device_id: str
+    slot: int                   # cloud pool row
+    pos: int
+    packets: list               # [(pos, StatePacket), ...]; len > 1 means
+                                # a backfill ring
+    group: dict                 # reply payload shared with the channel
+
+
+@dataclasses.dataclass
+class BatcherStats:
+    requests: int = 0
+    steps: int = 0              # masked batched cloud calls executed
+    rows: int = 0               # summed rows served by those calls
+    max_rows: int = 0           # peak rows in any single wave (occupancy)
+    cancelled: int = 0
+    prefills: int = 0
+    prefill_chunks: int = 0     # chunked-admission cloud prefill calls
+    prefix_hit_tokens: int = 0  # prompt tokens served from shared pages
+    restores: int = 0           # preempted-stream cloud-KV replays
+    swaps: int = 0              # cloud rows swapped out to host
+    # host seconds spent in batched wave compute.  Prefill time is NOT
+    # included: the admitting engine times admit() and charges it to the
+    # admitting stream's GenStats, so summing the two never double-counts.
+    cloud_time: float = 0.0
+
+    @property
+    def mean_batch(self) -> float:
+        return self.rows / self.steps if self.steps else 0.0
+
+    def as_row(self) -> Dict[str, float]:
+        return {"requests": self.requests, "steps": self.steps,
+                "mean_batch": round(self.mean_batch, 2),
+                "max_batch": self.max_rows,
+                "cancelled": self.cancelled, "prefills": self.prefills,
+                "prefill_chunks": self.prefill_chunks,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "restores": self.restores, "swaps": self.swaps,
+                "cloud_time_s": round(self.cloud_time, 4)}
+
+
+def _unported(name: str, item: str):
+    def method(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"CloudBatcher.{name} is not ported yet (ROADMAP {item})")
+    method.__name__ = name
+    return method
+
+
+class CloudBatcher:
+    """One cloud partition serving N client streams out of a pooled,
+    batch-major KV cache: the compute half of the shared cloud service
+    point (``transport.CloudServicePoint`` is its timing half).
+
+    ``collm`` is a ``CoLLM``, ``cm`` the ``ContentManager`` the engines
+    upload into (it also maps each client to its pool row).  The pool is
+    dense rings or, with ``CollmConfig.kv_layout="paged"``, a page pool of
+    its own; its rows are not preemptible, so admission is the
+    conservative worst case."""
+
+    def __init__(self, collm, cm: ContentManager, num_slots: int,
+                 max_seq: int, *, max_batch: Optional[int] = None,
+                 max_ctx: Optional[int] = None,
+                 num_pages: Optional[int] = None):
+        self.collm = collm
+        self.cm = cm
+        self.B = num_slots
+        self.max_seq = max_seq
+        self.max_batch = max_batch or num_slots
+        cm.init_cloud_slots(num_slots)
+
+        self.layout = collm.ccfg.kv_layout
+        self.pool: Optional[PagePool] = None
+        self._tbl_device: Optional[torch.Tensor] = None
+        if self.layout == "paged":
+            ps = collm.ccfg.page_size
+            self.max_ctx = max_ctx or max_seq
+            n_pages = num_pages or num_slots * pages_needed(self.max_ctx, ps)
+            self.pool = PagePool(n_pages, ps, num_slots,
+                                 pages_needed(self.max_ctx, ps))
+            row_seq = _bucket(self.max_ctx)
+            self.caches = collm.init_cloud_cache_paged(
+                num_slots, self.pool.num_pages, ps)
+        else:
+            self.max_ctx = max_seq
+            row_seq = max_seq
+            self.caches = collm.init_cloud_cache(num_slots, max_seq)
+        self._row_seq = row_seq
+        self._row0 = collm.init_cloud_cache(1, row_seq)
+
+        self._pending: List[_Entry] = []
+        self._budget: Dict[str, int] = {}   # device_id -> prompt+max_new
+        self.stats = BatcherStats()
+
+    # -- capacity / lifecycle ----------------------------------------------
+    def _outstanding_pages(self) -> int:
+        """Worst-case pages still owed to admitted streams: each active
+        client's token budget minus the pages it already owns."""
+        out = 0
+        for dev, budget in self._budget.items():
+            slot = self.cm.cloud_slot(dev)
+            if slot is None:
+                continue
+            out += max(0, pages_needed(budget, self.pool.page_size)
+                       - self.pool.owned_pages(slot))
+        return out
+
+    def can_admit(self, budget_tokens: int) -> bool:
+        """One more stream of ``prompt + max_new`` tokens, right now?  (The
+        JAX package's ``hit_pages`` discount comes with prefix sharing,
+        ROADMAP A.5.)"""
+        if self.cm.cloud_slots_free() <= 0:
+            return False
+        if self.pool is not None:
+            need = pages_needed(budget_tokens, self.pool.page_size)
+            if need > self.pool.num_pages:
+                raise ValueError(
+                    f"stream of {budget_tokens} tokens needs more pages "
+                    f"than the cloud pool has ({self.pool.num_pages})")
+            return need <= self.pool.free_pages - self._outstanding_pages()
+        return True
+
+    def _alloc(self, slot: int, lp: int) -> None:
+        self.pool.alloc(slot, lp)
+        self._tbl_device = None
+
+    def admit(self, device_id: str, h1_seq: torch.Tensor, true_len: int,
+              budget_tokens: int) -> torch.Tensor:
+        """Prefill the cloud partition over the uploaded (padded) prompt
+        hidden sequence into the client's pool row; returns the logits
+        (1, 1, V) at the true last position (the cloud answer for the first
+        token), still on the device."""
+        slot = self.cm.assign_cloud_slot(device_id)
+        self._budget[device_id] = budget_tokens
+        logits, row = self.collm.cloud_prefill_padded(h1_seq, true_len,
+                                                      self._row0)
+        if self.pool is None:
+            self.caches = _scatter_row(self.caches, row, slot)
+        else:
+            ps = self.pool.page_size
+            n_prompt = pages_needed(true_len, ps)
+            for lp in range(n_prompt):
+                self._alloc(slot, lp)
+            pages = np.full((pages_needed(h1_seq.shape[1], ps),), -1,
+                            np.int32)
+            pages[:n_prompt] = self.pool.block_table[slot, :n_prompt]
+            self.caches = _scatter_row_paged(self.caches, row, slot, pages)
+        self.stats.prefills += 1
+        return logits
+
+    prefix_hit = _unported("prefix_hit", "A.5")
+    admit_begin = _unported("admit_begin", "A.5")
+    admit_chunk = _unported("admit_chunk", "A.5")
+    pages_filled = _unported("pages_filled", "A.5")
+
+    def release(self, device_id: str) -> None:
+        """Stream finished: cancel its queued requests, free its pages
+        (invalidated on the device), return its pool row."""
+        self.cancel(device_id, 0)
+        self._budget.pop(device_id, None)
+        slot = self.cm.release_cloud_slot(device_id)
+        if slot is None or self.pool is None:
+            return
+        freed = self.pool.free_slot(slot)
+        self._tbl_device = None
+        if freed:
+            _reset_pages_tree(self.caches, freed)
+
+    # -- request path -------------------------------------------------------
+    def submit(self, device_id: str, pos: int, *, backfill: bool = False):
+        """Queue one single-token cloud request; returns ``(group, row,
+        packets)``: the engine hands ``(group, row)`` to its channel as the
+        reply payload.  The uploaded packet(s) are popped from the
+        ContentManager NOW (submit order = per-client pos order), so a
+        later flush computes exactly what a per-engine call would have."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None:
+            raise KeyError(f"{device_id} has no cloud slot (admit first)")
+        if backfill:
+            packets = self.cm.take_uploads_upto(device_id, pos)
+        else:
+            packets = [(pos, self.cm.take_upload(device_id, pos))]
+        if self.pool is not None:
+            for p, _ in packets:
+                lp = p // self.pool.page_size
+                if self.pool.block_table[slot, lp] == -1:
+                    self._alloc(slot, lp)
+        group = {"logits": None, "np": None, "flush": self.flush}
+        self._pending.append(_Entry(device_id=device_id, slot=slot, pos=pos,
+                                    packets=packets, group=group))
+        self.stats.requests += 1
+        return group, slot, packets
+
+    submit_draft = _unported("submit_draft", "A.3")
+    invalidate = _unported("invalidate", "A.3")
+
+    def cancel(self, device_id: str, min_pos: int) -> int:
+        """Drop queued (not yet computed) requests of one client at
+        positions >= ``min_pos`` (the stream retired).  Their replies
+        late-drop in the engine; computing them after the stream's pages
+        were freed would write into another stream's row."""
+        keep = [e for e in self._pending
+                if e.device_id != device_id or e.pos < min_pos]
+        dropped = len(self._pending) - len(keep)
+        self._pending = keep
+        self.stats.cancelled += dropped
+        return dropped
+
+    restore = _unported("restore", "A.4")
+    swap_out = _unported("swap_out", "A.4")
+    swap_in = _unported("swap_in", "A.4")
+
+    def flush(self) -> None:
+        """Drain the queue in waves: each wave serves at most one request
+        per cloud slot (and at most ``max_batch`` rows) with ONE masked
+        batched cloud step; every entry's reply group gets the wave's
+        still-on-device logits."""
+        while self._pending:
+            wave, rest, seen = [], [], set()
+            for e in self._pending:
+                if e.slot in seen or len(wave) >= self.max_batch:
+                    rest.append(e)
+                else:
+                    seen.add(e.slot)
+                    wave.append(e)
+            self._pending = rest
+            self._compute(wave)
+
+    # -- internals ----------------------------------------------------------
+    def _block_tbl(self) -> Optional[torch.Tensor]:
+        if self.pool is None:
+            return None
+        if self._tbl_device is None:
+            self._tbl_device = torch.tensor(self.pool.block_table,
+                                            device=self.collm.model.device)
+        return self._tbl_device
+
+    def _compute(self, wave: List[_Entry]) -> None:
+        """One masked cloud step over a wave.  The (B, ...) input is built
+        on the device by index copies of the entries' packets (the JAX
+        package builds it on the host); positions are host integers."""
+        t0 = time.perf_counter()
+        dev = self.collm.model.device
+        if any(len(e.packets) > 1 for e in wave):
+            # a backfill ring in the wave: the ring pass serves all of it
+            ring, ring_pos, valid = build_upload_ring(
+                [(e.slot, e.packets) for e in wave], self.B)
+            logits, all_logits, self.caches = \
+                self.collm.ring_cloud_steps_all(ring, ring_pos, valid,
+                                                self.caches,
+                                                self._block_tbl())
+            for e in wave:
+                # every ring entry's logits: what a k-token draft reply
+                # reconciles against (ROADMAP A.3); a single-token reply
+                # reads "logits" only
+                e.group["all"] = all_logits
+        else:
+            first = wave[0].packets[0][1].hidden
+            rows = torch.as_tensor([e.slot for e in wave], device=dev)
+            dense = {}
+            for k, v in first.items():
+                dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
+                                       dtype=v.dtype, device=dev)
+                dense[k][rows] = torch.cat([e.packets[0][1].hidden[k]
+                                            for e in wave])
+            pos = np.zeros((self.B,), np.int32)
+            mask = np.zeros((self.B,), bool)
+            for e in wave:
+                pos[e.slot] = e.packets[0][0]
+                mask[e.slot] = True
+            logits, self.caches = self.collm.cloud_step(
+                dense, self.caches, torch.as_tensor(pos, device=dev),
+                block_tbl=self._block_tbl(),
+                write_mask=torch.as_tensor(mask, device=dev))
+        for e in wave:
+            e.group["logits"] = logits
+        self.stats.steps += 1
+        self.stats.rows += len(wave)
+        self.stats.max_rows = max(self.stats.max_rows, len(wave))
+        self.stats.cloud_time += time.perf_counter() - t0
+
+    def kv_cache_bytes(self) -> int:
+        return sum(leaf.numel() * leaf.element_size()
+                   for layers in self.caches.values() for c in layers
+                   for leaf in c["self"].values())

@@ -1,6 +1,6 @@
-"""Host-level serving of the CE-CoLLM system: the sequential loop.
+"""Host-level serving of the CE-CoLLM system.
 
-Port of the sequential half of ``repro.serving.engine``.  Topology (paper
+Port of ``repro.serving.engine``.  Topology (paper
 fig 2/3): N edge clients, each running the edge LLM partition with exits at
 l_ee1/l_ee2; one cloud server running the cloud partition behind a
 ContentManager.  Per generated token (Algorithm 1):
@@ -13,7 +13,7 @@ ContentManager.  Per generated token (Algorithm 1):
   3. the content manager releases unused uploads (paper) or backfills them
      through the cloud partition (beyond-paper exact-KV mode).
 
-Two execution engines implement that contract, as in the JAX package:
+Three execution engines implement that contract, as in the JAX package:
 
   * ``BatchScheduler`` (``ServingSystem.generate``) — the continuous-
     batching engine: a fixed pool of B slots stepped by one batched edge
@@ -22,19 +22,31 @@ Two execution engines implement that contract, as in the JAX package:
     KV lives in per-slot dense rings (``kv_layout="dense"``) or in a
     block-paged pool shared across slots (``"paged"``; float or int8
     pages, admission back-pressure when pages run out).
+  * ``run_multi`` (``ServingSystem.generate_multi``) — the paper's §5
+    setting: N single-slot engines (edge clients), each with its own
+    channel and virtual clock, driven in lockstep rounds against one
+    shared cloud, whose timing is a ``CloudServicePoint`` and whose compute
+    is, with ``cloud_batch``, one ``CloudBatcher`` (one masked cloud step
+    for the concurrent requests of N clients).
   * ``ServingSystem.generate_sequential`` — one client at a time, batch 1,
     one Python iteration per token: the reference the batched engine is
     held token-identical to.
 
-Greedy decoding over the blocking ``SyncChannel`` only; the other
-samplers and channels, ``CloudBatcher``, preemption, chunked prefill,
-prefix sharing, speculative drafting and fleet replay are not ported yet
-(ROADMAP A.5).
+Cloud requests travel through a ``transport.CloudChannel`` in virtual
+time: a reply that misses its deadline loses to the edge's l_ee2 token,
+``fallback_after`` misses in a row switch a stream to standalone, and
+``overlap=False`` is the blocking baseline.  Samplers: greedy, and
+temperature with top-k.  Not ported yet, and refused with the ROADMAP
+queue item that ports them: speculative drafting (A.3), preemption, its
+schedule and the admission watermark (A.4), chunked prefill and prefix
+sharing (A.5), open-loop arrivals, SLOs, adaptive control and resume
+pricing (A.6).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -43,13 +55,15 @@ import torch
 
 from repro_torch.core.collm import CoLLM, CollmConfig
 from repro_torch.core.content_manager import ContentManager
-from repro_torch.core.exits import first_confident_exit
+from repro_torch.core.exits import first_confident_exit, select_exit_logits
 from repro_torch.core.paging import PagePool, pages_needed
-from repro_torch.core.transport import (TOKEN_BYTES, CloudChannel,
-                                        StatePacket, SyncChannel,
-                                        hidden_wire_bytes)
+from repro_torch.core.transport import (TOKEN_BYTES, ChannelStats,
+                                        CloudChannel, StatePacket,
+                                        SyncChannel, hidden_wire_bytes)
 from repro_torch.models.transformer import Caches, Model
-from repro_torch.serving.cloud_batcher import (_bucket, _reset_pages_tree,
+from repro_torch.serving import sampler as samplerlib
+from repro_torch.serving.cloud_batcher import (CloudBatcher, _bucket,
+                                               _reset_pages_tree,
                                                _scatter_row,
                                                _scatter_row_paged,
                                                build_upload_ring)
@@ -228,7 +242,7 @@ class EdgeClient:
 class Request:
     """One client stream queued for the scheduler.  ``arrival_t`` is its
     virtual arrival: the scheduler's clock when the run started (open-loop
-    arrivals and SLO targets are not ported yet)."""
+    arrivals and SLO targets are not ported yet, ROADMAP A.6)."""
     device_id: str
     prompt: np.ndarray
     max_new: int
@@ -242,6 +256,10 @@ class _Pending:
     """One in-flight cloud request of a slot."""
     pos: int                 # decode position the request serves
     tok_index: int           # index in slot.tokens its token lands at
+    provisional: int         # edge l_ee2 token committed on deadline miss
+    stall_from: float        # virtual submit time
+    deadline_t: float
+    idle_at: float = 0.0     # engine idle integral at submit (overlap_s)
 
 
 @dataclasses.dataclass
@@ -253,7 +271,9 @@ class _Slot:
     ``seq`` is the slot *generation*: it increments at every admission, so
     a cloud reply issued by a retired stream can never be applied to the
     slot's successor.  ``pending`` holds the in-flight cloud request (at
-    most one: the row stalls until it resolves)."""
+    most one: the row stalls until it resolves).  ``miss_streak`` counts
+    deadline misses in a row; ``standalone`` is the latency fallback (the
+    row stops uploading and serves itself)."""
     index: int
     req: Optional[Request] = None
     stats: Optional[GenStats] = None
@@ -265,6 +285,8 @@ class _Slot:
     active: bool = False
     seq: int = 0
     pending: Dict[int, _Pending] = dataclasses.field(default_factory=dict)
+    miss_streak: int = 0
+    standalone: bool = False
 
 
 class BatchScheduler:
@@ -283,46 +305,51 @@ class BatchScheduler:
     (``PagePool.block_table``); its device copy is rebuilt only after an
     alloc or free changed it, and is shared by every layer of a step.
 
-    Each tick is the JAX engine's two-stage pipeline: the edge pass over
-    every row (rows stalled on a reply, and idle slots, flow through as
-    placeholders whose outputs are dropped and whose paged writes land on
-    the trash page), then one dispatch of this tick's below-θ rows into
-    the cloud channel.  Only the blocking ``SyncChannel`` is ported, so a
-    reply lands in the tick that dispatched it and no deadline can pass;
-    ``tick_time_s`` prices each tick in virtual time.  The late-reply
-    guard (the slot generation ``seq`` checked in ``_resolve``,
-    ``late_drops``, ``drop_in_flight`` at the end of a run) cannot fire
-    over a ``SyncChannel``; it is kept as the JAX engine has it, for the
-    asynchronous channel that ROADMAP A.5 ports next, and ``late_drops``
-    stays among ``generate``'s result keys as in JAX.  Not ported yet
-    (ROADMAP A.5), and refused: samplers other than greedy, other channels
-    (and with them deadlines and the standalone fallback after missed
-    ones), the shared ``CloudBatcher``, preemption and its schedule,
-    adaptive control, resume pricing, open-loop arrivals and SLOs."""
+    Each tick is the JAX engine's two-stage pipeline:
+
+      1. the edge pass over every row (rows stalled on an in-flight reply,
+         and idle slots, flow through as placeholders whose outputs are
+         dropped and whose paged writes land on the trash page);
+      2. one dispatch of this tick's below-θ rows: one masked cloud call
+         computes them all (or, with a shared ``CloudBatcher``, they queue
+         there to join other engines' rows in one wave), and the logits
+         enter ``channel`` per row, still on the device, while the engine
+         keeps decoding.
+
+    Replies drain against a per-row deadline in virtual time: a miss
+    commits the row's edge l_ee2 token (the paper's latency-aware early
+    exit), a reply that arrived after its deadline is dropped, and
+    ``fallback_after`` consecutive misses flip the row to standalone.
+    When every active row waits on the channel, the clock jumps to the
+    next arrival or deadline.  ``overlap=False`` degrades stage 2 to a
+    blocking drain (the whole pool waits).  The default ``SyncChannel``
+    (zero latency) is the blocking engine, token for token.  Samplers
+    other than greedy draw from a ``torch.Generator`` seeded with
+    ``seed`` on the model's device.  Refused with their ROADMAP item:
+    preemption's schedule and the watermark (A.4), adaptive control and
+    resume pricing (A.6)."""
 
     def __init__(self, collm: CoLLM, cm: ContentManager, num_slots: int,
                  max_seq: int, mode: str = "collm", sampler: str = "greedy",
+                 temperature: float = 1.0, top_k: int = 0, seed: int = 0,
                  max_ctx: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  channel: Optional[CloudChannel] = None,
-                 tick_time_s: float = 0.0, fallback_after: int = 0,
-                 cloud_batcher: Any = None, preempt_schedule: Any = None,
+                 tick_time_s: float = 0.0, overlap: bool = True,
+                 fallback_after: int = 0,
+                 cloud_batcher: Optional[CloudBatcher] = None,
+                 watermark: int = 0, preempt_schedule: Any = None,
                  adaptive: Any = None, resume_cost: Any = None):
         if mode not in ("collm", "standalone", "cloud"):
             raise ValueError(mode)
-        refused = {"sampler": sampler != "greedy",
-                   "channel": (channel is not None
-                               and type(channel) is not SyncChannel),
-                   "cloud_batcher": cloud_batcher is not None,
-                   "preempt_schedule": bool(preempt_schedule),
-                   "adaptive": adaptive is not None,
-                   "resume_cost": resume_cost is not None,
-                   "fallback_after": fallback_after > 0}
-        bad = [name for name, on in refused.items() if on]
-        if bad:
-            raise NotImplementedError(
-                f"BatchScheduler options {bad} are not ported yet (ROADMAP "
-                f"A.5): greedy decoding over a SyncChannel only")
+        refused = {"watermark": (watermark != 0, "A.4"),
+                   "preempt_schedule": (bool(preempt_schedule), "A.4"),
+                   "adaptive": (adaptive is not None, "A.6"),
+                   "resume_cost": (resume_cost is not None, "A.6")}
+        _refuse("BatchScheduler options", refused)
+        # cloud compute delegated to a shared CloudBatcher (multi-engine
+        # mode): this engine then keeps no cloud caches of its own
+        self._batcher = cloud_batcher if mode == "collm" else None
         self.collm = collm
         self.model = collm.model
         self.ccfg = collm.ccfg
@@ -330,13 +357,22 @@ class BatchScheduler:
         self.B = num_slots
         self.max_seq = max_seq
         self.mode = mode
+        self.sampler = sampler
+        self.temperature = temperature
+        self.top_k = top_k
+        self._gen = torch.Generator(device=self.model.device)
+        self._gen.manual_seed(seed)
         self.slots = [_Slot(index=i) for i in range(num_slots)]
 
+        # cloud channel + virtual clock
         self.channel = channel if channel is not None else SyncChannel()
         self.tick_time_s = float(tick_time_s)
+        self.overlap = bool(overlap)
+        self.fallback_after = int(fallback_after)
         self.vnow = 0.0
         self.last_virtual_time = 0.0
         self.late_drops = 0          # replies dropped after slot moved on
+        self._idle_s = 0.0           # virtual time nobody decoded (waits)
 
         self.layout = self.ccfg.kv_layout
         if self.layout not in ("dense", "paged"):
@@ -368,7 +404,7 @@ class BatchScheduler:
             self.edge_caches = self._init_pool_cache(
                 collm.init_edge_cache, collm.init_edge_cache_paged)
             self._edge_row0 = collm.init_edge_cache(1, row_seq)
-            if mode == "collm":
+            if mode == "collm" and self._batcher is None:
                 self.cloud_caches = self._init_pool_cache(
                     collm.init_cloud_cache, collm.init_cloud_cache_paged)
                 self._cloud_row0 = collm.init_cloud_cache(1, row_seq)
@@ -401,6 +437,14 @@ class BatchScheduler:
                                             device=self.model.device)
         return self._tbl_device
 
+    # -- sampling -----------------------------------------------------------
+    def _pick(self, logits: torch.Tensor) -> np.ndarray:
+        """logits (B, V) -> tokens (B,) on the host under the configured
+        sampler."""
+        return samplerlib.sample(
+            logits, method=self.sampler, gen=self._gen,
+            temperature=self.temperature, top_k=self.top_k).cpu().numpy()
+
     # -- admission ----------------------------------------------------------
     def _outstanding_pages(self) -> int:
         """Worst-case pages still owed to the active streams, so that an
@@ -423,6 +467,9 @@ class BatchScheduler:
             raise ValueError(
                 f"request {req.device_id}: prompt {p_len} + max_new "
                 f"{req.max_new} exceeds max context {self.max_ctx}")
+        if self._batcher is not None \
+                and not self._batcher.can_admit(p_len + req.max_new):
+            return False        # shared cloud pool full: wait for a release
         if self.pool is None:
             return True
         need_worst = pages_needed(p_len + req.max_new, self.pool.page_size)
@@ -491,25 +538,32 @@ class BatchScheduler:
                     tokens, p_len, self._full_row0)
                 self.main_caches = self._scatter_admit(self.main_caches, row,
                                                        slot, pages)
-                tok = int(logits[0, 0].argmax())
+                tok = int(self._pick(logits[:, 0])[0])
                 st.cloud_time += time.perf_counter() - t0
             else:
                 t0 = time.perf_counter()
                 decisions, h1_seq, row = self.collm.edge_prefill_padded(
-                    tokens, p_len, self._edge_row0)
+                    tokens, p_len, self._edge_row0,
+                    with_logits=self.sampler != "greedy")
                 self.edge_caches = self._scatter_admit(self.edge_caches, row,
                                                        slot, pages)
-                fetched = {l: (int(d.token[0]), float(d.confidence[0]))
+                fetched = {l: (int(d.token[0]), float(d.confidence[0]),
+                               d.logits)
                            for l, d in decisions.items()}
                 st.edge_time += time.perf_counter() - t0
 
                 prefill_logits = None
                 if self.mode == "collm":
                     t0 = time.perf_counter()
-                    logits, crow = self.collm.cloud_prefill_padded(
-                        h1_seq, p_len, self._cloud_row0)
-                    self.cloud_caches = self._scatter_admit(
-                        self.cloud_caches, crow, slot, pages)
+                    if self._batcher is not None:
+                        logits = self._batcher.admit(
+                            req.device_id, h1_seq, p_len,
+                            p_len + req.max_new)
+                    else:
+                        logits, crow = self.collm.cloud_prefill_padded(
+                            h1_seq, p_len, self._cloud_row0)
+                        self.cloud_caches = self._scatter_admit(
+                            self.cloud_caches, crow, slot, pages)
                     prefill_logits = logits[:, 0]
                     st.cloud_time += time.perf_counter() - t0
                     st.upload_bytes += hidden_wire_bytes(
@@ -525,6 +579,8 @@ class BatchScheduler:
             slot.active = True
             slot.seq += 1            # late replies of the predecessor drop
             slot.pending = {}
+            slot.miss_streak = 0
+            slot.standalone = False
             admitted = True
             self._maybe_finish(slot)
         return admitted
@@ -533,16 +589,18 @@ class BatchScheduler:
         """First token from the prompt's last position — same decision tree
         as the sequential path."""
         layers = sorted(fetched)
+        greedy = self.sampler == "greedy"
         if self.mode == "standalone":
-            return fetched[layers[-1]][0]
+            tok_l, _, logits_l = fetched[layers[-1]]
+            return tok_l if greedy else int(self._pick(logits_l)[0])
         for l in layers:
-            tok_l, conf_l = fetched[l]
+            tok_l, conf_l, logits_l = fetched[l]
             if conf_l >= self.ccfg.theta:
-                return tok_l
+                return tok_l if greedy else int(self._pick(logits_l)[0])
         # cloud already prefilled through the prompt: its last-position
         # logits ARE the cloud answer for the first token
         st.cloud_requests += 1
-        return int(prefill_logits[0].argmax())
+        return int(self._pick(prefill_logits)[0])
 
     def _finalize_latency(self, slot: _Slot) -> None:
         """Fold the stream's per-token emission timestamps (virtual time)
@@ -563,6 +621,9 @@ class BatchScheduler:
         if done:
             self._finalize_latency(slot)
             if self.mode == "collm":
+                if self._batcher is not None:
+                    # cancels queued requests, frees the cloud pool row
+                    self._batcher.release(req.device_id)
                 self.cm.end_of_sequence(req.device_id)
             slot.active = False
             if self.pool is not None:
@@ -593,15 +654,15 @@ class BatchScheduler:
         """One step of the two-stage pipeline: resolve due replies, run the
         edge pass for every row, dispatch this tick's below-θ cloud
         requests, resolve again (a ``SyncChannel`` reply arrives within
-        the same tick)."""
+        the same tick).  When every active row waits on the channel, the
+        virtual clock jumps to the next arrival or deadline instead."""
         self._resolve()
         runnable = [s for s in self.slots if self._runnable(s)]
         if not runnable:
-            # a SyncChannel reply lands in the tick that dispatched it, and
-            # a row at its end retires at once: an active slot can always
-            # decode
-            raise RuntimeError("scheduler wedged: active slots but no row "
-                               "can decode")
+            if any(s.active for s in self.slots):
+                self._advance_idle()
+                self._resolve()
+            return
         if self.pool is not None:
             for s in runnable:
                 # alloc-on-write: this tick writes KV at s.pos
@@ -631,9 +692,12 @@ class BatchScheduler:
 
     def _tick_cloud(self, runnable, tokens, pos) -> None:
         t0 = time.perf_counter()
-        tok, _, self.main_caches = self.collm.full_step(
+        tok, logits, self.main_caches = self.collm.full_step(
             tokens, self.main_caches, pos, self._block_tbl())
-        next_tok = tok.cpu().numpy()
+        if self.sampler == "greedy":
+            next_tok = tok.cpu().numpy()
+        else:
+            next_tok = self._pick(logits)
         dt = (time.perf_counter() - t0) / len(runnable)
         for s in runnable:
             s.stats.cloud_time += dt
@@ -641,8 +705,10 @@ class BatchScheduler:
 
     def _tick_edge(self, runnable, tokens, pos) -> None:
         collm, ccfg = self.collm, self.ccfg
+        greedy = self.sampler == "greedy"
         t0 = time.perf_counter()
-        out = collm.edge_step(tokens, self.edge_caches, pos, self._block_tbl())
+        out = collm.edge_step(tokens, self.edge_caches, pos, self._block_tbl(),
+                              with_logits=not greedy)
         self.edge_caches = out.caches
         # one device->host copy per tick: exit token, exit flag, the l_ee2
         # token and every exit's confidence (float64 holds all exactly)
@@ -656,6 +722,15 @@ class BatchScheduler:
         exited = host[1] > 0
         tok2 = host[2].astype(np.int64)
         confs = dict(zip(layers, host[3:]))
+        if not greedy:
+            # the sampling path draws from the chosen exit's logits; rows
+            # that exit nowhere get the LAST exit's logits, which is also
+            # what a deadline miss or a standalone row commits
+            if self.mode == "standalone":
+                sel = out.decisions[collm.l_ee2].logits
+            else:
+                sel = select_exit_logits(out.decisions, ccfg.theta)[0]
+            exit_toks = tok2 = self._pick(sel)
         edge_dt = (time.perf_counter() - t0) / len(runnable)
 
         for s in runnable:
@@ -674,21 +749,24 @@ class BatchScheduler:
                 self._emit(s, int(tok2[s.index]))
             return
 
-        # parallel upload (always dispatched at l_ee1) — batched receive
+        # parallel upload (always dispatched at l_ee1) — batched receive.
+        # Standalone-fallback rows have given up on the cloud: no upload.
         up = out.upload
+        uploaders = [s for s in runnable if not s.standalone]
         pkts = {s.index: StatePacket(
             hidden={k: v[s.index:s.index + 1] for k, v in up.items()},
-            pos=s.pos) for s in runnable}
+            pos=s.pos) for s in uploaders}
         self.cm.upload_batch((s.req.device_id, s.pos, pkts[s.index])
-                             for s in runnable)
-        for s in runnable:
+                             for s in uploaders)
+        for s in uploaders:
             nb = pkts[s.index].nbytes()
             s.stats.upload_bytes += nb
             self.channel.notify_upload(s.index, nb, self.vnow)
 
-        needy = [s for s in runnable if not exited[s.index]]
+        # ``tok2`` is the provisional token a deadline miss commits
+        needy = [s for s in uploaders if not exited[s.index]]
         if needy:
-            self._dispatch_cloud(needy, pos)
+            self._dispatch_cloud(needy, pos, tok2)
         for s in runnable:
             if exited[s.index]:
                 if s.stats.confidences[-1][0] >= ccfg.theta:
@@ -696,46 +774,78 @@ class BatchScheduler:
                 else:
                     s.stats.exits_l2 += 1
                 self._emit(s, int(exit_toks[s.index]))
+            elif s.standalone:
+                # latency fallback: the edge serves its below-θ tokens
+                s.stats.exits_l2 += 1
+                self._emit(s, int(tok2[s.index]))
             # else: needy — token arrives via the channel (_resolve)
 
-    def _dispatch_cloud(self, needy: List[_Slot], pos: torch.Tensor) -> None:
+    def _dispatch_cloud(self, needy: List[_Slot], pos: torch.Tensor,
+                        prov_toks: np.ndarray) -> None:
         """Stage 2: one masked cloud call computes every below-θ slot of
         the tick (with backfill, the ring of each row's pending uploads);
-        per-row requests enter the channel.  The logits stay on the card
-        until the drain materializes them."""
+        per-row requests enter the channel and the engine keeps decoding
+        while they are in flight.  The logits stay on the card until the
+        drain materializes them.  With a shared ``CloudBatcher`` the masked
+        call itself is deferred too: the requests queue with the batcher so
+        that other engines' concurrent rows join the same wave."""
         ccfg = self.ccfg
         dev = self.model.device
         t0 = time.perf_counter()
-        if ccfg.backfill:
-            rings = self.cm.take_uploads_upto_batch(
-                [(s.req.device_id, s.pos) for s in needy])
-            ring, ring_pos, valid = build_upload_ring(
-                [(s.index, pend) for s, pend in zip(needy, rings)], self.B)
-            logits, self.cloud_caches = self.collm.ring_cloud_steps(
-                ring, ring_pos, valid, self.cloud_caches, self._block_tbl())
+        if self._batcher is not None:
+            payloads = {}
+            for s in needy:
+                group, row, _ = self._batcher.submit(
+                    s.req.device_id, s.pos, backfill=ccfg.backfill)
+                payloads[s.index] = (group, row)
         else:
-            pkts = self.cm.take_upload_batch(
-                [(s.req.device_id, s.pos) for s in needy])
-            rows = torch.as_tensor([s.index for s in needy], device=dev)
-            dense = {}
-            for k, v in pkts[0].hidden.items():
-                dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
-                                       dtype=v.dtype, device=dev)
-                dense[k][rows] = torch.cat([p.hidden[k] for p in pkts])
-            mask = torch.zeros((self.B,), dtype=torch.bool, device=dev)
-            mask[rows] = True
-            logits, self.cloud_caches = self.collm.cloud_step(
-                dense, self.cloud_caches, pos, block_tbl=self._block_tbl(),
-                write_mask=mask)
-        group = {"logits": logits, "np": None}   # materialized at drain
+            if ccfg.backfill:
+                rings = self.cm.take_uploads_upto_batch(
+                    [(s.req.device_id, s.pos) for s in needy])
+                ring, ring_pos, valid = build_upload_ring(
+                    [(s.index, pend) for s, pend in zip(needy, rings)],
+                    self.B)
+                logits, self.cloud_caches = self.collm.ring_cloud_steps(
+                    ring, ring_pos, valid, self.cloud_caches,
+                    self._block_tbl())
+            else:
+                pkts = self.cm.take_upload_batch(
+                    [(s.req.device_id, s.pos) for s in needy])
+                rows = torch.as_tensor([s.index for s in needy], device=dev)
+                dense = {}
+                for k, v in pkts[0].hidden.items():
+                    dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
+                                           dtype=v.dtype, device=dev)
+                    dense[k][rows] = torch.cat([p.hidden[k] for p in pkts])
+                mask = torch.zeros((self.B,), dtype=torch.bool, device=dev)
+                mask[rows] = True
+                logits, self.cloud_caches = self.collm.cloud_step(
+                    dense, self.cloud_caches, pos,
+                    block_tbl=self._block_tbl(), write_mask=mask)
+            group = {"logits": logits, "np": None}   # materialized at drain
+            payloads = {s.index: (group, s.index) for s in needy}
 
         dt = (time.perf_counter() - t0) / len(needy)
+        handles = []
         for s in needy:
             s.stats.cloud_time += dt
             h = self.channel.submit(
-                slot=s.index, seq=s.seq, pos=s.pos, reply=(group, s.index),
+                slot=s.index, seq=s.seq, pos=s.pos, reply=payloads[s.index],
                 now=self.vnow, nbytes_up=TOKEN_BYTES, nbytes_down=TOKEN_BYTES)
-            s.pending[h] = _Pending(pos=s.pos, tok_index=len(s.tokens))
+            s.pending[h] = _Pending(
+                pos=s.pos, tok_index=len(s.tokens),
+                provisional=int(prov_toks[s.index]), stall_from=self.vnow,
+                deadline_t=self.vnow + self.channel.deadline_s,
+                idle_at=self._idle_s)
+            handles.append(h)
+        if not self.overlap:
+            # blocking baseline: the whole pool waits for this tick's
+            # replies (still paying the channel's virtual latency); the
+            # jump is pure idle time, nothing decodes during it
+            arr = [self.channel.arrival_of(h) for h in handles]
+            target = max([self.vnow] + [a for a in arr if a is not None])
+            self._idle_s += target - self.vnow
+            self.vnow = target
 
     # -- reply drain --------------------------------------------------------
     def _reply_token(self, rep) -> int:
@@ -743,12 +853,42 @@ class BatchScheduler:
         and return this row's."""
         group, row = rep.reply
         if group["np"] is None:
-            group["np"] = group["logits"].argmax(dim=-1).cpu().numpy()
+            if group["logits"] is None:
+                # CloudBatcher reply: the batched cloud step is lazy so
+                # that concurrent engines' requests land in one wave; the
+                # first materialization computes it
+                group["flush"]()
+            group["np"] = self._pick(group["logits"])
         return int(group["np"][row])
 
+    def _hidden_s(self, pend: _Pending) -> float:
+        """Virtual time of this request's wait that was hidden behind the
+        pool's continued decoding: the stalled window minus the part of it
+        the whole engine spent idle (``_advance_idle`` jumps and the
+        blocking drain).  At 1 slot, or with ``overlap=False``, every wait
+        is idle and it stays 0."""
+        stall = self.vnow - pend.stall_from
+        idle = self._idle_s - pend.idle_at
+        return max(0.0, stall - idle)
+
+    def _deadline_miss(self, s: _Slot, pend: _Pending) -> None:
+        """Latency-aware early exit: the reply is overdue (or arrived past
+        its deadline), so the row's edge l_ee2 token wins."""
+        s.stats.deadline_misses += 1
+        s.miss_streak += 1
+        s.stats.stall_s += self.vnow - pend.stall_from
+        s.stats.overlap_s += self._hidden_s(pend)
+        s.stats.exits_l2 += 1
+        self._emit(s, pend.provisional)
+        if (self.fallback_after
+                and s.miss_streak >= self.fallback_after
+                and not s.standalone):
+            s.standalone = True
+            s.stats.fallbacks += 1
+
     def _resolve(self) -> None:
-        """Drain the replies that have arrived by the current virtual
-        time."""
+        """Drain the replies that have arrived by the current virtual time,
+        then expire deadlines."""
         for rep in self.channel.poll(self.vnow):
             s = self.slots[rep.slot] if rep.slot < self.B else None
             if (s is None or not s.active or s.seq != rep.seq
@@ -757,10 +897,51 @@ class BatchScheduler:
                 # land on its successor
                 self.late_drops += 1
                 continue
-            s.pending.pop(rep.handle)
+            pend = s.pending.pop(rep.handle)
+            if rep.arrival_t > pend.deadline_t:
+                # arrival and deadline crossed within one clock advance:
+                # the deadline fired first, so the reply is late even
+                # though both show only now
+                self._deadline_miss(s, pend)
+                self.late_drops += 1
+                self._maybe_finish(s)
+                continue
+            tok = self._reply_token(rep)
             s.stats.cloud_requests += 1
-            self._emit(s, self._reply_token(rep))
+            s.stats.stall_s += self.vnow - pend.stall_from
+            s.stats.overlap_s += self._hidden_s(pend)
+            s.miss_streak = 0
+            self._emit(s, tok)
             self._maybe_finish(s)
+        # latency-aware early exit: overdue replies commit the edge token
+        for s in self.slots:
+            if not s.active or not s.pending:
+                continue
+            for h, pend in list(s.pending.items()):
+                if pend.deadline_t > self.vnow:
+                    continue
+                del s.pending[h]
+                self._deadline_miss(s, pend)
+                self._maybe_finish(s)
+
+    def _advance_idle(self) -> None:
+        """Every active row waits on the channel: jump the virtual clock to
+        the next reply arrival or deadline (never busy-wait)."""
+        cands = []
+        nxt = self.channel.next_arrival()
+        if nxt is not None:
+            cands.append(nxt)
+        for s in self.slots:
+            if s.active:
+                cands.extend(p.deadline_t for p in s.pending.values())
+        cands = [t for t in cands if t != math.inf]
+        if not cands:
+            raise RuntimeError(
+                "scheduler wedged: every row is blocked on the channel but "
+                "it has nothing in flight and no finite deadline")
+        target = max(self.vnow, min(cands))
+        self._idle_s += target - self.vnow     # nothing decodes while idle
+        self.vnow = target
 
     def _emit(self, slot: _Slot, tok: int) -> None:
         slot.tokens.append(tok)
@@ -789,8 +970,8 @@ class BatchScheduler:
         stats: List[Optional[GenStats]] = [None] * len(requests)
         v0 = self.vnow
         self.late_drops = 0
-        # a reused channel must not leak the previous run's in-flight
-        # replies into this run's trace
+        # a reused channel must not leak the previous run's link/service
+        # virtual times (or stale in-flight replies) into this run's trace
         self.channel.reset()
         while queue or any(s.active for s in self.slots):
             admitted = self._admit(queue)
@@ -812,6 +993,75 @@ class BatchScheduler:
         return results, stats
 
 
+def run_multi(scheds: Sequence[BatchScheduler],
+              request_lists: Sequence[Sequence[Request]]):
+    """Drive several ``BatchScheduler``s (edge engines) in lockstep rounds
+    against one shared cloud (paper §5: N edge clients, one server).
+
+    Each engine keeps its own virtual clock, channel and edge caches; the
+    cloud side is shared: a ``CloudServicePoint`` (timing) common to the
+    engines' channels and, in cloud-batch mode, a ``CloudBatcher``
+    (compute) that coalesces the round's concurrent requests into one
+    masked cloud step.  Shared service points are reset once per run.
+    Returns (per-engine token lists, per-engine stats, virtual makespan
+    across engines); an engine handed no request stays idle at 0."""
+    queues = []
+    for reqs, s in zip(request_lists, scheds):
+        for i, r in enumerate(reqs):
+            r.index = i
+            r.arrival_t += s.vnow
+        queues.append(collections.deque(reqs))
+    results = [[None] * len(rs) for rs in request_lists]
+    stats = [[None] * len(rs) for rs in request_lists]
+    v0 = [s.vnow for s in scheds]
+    services = {}
+    for s in scheds:
+        s.late_drops = 0
+        s.channel.reset()
+        svc = getattr(s.channel, "service", None)
+        if svc is not None:
+            services[id(svc)] = svc
+    for svc in services.values():
+        svc.reset()      # a shared point resets once per run, not per channel
+
+    def busy(i: int) -> bool:
+        return bool(queues[i]) or any(sl.active for sl in scheds[i].slots)
+
+    while any(busy(i) for i in range(len(scheds))):
+        progressed = False
+        for i, s in enumerate(scheds):
+            if not busy(i):
+                continue
+            progressed |= s._admit(queues[i])
+            s._collect(results[i], stats[i])
+            if any(sl.active for sl in s.slots):
+                s.tick()
+                s._collect(results[i], stats[i])
+                progressed = True
+        if not progressed:
+            raise RuntimeError(
+                "multi-engine scheduler wedged: requests queued but no "
+                "engine can admit or tick (shared cloud slots or pages "
+                "exhausted with nothing running?)")
+    for s, v in zip(scheds, v0):
+        s.late_drops += s.channel.drop_in_flight()
+        s.last_virtual_time = s.vnow - v
+    makespan = max(s.last_virtual_time for s in scheds)
+    return results, stats, makespan
+
+
+def _refuse(what: str, options: Dict[str, tuple]) -> None:
+    """Raise ``NotImplementedError`` for every option that is on, naming
+    the ROADMAP queue item that ports it; ``options``: name -> (on,
+    item)."""
+    bad = {name: item for name, (on, item) in options.items() if on}
+    if bad:
+        raise NotImplementedError(
+            f"{what} {sorted(bad)} are not ported yet ("
+            + ", ".join(f"{n}: ROADMAP {i}" for n, i in sorted(bad.items()))
+            + ")")
+
+
 class ServingSystem:
     """End-to-end multi-client co-inference on the model's device."""
 
@@ -826,11 +1076,13 @@ class ServingSystem:
     def generate(self, prompts: Sequence[np.ndarray], max_new: int,
                  mode: str = "collm", max_seq: Optional[int] = None, *,
                  num_slots: Optional[int] = None, sampler: str = "greedy",
-                 eos_id: Optional[int] = None,
+                 temperature: float = 1.0, top_k: int = 0,
+                 eos_id: Optional[int] = None, seed: int = 0,
                  max_ctx: Optional[int] = None,
                  num_pages: Optional[int] = None,
                  channel: Optional[CloudChannel] = None,
-                 tick_time_s: float = 0.0, fallback_after: int = 0,
+                 tick_time_s: float = 0.0, overlap: bool = True,
+                 fallback_after: int = 0, watermark: int = 0,
                  preempt_schedule: Optional[Sequence] = None,
                  arrivals: Optional[Sequence[float]] = None,
                  slo_ttft_s: Optional[float] = None,
@@ -841,25 +1093,30 @@ class ServingSystem:
         by the continuous-batching ``BatchScheduler`` (num_slots streams in
         flight; defaults to min(len(prompts), 8)).  The KV layout follows
         ``CollmConfig.kv_layout``; ``max_ctx``/``num_pages`` size the paged
-        pool (defaults: max_ctx = max_seq, num_pages = dense-equivalent);
-        ``tick_time_s`` is the virtual edge compute per decode tick.  The
-        other options exist to be refused: samplers other than greedy,
-        other channels, ``fallback_after``, preemption schedules, adaptive
-        control, resume pricing, open-loop ``arrivals`` and SLOs are not
-        ported yet (ROADMAP A.5).  Returns the JAX package's result
-        keys."""
-        if (arrivals is not None or slo_ttft_s is not None
-                or slo_tpot_s is not None):
-            raise NotImplementedError(
-                "open-loop arrivals and SLO targets (fleet replay) are not "
-                "ported yet (ROADMAP A.5)")
+        pool (defaults: max_ctx = max_seq, num_pages = dense-equivalent).
+
+        ``channel`` selects the cloud transport (default: the blocking
+        ``SyncChannel``); ``tick_time_s`` is the virtual edge compute per
+        decode tick, ``overlap=False`` degrades the dispatch to a blocking
+        drain, and ``fallback_after`` consecutive deadline misses flip a
+        stream to standalone.  ``sampler="temperature"`` draws with
+        ``temperature`` and ``top_k`` from a generator seeded with
+        ``seed``.  Refused with their ROADMAP item: ``watermark`` and
+        ``preempt_schedule`` (A.4), open-loop ``arrivals``, SLO targets,
+        ``adaptive`` and ``resume_cost`` (A.6).  Returns the JAX package's
+        result keys."""
+        _refuse("generate options", {
+            "arrivals": (arrivals is not None, "A.6"),
+            "slo": (slo_ttft_s is not None or slo_tpot_s is not None,
+                    "A.6")})
         slots = num_slots or max(1, min(len(prompts), 8))
         longest = max(len(p) for p in prompts)
         max_seq = max_seq or (longest + max_new + 8)
         max_seq = max(max_seq, _bucket(longest))
-        key = (mode, slots, max_seq, sampler, max_ctx, num_pages,
+        key = (mode, slots, max_seq, sampler, temperature, top_k, seed,
+               max_ctx, num_pages,
                id(channel) if channel is not None else None,
-               tick_time_s, fallback_after)
+               tick_time_s, overlap, fallback_after)
         sched = self._schedulers.get(key)
         if sched is None:
             # bounded cache: each scheduler owns pooled device caches
@@ -868,9 +1125,10 @@ class ServingSystem:
                 self._schedulers.pop(next(iter(self._schedulers)))
             sched = BatchScheduler(
                 self.collm, self.cloud.cm, slots, max_seq, mode=mode,
-                sampler=sampler, max_ctx=max_ctx, num_pages=num_pages,
-                channel=channel, tick_time_s=tick_time_s,
-                fallback_after=fallback_after,
+                sampler=sampler, temperature=temperature, top_k=top_k,
+                seed=seed, max_ctx=max_ctx, num_pages=num_pages,
+                channel=channel, tick_time_s=tick_time_s, overlap=overlap,
+                fallback_after=fallback_after, watermark=watermark,
                 preempt_schedule=preempt_schedule, adaptive=adaptive,
                 resume_cost=resume_cost)
             self._schedulers[key] = sched
@@ -888,6 +1146,90 @@ class ServingSystem:
                 "adaptive": None,
                 "pool_stats": (dataclasses.asdict(sched.pool.stats)
                                if sched.pool is not None else None)}
+
+    @torch.no_grad()
+    def generate_multi(self, prompts: Sequence[np.ndarray], max_new: int,
+                       *, n_engines: Optional[int] = None,
+                       mode: str = "collm", max_seq: Optional[int] = None,
+                       eos_id: Optional[int] = None,
+                       cloud_batch: bool = True,
+                       max_batch: Optional[int] = None,
+                       channels: Optional[Sequence[CloudChannel]] = None,
+                       preempt_schedules: Optional[Sequence] = None,
+                       tick_time_s: float = 0.0, overlap: bool = True,
+                       fallback_after: int = 0,
+                       arrivals: Optional[Sequence[float]] = None,
+                       slo_ttft_s: Optional[float] = None,
+                       slo_tpot_s: Optional[float] = None) -> Dict[str, Any]:
+        """Multi-client mode (paper §5): each edge client is its own
+        single-slot ``BatchScheduler`` with its own channel and virtual
+        clock; all of them share ONE cloud.  Prompt j goes to engine
+        j % n_engines (default: one engine per prompt).
+
+        With ``cloud_batch`` (default) a shared ``CloudBatcher`` serves
+        every client out of a pooled batch-major cloud cache, coalescing
+        concurrent below-θ requests from different engines into one masked
+        cloud step; with ``cloud_batch=False`` each engine computes its own
+        cloud calls (the per-request FIFO cloud the batcher is compared
+        with).  ``channels`` optionally gives one ``CloudChannel`` per
+        engine, e.g. ``AsyncSimChannel``s sharing one ``CloudServicePoint``;
+        the default is a ``SyncChannel`` each.  Refused with their ROADMAP
+        item: ``preempt_schedules`` (A.4), open-loop ``arrivals`` and SLO
+        targets (A.6).  Returns the JAX package's result keys, with
+        ``n_engines`` and, in cloud-batch mode, the batcher's stats row."""
+        _refuse("generate_multi options", {
+            "preempt_schedules": (bool(preempt_schedules), "A.4"),
+            "arrivals": (arrivals is not None, "A.6"),
+            "slo": (slo_ttft_s is not None or slo_tpot_s is not None,
+                    "A.6")})
+        n = n_engines or len(prompts)
+        if channels is not None and len(channels) != n:
+            raise ValueError(f"need one channel per engine "
+                             f"({len(channels)} != {n})")
+        longest = max(len(p) for p in prompts)
+        max_seq = max_seq or (longest + max_new + 8)
+        max_seq = max(max_seq, _bucket(longest))
+        batcher = None
+        if cloud_batch and mode == "collm":
+            batcher = CloudBatcher(self.collm, self.cloud.cm, n, max_seq,
+                                   max_batch=max_batch)
+        scheds = [BatchScheduler(
+            self.collm, self.cloud.cm, 1, max_seq, mode=mode,
+            channel=(channels[i] if channels is not None else None),
+            tick_time_s=tick_time_s, overlap=overlap,
+            fallback_after=fallback_after, cloud_batcher=batcher)
+            for i in range(n)]
+        per_engine = [[] for _ in range(n)]
+        assign = [[] for _ in range(n)]
+        for j, p in enumerate(prompts):
+            per_engine[j % n].append(Request(
+                device_id=f"edge-{j}", prompt=np.asarray(p),
+                max_new=max_new, eos_id=eos_id))
+            assign[j % n].append(j)
+        results, stats, makespan = run_multi(scheds, per_engine)
+        tokens: List[Optional[List[int]]] = [None] * len(prompts)
+        flat: List[Optional[GenStats]] = [None] * len(prompts)
+        for e in range(n):
+            for k, j in enumerate(assign[e]):
+                tokens[j] = results[e][k]
+                flat[j] = stats[e][k]
+        ch_agg = ChannelStats()
+        for s in scheds:
+            for f in dataclasses.fields(ChannelStats):
+                setattr(ch_agg, f.name, getattr(ch_agg, f.name)
+                        + getattr(s.channel.stats, f.name))
+        out = {"tokens": tokens, "stats": _aggregate(flat),
+               "per_client": flat, "cm_stats": self.cloud.cm.stats(),
+               "n_engines": n, "virtual_time": makespan,
+               "late_drops": sum(s.late_drops for s in scheds),
+               "channel_stats": ch_agg.as_row()}
+        if batcher is not None:
+            # the wave compute runs in the batcher, not in any one engine's
+            # dispatch: fold it into the aggregate (it cannot be attributed
+            # per client)
+            out["stats"].cloud_time += batcher.stats.cloud_time
+            out["batcher"] = batcher.stats.as_row()
+        return out
 
     @torch.no_grad()
     def generate_sequential(self, prompts: Sequence[np.ndarray],

@@ -6,9 +6,12 @@ the CPU, on the briefly trained tiny model of ``tests/test_torch_batched.py``
 float32 pages give the dense layout's streams; ``generate`` gives
 ``generate_sequential``'s streams and counters; a second run through one
 scheduler reuses the freed pages; an impossible request raises; a masked
-cloud step leaves the masked-out rows' caches bit for bit; and every
-option that is not ported raises ``NotImplementedError``.
+cloud step leaves the masked-out rows' caches bit for bit; every option
+that is not ported raises ``NotImplementedError`` naming its ROADMAP item,
+and the four that this port's async-channel slice accepted now run.
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -18,7 +21,9 @@ from test_torch_batched import (COUNTERS, LAYOUTS, LENS, MAX_NEW,  # noqa: E402
                                 SLOTS, pair)
 from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
 from repro_torch.core.transport import CloudChannel, quantize  # noqa: E402
-from repro_torch.serving.engine import BatchScheduler, ServingSystem  # noqa: E402
+from repro_torch.serving.cloud_batcher import CloudBatcher  # noqa: E402
+from repro_torch.serving.engine import (BatchScheduler, Request,  # noqa: E402
+                                        ServingSystem)
 
 __all__ = ["pair"]          # the shared module-scoped fixture
 
@@ -135,43 +140,79 @@ class _OtherChannel(CloudChannel):
     pass
 
 
+# still refused: option -> (generate kwargs, ROADMAP item that ports it)
 REFUSED_GENERATE = {
-    "sampler": dict(sampler="temperature"),
-    "channel": dict(channel=_OtherChannel()),
-    "fallback_after": dict(fallback_after=2),
-    "preempt_schedule": dict(preempt_schedule=[(1, 0)]),
-    "adaptive": dict(adaptive=object()),
-    "resume_cost": dict(resume_cost=object()),
-    "arrivals": dict(arrivals=[0.0] * len(LENS)),
-    "slo": dict(slo_ttft_s=1.0),
+    "preempt_schedule": (dict(preempt_schedule=[(1, 0)]), "A.4"),
+    "watermark": (dict(watermark=1), "A.4"),
+    "adaptive": (dict(adaptive=object()), "A.6"),
+    "resume_cost": (dict(resume_cost=object()), "A.6"),
+    "arrivals": (dict(arrivals=[0.0] * len(LENS)), "A.6"),
+    "slo": (dict(slo_ttft_s=1.0), "A.6"),
 }
 REFUSED_CONFIG = {
-    "speculative": dict(speculative=True),
-    "spec_k": dict(speculative=True, spec_k=2),
-    "chunked_prefill": dict(kv_layout="paged", chunked_prefill=True),
-    "prefix_share": dict(kv_layout="paged", chunked_prefill=True,
-                         prefix_share=True),
-    "preemption": dict(kv_layout="paged", preemption="recompute"),
-    "cloud_mesh": dict(cloud_mesh=(1, 1)),
+    "speculative": (dict(speculative=True), "A.3"),
+    "spec_k": (dict(speculative=True, spec_k=2), "A.3"),
+    "chunked_prefill": (dict(kv_layout="paged", chunked_prefill=True),
+                        "A.5"),
+    "prefix_share": (dict(kv_layout="paged", chunked_prefill=True,
+                          prefix_share=True), "A.5"),
+    "preemption": (dict(kv_layout="paged", preemption="recompute"), "A.4"),
+    "cloud_mesh": (dict(cloud_mesh=(1, 1)), "A.11"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED_GENERATE) + sorted(
-    REFUSED_CONFIG) + ["cloud_batcher"])
+    REFUSED_CONFIG))
 def test_refused_options_raise(pair, name):
+    """Every option not ported yet raises, naming its ROADMAP item."""
     tm, prompts = pair[2], pair[3]
     if name in REFUSED_CONFIG:
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            ServingSystem(tm, CollmConfig(**REFUSED_CONFIG[name]))
+        kw, item = REFUSED_CONFIG[name]
+        with pytest.raises(NotImplementedError,
+                           match=f"{name}: ROADMAP {re.escape(item)}"):
+            ServingSystem(tm, CollmConfig(**kw))
         return
+    kw, item = REFUSED_GENERATE[name]
     tsys = ServingSystem(tm, CollmConfig(kv_layout="paged"))
-    if name == "cloud_batcher":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-            BatchScheduler(tsys.collm, tsys.cloud.cm, 2, 32,
-                           cloud_batcher=object())
+    with pytest.raises(NotImplementedError,
+                       match=f"{name}: ROADMAP {re.escape(item)}"):
+        tsys.generate(prompts, 4, **kw)
+
+
+@pytest.mark.parametrize("name", ["sampler", "channel", "fallback_after",
+                                  "cloud_batcher"])
+def test_formerly_refused_options_run(pair, name):
+    """The four options refused before the async channel and the cloud
+    batcher were ported now run: a sampler other than greedy, a channel
+    other than ``SyncChannel``, ``fallback_after`` and a shared
+    ``CloudBatcher`` (the last three give the default greedy streams here:
+    an immediate channel never misses a deadline)."""
+    tm, prompts = pair[2], pair[3]
+    ccfg = CollmConfig(theta=0.2, kv_layout="paged")
+    base = ServingSystem(tm, ccfg).generate(prompts, 6, num_slots=2)
+    tsys = ServingSystem(tm, ccfg)
+    if name == "sampler":
+        r = tsys.generate(prompts, 6, num_slots=2, sampler="temperature")
+        assert all(len(t) == 6 and 0 <= min(t) and max(t) < 256
+                   for t in r["tokens"])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        tsys.generate(prompts, 4, **REFUSED_GENERATE[name])
+    if name == "cloud_batcher":
+        batcher = CloudBatcher(tsys.collm, tsys.cloud.cm, 2, 32)
+        sched = BatchScheduler(tsys.collm, tsys.cloud.cm, 2, 32,
+                               cloud_batcher=batcher)
+        reqs = [Request(device_id=f"edge-{i}", prompt=np.asarray(p),
+                        max_new=6) for i, p in enumerate(prompts)]
+        with torch.no_grad():
+            tokens, _ = sched.run(reqs)
+        assert batcher.stats.requests > 0 and batcher.stats.steps > 0
+        assert batcher.pool.free_pages == batcher.pool.num_pages
+    else:
+        kw = ({"channel": _OtherChannel()} if name == "channel"
+              else {"fallback_after": 2})
+        r = tsys.generate(prompts, 6, num_slots=2, **kw)
+        tokens = r["tokens"]
+        assert r["stats"].fallbacks == r["stats"].deadline_misses == 0
+    assert tokens == base["tokens"]
 
 
 def test_kv_dtype_checks(pair):

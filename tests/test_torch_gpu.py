@@ -4,7 +4,10 @@ against the same loop on the CPU.
 
 The batched engine (``ServingSystem.generate``) is held to the same: a
 small float32 model served on block-paged KV on the card gives the streams
-of the dense layout on the card and on the CPU.
+of the dense layout on the card and on the CPU; so do its deadline misses
+and standalone fallback under a ``ScriptedChannel``, and N single-slot
+engines behind one ``CloudBatcher`` (``generate_multi``); ``top_k=1``
+sampling is greedy on the card.
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -264,6 +267,104 @@ def test_generate_paged_on_the_card_matches_dense(cuda, mode, backfill):
     assert runs["paged"]["launched"][0] > 0 == runs["paged"]["launched"][1]
     assert runs["int8"]["launched"][1] > 0 == runs["int8"]["launched"][0]
     assert [len(t) for t in runs["int8"]["tokens"]] == [16] * len(prompts)
+
+
+def _split_theta(model, prompts):
+    """θ between the two middle l_ee1 confidences of a θ = 1 run: about
+    half the ticks exit, and none sits on θ."""
+    full = ServingSystem(model, CollmConfig(theta=1.0)).generate(prompts, 16)
+    c = sorted(l1 for l1, _ in full["stats"].confidences)
+    return (c[len(c) // 2 - 1] + c[len(c) // 2]) / 2
+
+
+def _paged_pair(cuda, seed):
+    cpu = build_model(PAGED_SMALL, device="cpu", seed=seed)
+    gpu = build_model(PAGED_SMALL, device=cuda, seed=seed)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, PAGED_SMALL.vocab_size, n)
+               for i, n in enumerate((24, 9, 40, 17))]
+    return cpu, gpu, prompts
+
+
+def _same_run(got, want):
+    assert got["tokens"] == want["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes",
+                 "deadline_misses", "fallbacks"):
+        assert getattr(got["stats"], name) == getattr(want["stats"], name)
+    assert got["virtual_time"] == want["virtual_time"]
+    assert got["late_drops"] == want["late_drops"]
+    assert got["channel_stats"] == want["channel_stats"]
+
+
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+def test_generate_deadline_fallback_on_the_card_matches_cpu(cuda, layout):
+    """Replies slower than their deadline (``ScriptedChannel``) with
+    ``fallback_after=2``: the card's run misses, drops and falls back
+    exactly as the CPU's, token for token and in virtual time."""
+    from repro_torch.core.transport import ScriptedChannel
+    cpu, gpu, prompts = _paged_pair(cuda, seed=7)
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout=layout)
+    runs = [ServingSystem(m, ccfg).generate(
+        prompts, 16, num_slots=3, tick_time_s=0.005, fallback_after=2,
+        channel=ScriptedChannel([0.5], deadline_s=0.02)) for m in (cpu, gpu)]
+    _same_run(runs[1], runs[0])
+    st = runs[1]["stats"]
+    assert st.deadline_misses > 0 and st.fallbacks >= 1
+    assert runs[1]["late_drops"] == st.deadline_misses
+
+
+@pytest.mark.parametrize("cloud_batch", [True, False])
+def test_generate_multi_on_the_card_matches_cpu(cuda, cloud_batch):
+    """Four single-slot engines on paged KV, ``AsyncSimChannel``s sharing
+    one service point (batching with the ``CloudBatcher``, FIFO without):
+    the card equals the CPU, and the batched streams equal the FIFO
+    streams on the card."""
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
+    cpu, gpu, prompts = _paged_pair(cuda, seed=8)
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout="paged")
+
+    def run(model, batched):
+        svc = (CloudServicePoint(0.008, batch_window_s=0.004, max_batch=4)
+               if batched else CloudServicePoint(0.008))
+        chans = [AsyncSimChannel(NetworkParams(), service=svc)
+                 for _ in prompts]
+        before = decode_attn_paged.launches
+        r = ServingSystem(model, ccfg).generate_multi(
+            prompts, 16, cloud_batch=batched, channels=chans,
+            tick_time_s=0.01)
+        r["launched"] = decode_attn_paged.launches - before
+        return r
+
+    got, want = run(gpu, cloud_batch), run(cpu, cloud_batch)
+    _same_run(got, want)
+    assert got["launched"] > 0
+    if cloud_batch:
+        assert got["batcher"]["mean_batch"] > 1
+        assert got["batcher"] == {**want["batcher"], "cloud_time_s":
+                                  got["batcher"]["cloud_time_s"]}
+        assert got["tokens"] == run(gpu, False)["tokens"]
+
+
+def test_top_k_one_sampling_equals_greedy_on_the_card(cuda):
+    """``temperature_sample`` with ``top_k=1`` on CUDA logits is the
+    argmax, and ``generate`` with it gives the greedy streams."""
+    from repro_torch.serving import sampler
+    lg = torch.randn((64, 32000), device=cuda) * 4
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    assert torch.equal(sampler.temperature_sample(gen, lg, 0.8, top_k=1),
+                       sampler.greedy(lg))
+    _, gpu, prompts = _paged_pair(cuda, seed=9)
+    ccfg = CollmConfig(theta=_split_theta(gpu, prompts), kv_layout="paged")
+    greedy = ServingSystem(gpu, ccfg).generate(prompts, 16, num_slots=3)
+    sampled = ServingSystem(gpu, ccfg).generate(
+        prompts, 16, num_slots=3, sampler="temperature", temperature=0.8,
+        top_k=1)
+    assert sampled["tokens"] == greedy["tokens"]
+    again = [ServingSystem(gpu, ccfg).generate(
+        prompts, 16, num_slots=3, sampler="temperature", temperature=0.8,
+        top_k=50, seed=3)["tokens"] for _ in range(2)]
+    assert again[0] == again[1]
 
 
 def _exit_inputs(b, d, v, dev, dtype, tie=None, seed=0):

@@ -27,6 +27,14 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+# One intra-op torch thread in every test process.  The suite runs in
+# several worker processes at once, and torch's default of one thread per
+# core in each of them oversubscribes the cores: the port's CPU tests run
+# several times slower that way than with one thread each, and a single
+# process is no slower with one.  Every worker imports this module when it
+# collects the suite, so this holds for the whole session.
+torch.set_num_threads(1)
+
 import jax  # noqa: E402
 
 from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
@@ -126,6 +134,25 @@ def test_serve_launcher_paged_int8_runs_on_cpu(capsys):
     assert r["pool_stats"]["allocs"] == r["pool_stats"]["frees"] > 0
     with pytest.raises(SystemExit):
         serve.main(["--smoke", "--device", "cpu", "--kv-dtype", "int8"])
+
+
+def test_serve_launcher_sim_channel_and_cloud_batch_run_on_cpu(capsys):
+    """``--channel sim`` prices the run in virtual time, alone and with
+    ``--cloud-batch`` (one engine per client, one batched cloud whose
+    waves serve several clients' requests)."""
+    from repro_torch.launch import serve
+    base = ["--smoke", "--device", "cpu", "--clients", "3", "--prompt-len",
+            "6", "--max-new", "5", "--theta", "1.0", "--channel", "sim"]
+    r = serve.main(base + ["--deadline", "0.5"])
+    out = capsys.readouterr().out
+    assert "channel=sim cloud_batch=False" in out and "virtual_t=" in out
+    assert r["virtual_time"] > 0 and r["stats"].deadline_misses == 0
+    m = serve.main(base + ["--cloud-batch", "--kv-layout", "paged"])
+    out = capsys.readouterr().out
+    assert "engines=3" in out and "cloud batcher:" in out
+    assert m["batcher"]["mean_batch"] > 1 and m["tokens"] == r["tokens"]
+    with pytest.raises(SystemExit):
+        serve.main(base + ["--cloud-batch", "--num-slots", "2"])
 
 
 def test_entry_points_never_fall_back_to_cpu():
