@@ -22,8 +22,12 @@ exit code and no result line:
    larger);
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
-   under deadline misses with the standalone fallback, and as N engines
-   behind one batched cloud (equal to N engines with a cloud each);
+   under deadline misses with the standalone fallback, as N engines
+   behind one batched cloud (equal to N engines with a cloud each), with
+   speculative drafts of 1 and 4 tokens (dense and paged, and under
+   deadline misses), under recompute and swap preemption (float32 and int8
+   pages), and with drafts in flight across preemptions behind the batched
+   cloud;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -43,7 +47,18 @@ exit code and no result line:
    cloud, both over ``AsyncSimChannel``s sharing a batching or a FIFO
    ``CloudServicePoint`` (the paper's knee), and (f) the batched cloud on
    dense KV with an int8 wire;
-6. the kernel table as one JSON line (launches: phases 3 to 5), the
+6. speculative drafting and preemption on the same model and prompts, with
+   the launch counters set to 0 before and read after: (a) drafts of 1
+   token and (b) of 4 on paged bf16 KV over phase 5 (a)'s channel, (c)
+   drafts of 4 on dense KV with an int8 wire, (d) drafts of 4 whose
+   replies all miss a 20 ms deadline, (e) recompute preemption on int8
+   pages and (f) swap preemption on bf16 pages, both in a pool of 140
+   pages with a watermark of 4 and two forced preemptions, (g)
+   ``generate_multi``: 4 single-slot engines drafting 4 tokens with swap
+   preemption behind one ``CloudBatcher``, two of them preempted by
+   schedule; streams are compared with phase 4's paged run and phase 5
+   (a), and reported, not asserted;
+7. the kernel table as one JSON line (launches: phases 3 to 6), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
@@ -74,6 +89,9 @@ SEED = 0
 CLIENTS, PROMPT_LEN, MAX_NEW = 2, 512, 32
 SLOTS, BATCH_PROMPTS, PAGE_SIZE = 8, 12, 16     # phase 4
 ENGINES = 8                                     # phase 5 (e), (f)
+SPEC_ENGINES, SPEC_K = 4, 4                     # phase 6
+PREEMPT_PAGES, WATERMARK = 140, 4               # phase 6 (e), (f)
+PREEMPT_SCHEDULE = [(4, 0), (12, 1)]            # (tick, slot)
 KNEE_NET = dict(up_bw=3.8e6, down_bw=8e6, rtt=0.003)  # a WiFi-class link
 FILLS = (128, 552)                      # phase 2 paged fills, keys a row
 MAX_SEQ = PROMPT_LEN + MAX_NEW + 8      # generate_sequential's ring size
@@ -821,6 +839,7 @@ def check_small_model(dev) -> None:
         check(same8, f"small model batched {mode}: the int8-page stream on "
               f"the card differs from the CPU's")
     check_small_adaptive(cpu, gpu, prompts, theta)
+    check_small_spec_preempt(cpu, gpu, prompts, theta)
 
 
 def same_run(a, b) -> bool:
@@ -883,6 +902,91 @@ def check_small_adaptive(cpu, gpu, prompts, theta) -> None:
           f"FIFO {same[1]}; batched == FIFO: {eq}; batcher {row}")
     check(all(same) and eq and row["mean_batch"] > 1,
           "small model generate_multi: card, CPU, batched and FIFO differ")
+
+
+def same_spec_run(a, b) -> bool:
+    """``same_run`` plus the draft and preemption counters and the page
+    pool's statistics."""
+    fields = ("draft_tokens", "accepted_tokens", "spec_rewinds",
+              "preemptions")
+    return (same_run(a, b)
+            and all(getattr(a["stats"], f) == getattr(b["stats"], f)
+                    for f in fields)
+            and a["stats"].accept_lens == b["stats"].accept_lens
+            and a.get("pool_stats") == b.get("pool_stats")
+            and a.get("oops") == b.get("oops"))
+
+
+def check_small_spec_preempt(cpu, gpu, prompts, theta) -> None:
+    """Phase 6's paths on the small model: speculative drafts of 1 and 4
+    tokens on dense and paged KV, drafts whose replies miss their
+    deadline, recompute and swap preemption (float32 and int8 pages) in a
+    pool too small for the streams plus a forced preemption, and drafts in
+    flight across preemptions behind the ``CloudBatcher``; the card
+    (kernels) equals the CPU (plain versions) in each."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel, ScriptedChannel
+    from repro_torch.serving.engine import ServingSystem
+    channels = {
+        "sim": (lambda: AsyncSimChannel(NetworkParams(), service_s=0.008),
+                0.01),
+        "miss": (lambda: ScriptedChannel([0.5], deadline_s=0.02), 0.005)}
+    pool = dict(num_pages=7, preempt_schedule=[(3, 0)])
+    cases = {
+        "spec k=1 dense": (dict(speculative=True), "sim", {}),
+        "spec k=4 dense": (dict(speculative=True, spec_k=4), "sim", {}),
+        "spec k=1 paged": (dict(speculative=True, kv_layout="paged"), "sim",
+                           {}),
+        "spec k=4 paged": (dict(speculative=True, spec_k=4,
+                                kv_layout="paged"), "sim", {}),
+        "spec k=4 paged, every token drafted": (
+            dict(speculative=True, spec_k=4, kv_layout="paged", theta=1.0),
+            "sim", {}),
+        "spec k=4 misses": (dict(speculative=True, spec_k=4,
+                                 kv_layout="paged"), "miss", {}),
+        "recompute": (dict(kv_layout="paged", preemption="recompute"), None,
+                      pool),
+        "swap": (dict(kv_layout="paged", preemption="swap"), None, pool),
+        "int8 swap": (dict(kv_layout="paged", kv_dtype="int8",
+                           preemption="swap"), None, pool)}
+    for name, (ckw, ch, kw) in cases.items():
+        runs = []
+        for m in (cpu, gpu):
+            call = dict(kw)
+            if ch is not None:
+                mk, tick = channels[ch]
+                call.update(channel=mk(), tick_time_s=tick)
+            runs.append(ServingSystem(m, CollmConfig(**{"theta": theta,
+                                                        **ckw})
+                                      ).generate(prompts, 16, num_slots=3,
+                                                 **call))
+        st = runs[1]["stats"]
+        ok = same_spec_run(*runs)
+        print(f"small model {name}: card == CPU: {ok} (drafts "
+              f"{st.draft_tokens}, accepted {st.accepted_tokens}, rewinds "
+              f"{st.spec_rewinds}, misses {st.deadline_misses}, preemptions "
+              f"{st.preemptions})")
+        moved = (st.preemptions >= 2 if "preemption" in ckw
+                 else st.draft_tokens > 0)
+        check(ok and moved, f"small model {name}: the card differs from the "
+              f"CPU, or the path did not run")
+    ccfg = CollmConfig(theta=theta, kv_layout="paged", speculative=True,
+                       spec_k=4, preemption="swap")
+    runs = [ServingSystem(m, ccfg).generate_multi(
+        prompts, 16, cloud_batch=True, tick_time_s=0.01,
+        channels=[ScriptedChannel([0.05], deadline_s=float("inf"))
+                  for _ in prompts],
+        preempt_schedules=[[(5, 0)], None, [(7, 0)], None])
+        for m in (cpu, gpu)]
+    st, row = runs[1]["stats"], runs[1]["batcher"]
+    ok = (same_spec_run(*runs) and row == {**runs[0]["batcher"],
+                                           "cloud_time_s": row["cloud_time_s"]})
+    print(f"small model generate_multi, drafts in flight across swap "
+          f"preemptions: card == CPU: {ok} (preemptions {st.preemptions}, "
+          f"drafts {st.draft_tokens}, batcher swaps {row['swaps']})")
+    check(ok and st.preemptions == 2 and st.draft_tokens > 0,
+          "small model drafts across preemptions: the card differs")
 
 
 def print_time(label, r) -> None:
@@ -1098,14 +1202,14 @@ def adaptive_run(label, fn):
     return r
 
 
-def serve_phase5(model, theta, paged) -> None:
+def serve_phase5(model, theta, paged) -> dict:
     """Phase 4's 12 prompts (8 for the multi-engine runs) on paged bf16 KV
     with a float16 wire: the channel options (a)-(c) and the sampler (d)
     at the split θ; one batched cloud for 8 edge clients against 8 clouds
     (e) and the batched cloud on dense KV with an int8 wire (f) at θ = 0.8,
     as ``tests/test_cloud_batcher.py`` sets up the knee (with random
     weights no token exits there: every token is a cloud request).
-    ``paged`` is phase 4's paged bf16 run."""
+    ``paged`` is phase 4's paged bf16 run; returns run (a)."""
     from repro_torch.core.collm import CollmConfig
     from repro_torch.core.netsim import NetworkParams
     from repro_torch.core.transport import AsyncSimChannel, ScriptedChannel
@@ -1198,6 +1302,217 @@ def serve_phase5(model, theta, paged) -> None:
                      dense.generate_multi(prompts[:ENGINES], MAX_NEW,
                                           channels=chans, tick_time_s=0.01))
     check(f["batcher"]["mean_batch"] > 1, "(f): no batched wave")
+    return a
+
+
+# ---------------------------------------------------------------------------
+# phase 6: ee-llm-7b with speculative drafting and preemption
+# ---------------------------------------------------------------------------
+class Meter:
+    """Counts, during a ``with`` block, what a run's engines do out of
+    sight of its result: every page pool and swap pool they create (pool
+    high water, pages in use at the end; swap-pool high water in bytes),
+    and the host seconds of the synchronising steps of this slice — a
+    draft reply's token copy, and the page copies of a swap out and in
+    (the engine's and the ``CloudBatcher``'s), and the resumes.  It wraps
+    the classes' methods and restores them on exit."""
+
+    def __init__(self):
+        from repro_torch.core.paging import PagePool, SwapPool
+        from repro_torch.serving.cloud_batcher import CloudBatcher
+        from repro_torch.serving.engine import BatchScheduler
+        self.pools, self.swaps = [], []
+        self.swap_high = 0
+        self.host = {}                       # name -> [calls, seconds]
+        meter = self
+        self._patches = []
+
+        def register(cls, store):
+            init = cls.__init__
+
+            def wrapped(obj, *a, **kw):
+                init(obj, *a, **kw)
+                store.append(obj)
+            self._patches.append((cls, "__init__", init, wrapped))
+
+        def timed(cls, name):
+            fn = getattr(cls, name)
+
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    row = meter.host.setdefault(f"{cls.__name__}.{name}",
+                                                [0, 0.0])
+                    row[0] += 1
+                    row[1] += time.perf_counter() - t0
+            self._patches.append((cls, name, fn, wrapped))
+
+        put = SwapPool.put
+
+        def put_high(pool, key, snap):
+            put(pool, key, snap)
+            meter.swap_high = max(meter.swap_high, sum(
+                SwapPool._nbytes(v) for sp in meter.swaps
+                for v in sp._store.values()))
+        register(PagePool, self.pools)
+        register(SwapPool, self.swaps)
+        self._patches.append((SwapPool, "put", put, put_high))
+        for name in ("_draft_tokens", "_swap_out_slot", "_swap_in_slot",
+                     "_resume"):
+            timed(BatchScheduler, name)
+        for name in ("swap_out", "swap_in"):
+            timed(CloudBatcher, name)
+
+    def __enter__(self):
+        for cls, name, _, new in self._patches:
+            setattr(cls, name, new)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, old, _ in self._patches:
+            setattr(cls, name, old)
+
+
+def phase6_run(label, fn, refs) -> dict:
+    """Run ``fn`` (a ``generate`` or ``generate_multi``) synchronised under
+    a ``Meter``; check its streams and print its line: tokens/s, exits and
+    cloud requests, drafts, preemptions, resumes, swaps, pools, virtual
+    time, launches per kernel, agreement with ``refs``."""
+    ops = kernel_ops()
+    before = {n: op.launches for n, op in ops.items()}
+    with Meter() as meter:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    r["launched"] = {n: op.launches - before[n] for n, op in ops.items()}
+    st = r["stats"]
+    swaps = [sp.stats for sp in meter.swaps]
+    r["swap_out"] = sum(s_.swapped_out for s_ in swaps)
+    r["swap_bytes"] = sum(s_.bytes_out for s_ in swaps)
+    r["swap_held"] = sum(s_.held for s_ in swaps)
+    r["in_use"] = sum(p.pages_in_use() for p in meter.pools)
+    high = [p.stats.high_water for p in meter.pools]
+    r["resumes"] = meter.host.get("BatchScheduler._resume", [0])[0]
+    check(all(min(t) >= 0 and max(t) < CFG.vocab_size for t in r["tokens"])
+          and all(len(t) == MAX_NEW for t in r["tokens"]),
+          f"{label}: a stream did not end at {MAX_NEW} tokens")
+    host = {k: f"{v[0]}x {v[1]:.3f}s" for k, v in sorted(meter.host.items())}
+    print(f"phase6 {label:28s} tokens={st.tokens} tokens/s="
+          f"{st.tokens / dt:.2f} wall={dt:.2f}s virtual_t="
+          f"{r['virtual_time']:.6f}s exits_l1={st.exits_l1} "
+          f"exits_l2={st.exits_l2} cloud_requests={st.cloud_requests} "
+          f"draft_tokens={st.draft_tokens} accepted={st.accepted_tokens} "
+          f"rewinds={st.spec_rewinds} misses={st.deadline_misses} "
+          f"preemptions={st.preemptions} oops={r.get('oops')} "
+          f"resumes={r['resumes']} swaps={r['swap_out']} "
+          f"swap_bytes={r['swap_bytes']} swap_high_water_bytes="
+          f"{meter.swap_high} pool_high_water={high} pages_in_use_end="
+          f"{r['in_use']} late_drops={r['late_drops']} host={host} "
+          f"launches={r['launched']}"
+          + (f" batcher={r['batcher']}" if "batcher" in r else ""))
+    for name, ref in refs.items():
+        print(f"  agreement {label} vs {name}: "
+              f"{agreement(r['tokens'], ref['tokens'])}")
+    return r
+
+
+def serve_phase6(model, theta, paged, async_a) -> None:
+    """Phase 4's 12 prompts, 8 slots, 32 new tokens at the split θ: (a)-(d)
+    speculative drafting, (e)-(f) preemption, (g) 4 engines behind one
+    ``CloudBatcher`` drafting with swap preemption.  ``paged`` is phase
+    4's paged bf16 run, ``async_a`` phase 5 (a): the streams are compared
+    with both and reported (bf16 GEMMs of another row count or a prefill
+    in place of decode steps may flip near-tied argmaxes of random
+    weights); the small float32 model of phase 2 holds them exactly."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel, ScriptedChannel
+    from repro_torch.serving.engine import ServingSystem
+    prompts = phase4_prompts()
+    refs = {"phase 4 paged": paged, "phase 5 (a)": async_a}
+
+    def gen(label, ccfg_kw, **kw):
+        system = ServingSystem(model, CollmConfig(
+            theta=theta, page_size=PAGE_SIZE, **ccfg_kw))
+        r = phase6_run(label, lambda: system.generate(
+            prompts, MAX_NEW, num_slots=SLOTS, **kw), refs)
+        sched = next(iter(system._schedulers.values()))
+        r["paged_layers"] = sum("kp" in c["self"] for tree in sched._trees()
+                                for layers in tree.values() for c in layers)
+        check(not sched._preempted, f"{label}: a stream stays preempted")
+        return r
+
+    def sim():
+        return AsyncSimChannel(NetworkParams(), service_s=0.008)
+
+    paged_bf16 = dict(kv_layout="paged", wire_format="float16")
+    spec = dict(speculative=True, **paged_bf16)
+    runs = {
+        "a": gen("(a) spec k=1, paged", spec, channel=sim(),
+                 tick_time_s=0.01),
+        "b": gen(f"(b) spec k={SPEC_K}, paged", dict(spec, spec_k=SPEC_K),
+                 channel=sim(), tick_time_s=0.01),
+        "c": gen(f"(c) spec k={SPEC_K}, dense, int8 wire",
+                 dict(speculative=True, spec_k=SPEC_K, wire_format="int8"),
+                 channel=sim(), tick_time_s=0.01),
+        "d": gen(f"(d) spec k={SPEC_K}, 20 ms misses",
+                 dict(spec, spec_k=SPEC_K), tick_time_s=0.005,
+                 channel=ScriptedChannel([0.5], deadline_s=0.02)),
+        "e": gen("(e) recompute, int8 pages",
+                 dict(kv_layout="paged", kv_dtype="int8",
+                      preemption="recompute"),
+                 num_pages=PREEMPT_PAGES, watermark=WATERMARK,
+                 preempt_schedule=PREEMPT_SCHEDULE),
+        "f": gen("(f) swap, bf16 pages",
+                 dict(paged_bf16, preemption="swap"),
+                 num_pages=PREEMPT_PAGES, watermark=WATERMARK,
+                 preempt_schedule=PREEMPT_SCHEDULE),
+    }
+    chans, _ = knee_channels(SPEC_ENGINES, True)
+    multi = ServingSystem(model, CollmConfig(
+        theta=theta, page_size=PAGE_SIZE, spec_k=SPEC_K,
+        preemption="swap", **spec))
+    runs["g"] = phase6_run(
+        f"(g) {SPEC_ENGINES} engines, k={SPEC_K}, swap", lambda:
+        multi.generate_multi(prompts[:SPEC_ENGINES], MAX_NEW,
+                             channels=chans, tick_time_s=0.01,
+                             preempt_schedules=[[(4, 0)], None, [(9, 0)],
+                                                None]),
+        {n: {"tokens": r["tokens"][:SPEC_ENGINES]} for n, r in refs.items()})
+    for key in "abcdg":
+        st = runs[key]["stats"]
+        check(0 < st.draft_tokens and st.accepted_tokens <= st.draft_tokens,
+              f"phase 6 ({key}): no draft dispatched, or more accepted than "
+              f"drafted")
+    check(runs["d"]["stats"].deadline_misses > 0
+          and runs["d"]["stats"].accepted_tokens == 0,
+          "phase 6 (d): the drafts did not miss their deadline")
+    for key in "efg":
+        r = runs[key]
+        check(r["stats"].preemptions >= 1 and r["in_use"] == 0
+              and r["swap_held"] == 0
+              and r["resumes"] == r["stats"].preemptions,
+              f"phase 6 ({key}): no preemption, a stream not resumed, or "
+              f"pages or snapshots left at the end")
+    e, f = runs["e"], runs["f"]
+    check(e["launched"]["decode_attn_paged_int8"] > 0
+          and e["launched"]["quantize_kv_write"] > 0
+          and e["launched"]["quantize_kv_scatter"]
+          == (BATCH_PROMPTS + e["stats"].preemptions) * e["paged_layers"],
+          f"phase 6 (e): int8 page writes {e['launched']} do not cover "
+          f"{BATCH_PROMPTS} admissions and {e['stats'].preemptions} "
+          f"re-prefills of {e['paged_layers']} layers")
+    check(f["launched"]["decode_attn_paged"] > 0 and f["swap_out"] >= 1,
+          "phase 6 (f): no paged attention launch, or nothing swapped")
+    check(runs["c"]["launched"]["decode_attn"] > 0
+          and runs["c"]["launched"]["quantize"] > 0,
+          "phase 6 (c): no ring attention or wire quantizer launch")
+    check(runs["g"]["batcher"]["swaps"] >= 1,
+          "phase 6 (g): the batcher swapped nothing")
 
 
 def profile_window(label, fn) -> None:
@@ -1323,12 +1638,25 @@ def main(argv=None) -> None:
 
     for op in ops.values():
         op.launches = 0
-    serve_phase5(model, theta, phase4["paged"])
+    async_a = serve_phase5(model, theta, phase4["paged"])
     adaptive = {name: op.launches for name, op in ops.items()}
     print(f"phase 5 (adaptive serving) launches: {adaptive}")
     for name in ("decode_attn", "decode_attn_paged", "exit_head", "quantize"):
         check(adaptive[name] > 0, f"{name} was not launched in phase 5")
-    launches = {name: n + batched[name] + adaptive[name]
+    torch.cuda.empty_cache()
+
+    for op in ops.values():
+        op.launches = 0
+    t6 = time.perf_counter()
+    serve_phase6(model, theta, phase4["paged"], async_a)
+    spec = {name: op.launches for name, op in ops.items()}
+    print(f"phase 6 (drafting and preemption) launches: {spec} in "
+          f"{time.perf_counter() - t6:.1f} s")
+    for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
+                 "exit_head", "quantize", "quantize_kv_write",
+                 "quantize_kv_scatter"):
+        check(spec[name] > 0, f"{name} was not launched in phase 6")
+    launches = {name: n + batched[name] + adaptive[name] + spec[name]
                 for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")

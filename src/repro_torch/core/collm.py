@@ -15,8 +15,15 @@ engine, on dense ring KV or a block-paged pool (float or int8 pages):
   * ``*_prefill_padded`` — right-padded prompt prefill of one admission.
   * ``cloud_step(write_mask=)``/``ring_cloud_steps``/
     ``ring_cloud_steps_all`` — the batched engines' cloud call over the
-                           below-θ rows (and their backfill rings); the
-                           other rows' caches stay as they were.
+                           below-θ rows (and their backfill rings or
+                           k-token drafts); the other rows' caches stay as
+                           they were.
+  * ``edge_step_masked`` — an edge step whose masked-out rows keep their
+                           caches.
+  * ``invalidate_rows_after`` — per-row KV rollback (speculative rewind).
+  * ``fused_step``       — the single-graph adaptive step with per-row
+                           upload rings (``fused_edge_phase`` +
+                           ``fused_cloud_phase``); only tests call it.
 
 Exit decisions go through the ``exit_head`` kernel and the int8 wire format
 through the ``quantize`` kernel; a sampler other than greedy asks for the
@@ -42,13 +49,10 @@ from repro_torch.models.transformer import Caches, Model
 
 
 # CollmConfig fields the port refuses, with the ROADMAP queue-A item that
-# ports each: the fused step's upload ring and speculative drafting (A.3),
-# preemption (A.4), chunked prefill and prefix sharing (A.5), the cloud
-# mesh (A.11)
-UNPORTED_FIELDS = {"max_pending": "A.3", "speculative": "A.3",
-                   "spec_k": "A.3", "preemption": "A.4",
-                   "preempt_policy": "A.4", "chunked_prefill": "A.5",
-                   "prefix_share": "A.5", "cloud_mesh": "A.11"}
+# ports each: chunked prefill and prefix sharing (A.5), the cloud mesh
+# (A.11)
+UNPORTED_FIELDS = {"chunked_prefill": "A.5", "prefix_share": "A.5",
+                   "cloud_mesh": "A.11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,6 +163,11 @@ class CoLLM:
         if ccfg.kv_dtype == "int8" and ccfg.kv_layout != "paged":
             raise ValueError('kv_dtype="int8" requires kv_layout="paged" '
                              "(dense rings stay full precision)")
+        if ccfg.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {ccfg.spec_k}")
+        if ccfg.spec_k > 1 and not ccfg.speculative:
+            raise ValueError("spec_k > 1 requires speculative=True "
+                             "(drafting generalizes the speculative path)")
         default = CollmConfig()
         changed = {name: item for name, item in UNPORTED_FIELDS.items()
                    if getattr(ccfg, name) != getattr(default, name)}
@@ -293,6 +302,24 @@ class CoLLM:
         upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
         return EdgeStepOut(decisions, tok, exited, upload, caches)
 
+    def edge_step_masked(self, token: torch.Tensor, caches: Caches, pos,
+                         run_mask: torch.Tensor,
+                         block_tbl: Optional[torch.Tensor] = None
+                         ) -> EdgeStepOut:
+        """Batched edge step that leaves masked-out rows' caches bit for
+        bit: ``run_mask`` (B,) bool is the KV write mask (dense rows write
+        their old entry back, paged rows write to the trash page), so no
+        merge of old and new caches is needed.  The outputs of masked-out
+        rows are meaningless."""
+        _, exit_h, caches = self.model.decode_step(token, caches, pos,
+                                                   self.edge_segs,
+                                                   block_tbl=block_tbl,
+                                                   write_mask=run_mask)
+        decisions = {l: self.exit_decision(l, h) for l, h in exit_h.items()}
+        tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
+        upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
+        return EdgeStepOut(decisions, tok, exited, upload, caches)
+
     def fused_exit_upload(self, hidden: torch.Tensor):
         """The l_ee1 exit + int8 upload in ONE ``exit_quant`` launch over
         the hidden, in place of ``edge_step``'s exit_head + quantize pair.
@@ -415,3 +442,121 @@ class CoLLM:
                                               block_tbl=block_tbl)
         logits = self.model.logits(x)[:, 0]
         return logits.argmax(dim=-1).to(torch.int32), logits, caches
+
+    # ------------------------------------------------------------------
+    # fused adaptive step (per-row upload rings, cloud gated on need)
+    # ------------------------------------------------------------------
+    def init_fused_state(self, batch: int, max_seq: int) -> dict:
+        """Caches and per-row upload rings of ``fused_step``: ``ring_h``
+        (max_pending, B, 1, d) hidden states, ``ring_pos`` (max_pending, B)
+        positions and ``count`` (B,) entries held.  Paged layout: every row
+        gets a fixed identity-mapped run of pages covering ``max_seq``
+        (the step consults no host allocator)."""
+        m = self.model
+        k = self.ccfg.max_pending
+        dev = m.device
+        state = {
+            "ring_h": torch.zeros((k, batch, 1, m.cfg.d_model),
+                                  dtype=m.dtype, device=dev),
+            "ring_pos": torch.zeros((k, batch), dtype=torch.int32,
+                                    device=dev),
+            "count": torch.zeros((batch,), dtype=torch.int32, device=dev),
+        }
+        if self.ccfg.kv_layout == "paged":
+            ps = self.ccfg.page_size
+            n_lp = -(-max_seq // ps)
+            state["block_tbl"] = (1 + torch.arange(
+                batch * n_lp, dtype=torch.int32, device=dev)
+                                  ).reshape(batch, n_lp)
+            state["edge"] = self.init_edge_cache_paged(batch, batch * n_lp,
+                                                       ps)
+            state["cloud"] = self.init_cloud_cache_paged(batch, batch * n_lp,
+                                                         ps)
+        else:
+            state["edge"] = self.init_edge_cache(batch, max_seq)
+            state["cloud"] = self.init_cloud_cache(batch, max_seq)
+        return state
+
+    def fused_edge_phase(self, token: torch.Tensor, state: dict, pos):
+        """Edge half of the fused step: decode, exit gating, and the ring
+        push (in place) — no cloud compute.  Returns ``(out, rings,
+        need_rows)`` where ``rings`` is {ring_h, ring_pos, count}."""
+        ccfg = self.ccfg
+        b = token.shape[0]
+        k = ccfg.max_pending if ccfg.backfill else 1
+        pos_b = torch.as_tensor(pos, dtype=torch.int32, device=token.device
+                                ).broadcast_to((b,)).contiguous()
+        out = self.edge_step(token, state["edge"], pos_b,
+                             state.get("block_tbl"))
+        # the wire: quantize -> dequantize
+        h1 = dequantize(out.upload, self.model.dtype)
+        # paper-faithful (no backfill): only the newest upload is kept —
+        # the content manager releases the rest (gapped cloud KV)
+        idx = (state["count"].long() if ccfg.backfill
+               else torch.zeros((b,), dtype=torch.long, device=token.device))
+        bidx = torch.arange(b, device=token.device)
+        ring_h = state["ring_h"].index_put_(
+            (idx, bidx), h1.to(state["ring_h"].dtype))
+        ring_pos = state["ring_pos"].index_put_((idx, bidx), pos_b)
+        count = (idx + 1).to(torch.int32)
+
+        need_rows = ~out.exited
+        if ccfg.backfill:
+            need_rows = need_rows | (count >= k)     # ring full -> flush
+        if ccfg.speculative:
+            need_rows = torch.ones((b,), dtype=torch.bool,
+                                   device=token.device)
+        rings = {"ring_h": ring_h, "ring_pos": ring_pos, "count": count}
+        return out, rings, need_rows
+
+    def fused_cloud_phase(self, cloud_caches: Caches, rings: dict,
+                          need_rows: torch.Tensor,
+                          block_tbl: Optional[torch.Tensor] = None):
+        """Cloud half of the fused step: drain the needy rows' upload rings
+        in order.  ``need_rows.any()`` decides on the host whether the
+        cloud runs at all (one device->host read a step; JAX's
+        ``lax.cond``).  Returns (cloud_caches, cloud_logits (B, V) f32,
+        new_count)."""
+        k = self.ccfg.max_pending if self.ccfg.backfill else 1
+        cnt = rings["count"]
+        if not bool(need_rows.any()):
+            logits = torch.zeros((need_rows.shape[0],
+                                  self.model.cfg.vocab_size),
+                                 dtype=torch.float32,
+                                 device=need_rows.device)
+            return cloud_caches, logits, cnt
+        valid = ((torch.arange(k, device=cnt.device)[:, None] < cnt[None, :])
+                 & need_rows[None])
+        logits, cloud_caches = self.ring_cloud_steps(
+            {"data": rings["ring_h"][:k]}, rings["ring_pos"][:k], valid,
+            cloud_caches, block_tbl=block_tbl)
+        return cloud_caches, logits, torch.where(need_rows, 0, cnt)
+
+    def fused_step(self, token: torch.Tensor, state: dict, pos):
+        """token: (B,1); pos: scalar or per-row (B,) position.  Returns
+        (next_token (B,) int32, info, new_state); the caches and rings of
+        ``state`` are updated in place.
+
+        Every step each row pushes its l_ee1 hidden into its own upload
+        ring.  Cloud compute runs only when some row is below θ or its ring
+        is full (every row with ``speculative``); it then drains the rings
+        of exactly the needy rows in order — backfilling their cloud KV —
+        while confident rows' rings keep accumulating.  Without backfill
+        each ring holds only the newest upload (release semantics: the
+        cloud KV keeps gaps at early-exited positions)."""
+        tbl = state.get("block_tbl")
+        out, rings, need_rows = self.fused_edge_phase(token, state, pos)
+        cloud_caches, cloud_logits, new_count = self.fused_cloud_phase(
+            state["cloud"], rings, need_rows, block_tbl=tbl)
+        cloud_tok = cloud_logits.argmax(dim=-1).to(torch.int32)
+        next_token = torch.where(out.exited, out.token, cloud_tok)
+        new_state = {"edge": out.caches, "cloud": cloud_caches,
+                     "ring_h": rings["ring_h"], "ring_pos": rings["ring_pos"],
+                     "count": new_count}
+        if tbl is not None:
+            new_state["block_tbl"] = tbl
+        info = {"exited": out.exited, "need_cloud": need_rows.any(),
+                "need_rows": need_rows, "cloud_logits": cloud_logits,
+                "confidences": {l: d.confidence
+                                for l, d in out.decisions.items()}}
+        return next_token, info, new_state

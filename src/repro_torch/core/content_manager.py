@@ -178,6 +178,18 @@ class ContentManager:
                for p in sorted(c.pending_uploads)]
         return out
 
+    def drop_uploads_after(self, device_id: str, pos: int) -> int:
+        """Speculative rewind: release the pending uploads at positions
+        after ``pos``.  They were computed from discarded tokens, and left
+        in the window they would crowd out (release) the uploads the
+        re-decoded stream makes below them.  Returns how many went."""
+        c = self._client(device_id)
+        stale = [p for p in c.pending_uploads if p > pos]
+        for p in stale:
+            del c.pending_uploads[p]
+        c.uploads_released += len(stale)
+        return len(stale)
+
     def restore_uploads(self, device_id: str, items) -> None:
         """Resume: re-insert a checkpoint's pending uploads."""
         c = self._client(device_id)

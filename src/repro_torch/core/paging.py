@@ -19,9 +19,15 @@ Physical page 0 is reserved as the **trash page**: rows without a mapping
 (inactive slots, masked cloud rows) have their writes redirected there with
 ``pos = -1``.
 
+Admission is **optimistic** under preemption: a stream is admitted when its
+*prompt* pages (plus a ``watermark`` of held-back headroom pages) fit the
+free list, so a decode-time ``alloc`` may fail with ``OutOfPages``.  The
+scheduler then **preempts** a victim stream chosen by ``select_victim``
+(youngest-first / fewest-pages / LRU-arrival), frees its pages and resumes
+it later by re-prefill or swap-in (``SwapPool``, host memory).
+
 The radix prefix index (``prefix_cache=True``: shared pages, copy-on-write,
-LRU eviction) serves prefix sharing (ROADMAP A.5), and victim selection and
-the host swap store serve preemption (ROADMAP A.4); neither is ported yet,
+LRU eviction) serves prefix sharing (ROADMAP A.5); it is not ported yet,
 and the pool raises for ``prefix_cache=True``.
 
 This module is pure host-side bookkeeping (numpy block table + Python free
@@ -31,16 +37,21 @@ list); the device-side paged cache layout lives in
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
+import torch
+
+PREEMPT_POLICIES = ("youngest", "fewest-pages", "lru")
+
 
 def pages_needed(tokens: int, page_size: int) -> int:
     return -(-tokens // page_size)
 
 
 class OutOfPages(RuntimeError):
-    """``alloc`` found an empty free list."""
+    """``alloc`` found an empty free list — the caller must preempt a
+    victim (or fail) before retrying."""
 
 
 @dataclasses.dataclass
@@ -140,3 +151,113 @@ class PagePool:
         self._owned[slot] = []
         self.block_table[slot, :] = -1
         return freed
+
+
+# ---------------------------------------------------------------------------
+# victim selection (preemption policy)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class VictimCandidate:
+    """One preemptible stream as the policy sees it."""
+    slot: int
+    admit_seq: int               # monotonically increasing admission order
+    owned_pages: int
+    shared_pages: int = 0        # of those, pages with refcount > 1
+
+    @property
+    def reclaimable(self) -> int:
+        """Pages preempting this stream would actually free — shared pages
+        stay live in their other holders, so they don't count."""
+        return self.owned_pages - self.shared_pages
+
+
+def select_victim(cands: Sequence[VictimCandidate], policy: str) -> int:
+    """Pick the slot to preempt.  Candidates must have at least one
+    *reclaimable* page: preempting a slot that frees nothing is skipped.
+
+      * ``youngest``      — most recently admitted first (the oldest
+                            streams are closest to finishing);
+      * ``fewest-pages``  — smallest reclaim benefit first (cheapest
+                            checkpoint/restore);
+      * ``lru``           — least-recently-*arrived* (oldest admission)
+                            first: long-running hogs yield to fresh work.
+
+    Ties break on admission order (youngest), then slot index, so victim
+    choice is deterministic."""
+    if policy not in PREEMPT_POLICIES:
+        raise ValueError(f"unknown preemption policy {policy!r} "
+                         f"(choose from {PREEMPT_POLICIES})")
+    cands = [c for c in cands if c.reclaimable > 0]
+    if not cands:
+        raise OutOfPages("no preemptible stream owns any reclaimable pages")
+    if policy == "youngest":
+        key = lambda c: (-c.admit_seq, c.slot)  # noqa: E731
+    elif policy == "fewest-pages":
+        key = lambda c: (c.reclaimable, -c.admit_seq, c.slot)  # noqa: E731
+    else:  # lru
+        key = lambda c: (c.admit_seq, c.slot)  # noqa: E731
+    return min(cands, key=key).slot
+
+
+# ---------------------------------------------------------------------------
+# host-side swap store
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class SwapPoolStats:
+    swapped_out: int = 0
+    swapped_in: int = 0
+    bytes_out: int = 0
+    bytes_in: int = 0
+
+    @property
+    def held(self) -> int:
+        return self.swapped_out - self.swapped_in
+
+
+class SwapPool:
+    """Host-side page store for ``CollmConfig.preemption = "swap"``.
+
+    A preempted stream's device pages are copied here (CPU tensors, host
+    RAM) and restored bit for bit into freshly allocated physical pages at
+    resume — no recompute, at the cost of host traffic.  Snapshots are
+    opaque trees of tensors (and numpy arrays) keyed by a caller-chosen
+    id."""
+
+    def __init__(self):
+        self._store: Dict[Any, Any] = {}
+        self.stats = SwapPoolStats()
+
+    @staticmethod
+    def _nbytes(snapshot: Any) -> int:
+        total = 0
+        stack = [snapshot]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, dict):
+                stack.extend(node.values())
+            elif isinstance(node, (list, tuple)):
+                stack.extend(node)
+            elif isinstance(node, torch.Tensor):
+                total += node.numel() * node.element_size()
+            elif isinstance(node, np.ndarray):
+                total += node.nbytes
+        return total
+
+    def put(self, key: Any, snapshot: Any) -> None:
+        if key in self._store:
+            raise KeyError(f"swap key {key!r} already held")
+        self._store[key] = snapshot
+        self.stats.swapped_out += 1
+        self.stats.bytes_out += self._nbytes(snapshot)
+
+    def take(self, key: Any) -> Any:
+        snapshot = self._store.pop(key)
+        self.stats.swapped_in += 1
+        self.stats.bytes_in += self._nbytes(snapshot)
+        return snapshot
+
+    def __contains__(self, key: Any) -> bool:
+        return key in self._store
+
+    def __len__(self) -> int:
+        return len(self._store)

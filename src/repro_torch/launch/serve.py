@@ -11,6 +11,18 @@ or ``--device cpu``.  Weights are random, initialised from ``--seed``.
 ``--kv-layout paged`` shares a block-paged KV pool across the slots
 (``--page-size`` tokens a page, ``--num-pages`` pages; the default pool
 equals the dense rings); ``--kv-dtype int8`` stores the pages quantized.
+``--preemption recompute|swap`` admits optimistically into the paged pool
+and preempts a victim stream (``--preempt-policy``) when pages run out:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+        --preemption swap --num-pages 64 --clients 8 --prompt-len 200
+
+``--speculative`` commits provisional edge tokens while cloud replies are
+in flight and ships up to ``--spec-k`` of them as one verification
+request:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --speculative \
+        --spec-k 4 --channel sim
 
 ``--channel sim`` prices every cloud request on a WiFi-class link in
 virtual time (``--tick-time`` of edge compute a decode tick, a
@@ -73,6 +85,14 @@ def main(argv=None):
     ap.add_argument("--num-pages", type=int, default=None,
                     help="paged pool size; a smaller pool delays "
                          "admissions until pages free up")
+    ap.add_argument("--preemption", default="off",
+                    choices=["off", "recompute", "swap"],
+                    help="optimistic paged admission: preempt victim "
+                         "streams on OutOfPages and resume by re-prefill "
+                         "(recompute) or host page swap (swap)")
+    ap.add_argument("--preempt-policy", default="youngest",
+                    choices=["youngest", "fewest-pages", "lru"],
+                    help="victim selection under --preemption")
     ap.add_argument("--channel", default="sync", choices=["sync", "sim"],
                     help="sim: WiFi-class async channel in virtual time")
     ap.add_argument("--deadline", type=float, default=math.inf,
@@ -80,6 +100,13 @@ def main(argv=None):
                          "commits the edge token")
     ap.add_argument("--tick-time", type=float, default=0.01,
                     help="virtual edge compute per decode tick (sim)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="commit provisional edge tokens while cloud "
+                         "replies are in flight")
+    ap.add_argument("--spec-k", type=int, default=1,
+                    help="edge draft length: ship up to k provisional "
+                         "tokens per verification request (needs "
+                         "--speculative; 1 = classic speculative path)")
     ap.add_argument("--cloud-batch", action="store_true",
                     help="multi-client mode: one engine per client, cloud "
                          "requests coalesced by the shared CloudBatcher")
@@ -95,16 +122,27 @@ def main(argv=None):
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
-    if args.kv_layout != "paged" and (args.num_pages is not None
+    if args.cloud_batch and (args.preemption != "off"
+                             or args.num_pages is not None):
+        # multi-client mode runs one single-slot engine per client: a lone
+        # slot has no victim to preempt, and generate_multi sizes its own
+        # pools
+        ap.error("--preemption/--num-pages apply to the single-engine "
+                 "scheduler; drop --cloud-batch to use them")
+    if args.cloud_batch and args.num_slots is not None:
+        ap.error("--num-slots does not apply to --cloud-batch")
+    if args.kv_layout != "paged" and (args.preemption != "off"
+                                      or args.num_pages is not None
                                       or args.page_size != 16):
-        # dense slots own fixed rings: there is no page pool to size
-        ap.error("--num-pages/--page-size need --kv-layout paged")
+        # dense slots own fixed rings: there is no page pool to size or
+        # oversubscribe
+        ap.error("--preemption/--num-pages/--page-size need --kv-layout "
+                 "paged")
     if args.kv_layout != "paged" and args.kv_dtype != "float32":
         ap.error("--kv-dtype int8 needs --kv-layout paged")
-    if args.cloud_batch and (args.num_slots is not None
-                             or args.num_pages is not None):
-        # one single-slot engine per client, pools sized per engine
-        ap.error("--num-slots/--num-pages do not apply to --cloud-batch")
+    if args.spec_k != 1 and not args.speculative:
+        ap.error("--spec-k needs --speculative (drafting generalizes the "
+                 "speculative path)")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
@@ -115,8 +153,10 @@ def main(argv=None):
                for _ in range(args.clients)]
     system = ServingSystem(model, CollmConfig(
         theta=args.theta, wire_format=args.wire, backfill=args.backfill,
+        speculative=args.speculative, spec_k=args.spec_k,
         kv_layout=args.kv_layout, page_size=args.page_size,
-        kv_dtype=args.kv_dtype))
+        kv_dtype=args.kv_dtype, preemption=args.preemption,
+        preempt_policy=args.preempt_policy))
     gen_kw = dict(num_slots=args.num_slots, num_pages=args.num_pages)
     if args.cloud_batch:
         multi_kw = {}
@@ -153,6 +193,14 @@ def main(argv=None):
           f"request_rate={st.request_rate:.2%}")
     print(f"upload={st.upload_bytes/1e3:.1f}KB edge_t={st.edge_time:.2f}s "
           f"cloud_t={st.cloud_time:.2f}s")
+    if args.preemption != "off":
+        print(f"preemptions={st.preemptions} policy={args.preempt_policy} "
+              f"mode={args.preemption}")
+    if args.speculative and st.draft_tokens:
+        print(f"draft: k={args.spec_k} draft_tokens={st.draft_tokens} "
+              f"accepted={st.accepted_tokens} "
+              f"accept_rate={st.accepted_tokens / st.draft_tokens:.2%} "
+              f"rewinds={st.spec_rewinds}")
     if args.channel == "sim":
         print(f"virtual_t={r['virtual_time']:.3f}s "
               f"deadline_misses={st.deadline_misses} "

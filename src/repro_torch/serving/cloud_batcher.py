@@ -14,9 +14,13 @@ Port of ``repro.serving.cloud_batcher`` without the mesh (ROADMAP A.11):
     which serves every queued request in waves of at most one row per
     cloud slot, each wave ONE masked cloud step.
 
-Chunked admission and prefix sharing (ROADMAP A.5), speculative draft
-verification (A.3) and preemption's restore and swap (A.4) are not ported
-yet; their methods raise.
+  * the page-tree helpers of swap preemption: a slot's physical pages
+    gathered out of every paged cache node into host memory, and written
+    back into freshly allocated pages (int8 pages carry their scale leaves
+    along).
+
+Chunked admission and prefix sharing (ROADMAP A.5) are not ported yet;
+their methods raise.
 
 Caches are ``{segment index: [per-layer cache, ...]}`` with the batch at
 axis 0 of every dense leaf, and are written in place.
@@ -45,6 +49,18 @@ def _bucket(n: int, floor: int = 8) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def _pad_pages(phys: np.ndarray) -> np.ndarray:
+    """Pad a physical-page id list to its power-of-two bucket by repeating
+    the last id (duplicate writes of identical data are no-ops).  The JAX
+    package pads to bound its compile count; the port pads the same way so
+    that a swap snapshot, and the swap pool's byte counts, equal JAX's."""
+    n = len(phys)
+    padded = np.empty((_bucket(n, floor=1),), np.int32)
+    padded[:n] = phys
+    padded[n:] = phys[n - 1]
+    return padded
 
 
 def _put_row(f: torch.Tensor, r: torch.Tensor, j: int) -> torch.Tensor:
@@ -128,6 +144,96 @@ def build_upload_ring(entries, batch: int):
     return ring, ring_pos, valid
 
 
+def _gather_pages_tree(caches: Pytree, phys) -> Pytree:
+    """Swap-out: slice the given physical pages out of every paged cache
+    node, same tree shape."""
+    if isinstance(caches, dict):
+        if "kp" in caches:
+            ids = torch.as_tensor(phys, dtype=torch.long,
+                                  device=caches["kp"].device)
+            return {k: v.index_select(0, ids) for k, v in caches.items()}
+        return {k: _gather_pages_tree(v, phys) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [_gather_pages_tree(c, phys) for c in caches]
+    return None
+
+
+def _write_pages_tree(caches: Pytree, phys, data: Pytree) -> Pytree:
+    """Swap-in: write snapshotted page contents (on the cache's device)
+    into freshly allocated physical pages, in place.  Duplicate ids in
+    ``phys`` carry identical data (``_pad_pages``), so overlapping writes
+    are benign."""
+    if isinstance(caches, dict):
+        if "kp" in caches:
+            ids = torch.as_tensor(phys, dtype=torch.long,
+                                  device=caches["kp"].device)
+            for k, v in caches.items():
+                v.index_copy_(0, ids, data[k].to(v.dtype))
+            return caches
+        return {k: _write_pages_tree(v, phys, data[k])
+                for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [_write_pages_tree(c, phys, d) for c, d in zip(caches, data)]
+    return caches
+
+
+def _map_tensors(tree: Pytree, fn) -> Pytree:
+    if isinstance(tree, dict):
+        return {k: _map_tensors(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tensors(v, fn) for v in tree]
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def snapshot_to_device(snap: Pytree, device) -> Pytree:
+    """A host snapshot's tensors on ``device``: non-blocking copies, then
+    one synchronisation, after which the host snapshot may be dropped."""
+    out = _map_tensors(snap, lambda t: t.to(device, non_blocking=True))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+    return out
+
+
+def gather_slot_pages(pool: PagePool, slot: int, caches: Pytree):
+    """Swap-out core: copy one slot's physical pages out of a paged cache
+    tree into host memory.  Returns ``(logical, host_tree)`` — the slot's
+    logical page indices and the page contents as CPU tensors (None when
+    the slot owns nothing)."""
+    tbl_row = pool.block_table[slot]
+    logical = np.nonzero(tbl_row >= 0)[0].astype(np.int32)
+    if not len(logical):
+        return logical, None
+    padded = _pad_pages(tbl_row[logical].astype(np.int32))
+    return logical, _map_tensors(_gather_pages_tree(caches, padded),
+                                 lambda t: t.to("cpu"))
+
+
+def rebind_slot_pages(pool: PagePool, slot: int,
+                      logical: np.ndarray) -> np.ndarray:
+    """Swap-in core: re-allocate a snapshot's logical pages for ``slot``
+    (pages are row-agnostic — the block table re-binds them to whatever
+    physical ids are free) and return the padded id vector to write the
+    snapshot into."""
+    for lp in logical:
+        pool.alloc(slot, int(lp))
+    return _pad_pages(pool.block_table[slot][logical].astype(np.int32))
+
+
+def all_paged(caches: Pytree) -> bool:
+    """True when every cache leaf lives under a paged ("kp") node — the
+    precondition for swap preemption (a page-only snapshot would silently
+    lose a dense leaf)."""
+    def go(c: Pytree) -> bool:
+        if isinstance(c, dict):
+            if "kp" in c:
+                return True
+            return bool(c) and all(go(v) for v in c.values())
+        if isinstance(c, list):
+            return bool(c) and all(go(v) for v in c)
+        return False
+    return all(go(c) for c in caches.values())
+
+
 # ---------------------------------------------------------------------------
 # the batcher
 # ---------------------------------------------------------------------------
@@ -138,7 +244,7 @@ class _Entry:
     slot: int                   # cloud pool row
     pos: int
     packets: list               # [(pos, StatePacket), ...]; len > 1 means
-                                # a backfill ring
+                                # backfill ring and/or k-token draft
     group: dict                 # reply payload shared with the channel
 
 
@@ -191,7 +297,9 @@ class CloudBatcher:
     upload into (it also maps each client to its pool row).  The pool is
     dense rings or, with ``CollmConfig.kv_layout="paged"``, a page pool of
     its own; its rows are not preemptible, so admission is the
-    conservative worst case."""
+    conservative worst case.  A preempted engine releases its stream's row
+    (``release``, then ``admit`` and ``restore`` on resume) or swaps its
+    pages to host memory (``swap_out`` / ``swap_in``)."""
 
     def __init__(self, collm, cm: ContentManager, num_slots: int,
                  max_seq: int, *, max_batch: Optional[int] = None,
@@ -259,6 +367,15 @@ class CloudBatcher:
         self.pool.alloc(slot, lp)
         self._tbl_device = None
 
+    def _alloc_for(self, slot: int, packets) -> None:
+        """Map the pages that ``packets``' positions write (paged pool)."""
+        if self.pool is None:
+            return
+        for p, _ in packets:
+            lp = p // self.pool.page_size
+            if self.pool.block_table[slot, lp] == -1:
+                self._alloc(slot, lp)
+
     def admit(self, device_id: str, h1_seq: torch.Tensor, true_len: int,
               budget_tokens: int) -> torch.Tensor:
         """Prefill the cloud partition over the uploaded (padded) prompt
@@ -289,8 +406,8 @@ class CloudBatcher:
     pages_filled = _unported("pages_filled", "A.5")
 
     def release(self, device_id: str) -> None:
-        """Stream finished: cancel its queued requests, free its pages
-        (invalidated on the device), return its pool row."""
+        """Stream finished (or was preempted): cancel its queued requests,
+        free its pages (invalidated on the device), return its pool row."""
         self.cancel(device_id, 0)
         self._budget.pop(device_id, None)
         slot = self.cm.release_cloud_slot(device_id)
@@ -315,25 +432,45 @@ class CloudBatcher:
             packets = self.cm.take_uploads_upto(device_id, pos)
         else:
             packets = [(pos, self.cm.take_upload(device_id, pos))]
-        if self.pool is not None:
-            for p, _ in packets:
-                lp = p // self.pool.page_size
-                if self.pool.block_table[slot, lp] == -1:
-                    self._alloc(slot, lp)
+        self._alloc_for(slot, packets)
         group = {"logits": None, "np": None, "flush": self.flush}
         self._pending.append(_Entry(device_id=device_id, slot=slot, pos=pos,
                                     packets=packets, group=group))
         self.stats.requests += 1
         return group, slot, packets
 
-    submit_draft = _unported("submit_draft", "A.3")
-    invalidate = _unported("invalidate", "A.3")
+    def submit_draft(self, device_id: str, draft, *, backfill: bool = False):
+        """Queue one k-token draft verification request (the engine's
+        ``_flush_drafts``).  ``draft``: [(pos, StatePacket), ...] — the
+        draft positions' packets in order, popped by the engine at draft
+        time.  Backfill additionally drains the client's not-yet-consumed
+        older uploads here, so the merged ring rebuilds the exact cloud KV.
+        Returns ``(group, row, packets)`` like ``submit``; ``packets`` is
+        the merged consumption-order list the engine indexes the reply's
+        per-position logits (the group's ``all``) with."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None:
+            raise KeyError(f"{device_id} has no cloud slot (admit first)")
+        packets = list(draft)
+        if backfill:
+            # older positions all precede the draft (the engine flushes on
+            # a confident tick, so drafts stay position-contiguous)
+            packets = self.cm.take_uploads_upto(device_id,
+                                                packets[-1][0]) + packets
+        self._alloc_for(slot, packets)
+        group = {"logits": None, "all": None, "np": None, "np_all": None,
+                 "flush": self.flush}
+        self._pending.append(_Entry(device_id=device_id, slot=slot,
+                                    pos=packets[-1][0], packets=packets,
+                                    group=group))
+        self.stats.requests += 1
+        return group, slot, packets
 
     def cancel(self, device_id: str, min_pos: int) -> int:
         """Drop queued (not yet computed) requests of one client at
-        positions >= ``min_pos`` (the stream retired).  Their replies
-        late-drop in the engine; computing them after the stream's pages
-        were freed would write into another stream's row."""
+        positions >= ``min_pos`` — a speculative rewind discarded them, or
+        the stream retired.  Their replies late-drop in the engine;
+        computing them after an ``invalidate`` would resurrect stale KV."""
         keep = [e for e in self._pending
                 if e.device_id != device_id or e.pos < min_pos]
         dropped = len(self._pending) - len(keep)
@@ -341,9 +478,76 @@ class CloudBatcher:
         self.stats.cancelled += dropped
         return dropped
 
-    restore = _unported("restore", "A.4")
-    swap_out = _unported("swap_out", "A.4")
-    swap_in = _unported("swap_in", "A.4")
+    def invalidate(self, device_id: str, cut_pos: int) -> None:
+        """Speculative rewind: invalidate the client's cloud KV at
+        positions >= ``cut_pos`` (``CoLLM.invalidate_rows_after``)."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None:
+            return
+        cut = np.full((self.B,), np.iinfo(np.int32).max, np.int32)
+        cut[slot] = cut_pos
+        self.caches = self.collm.invalidate_rows_after(
+            self.caches, cut, self._block_tbl())
+
+    # -- preemption lifecycle ----------------------------------------------
+    def restore(self, device_id: str, packets) -> None:
+        """Resume (recompute mode): replay a checkpointed stream's consumed
+        cloud uploads — positions below the resume point — through the
+        cloud partition, rebuilding its row's KV exactly as it was
+        (release-semantics gaps included).  The caller ``admit``s the
+        prompt first."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None:
+            raise KeyError(f"{device_id} has no cloud slot (admit first)")
+        if not packets:
+            return
+        self._alloc_for(slot, packets)
+        t0 = time.perf_counter()
+        ring, ring_pos, valid = build_upload_ring([(slot, packets)], self.B)
+        _, self.caches = self.collm.ring_cloud_steps(
+            ring, ring_pos, valid, self.caches, self._block_tbl())
+        self.stats.restores += 1
+        self.stats.cloud_time += time.perf_counter() - t0
+
+    def swap_out(self, device_id: str):
+        """Preempt (swap mode): snapshot the stream's cloud-KV pages to
+        host memory, then release its row, pages and budget.  Returns the
+        snapshot for ``swap_in``.
+
+        Flushes the queue first: a queued entry has consumed its uploads
+        without writing their KV yet, and ``release``'s cancel would drop
+        the only copy of them (flushing early changes wave grouping, never
+        values)."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None or self.pool is None:
+            self.release(device_id)
+            return None
+        if self._pending:
+            self.flush()
+        logical, pages = gather_slot_pages(self.pool, slot, self.caches)
+        if pages is not None:
+            self.stats.swaps += 1
+        snap = {"logical": logical, "pages": pages,
+                "budget": self._budget.get(device_id)}
+        self.release(device_id)
+        return snap
+
+    def swap_in(self, device_id: str, snap) -> None:
+        """Resume (swap mode): re-acquire a cloud row (possibly another one
+        — the block table re-binds the pages) and write the snapshot back
+        into freshly allocated pages."""
+        self.cm.assign_cloud_slot(device_id)
+        if snap is None:
+            return
+        if snap["budget"] is not None:
+            self._budget[device_id] = snap["budget"]
+        if snap["pages"] is None:
+            return
+        slot = self.cm.cloud_slot(device_id)
+        padded = rebind_slot_pages(self.pool, slot, snap["logical"])
+        _write_pages_tree(self.caches, padded, snapshot_to_device(
+            snap["pages"], self.collm.model.device))
+        self._tbl_device = None
 
     def flush(self) -> None:
         """Drain the queue in waves: each wave serves at most one request
@@ -377,7 +581,8 @@ class CloudBatcher:
         t0 = time.perf_counter()
         dev = self.collm.model.device
         if any(len(e.packets) > 1 for e in wave):
-            # a backfill ring in the wave: the ring pass serves all of it
+            # a backfill ring or a k-token draft in the wave: the ring
+            # pass serves all of it
             ring, ring_pos, valid = build_upload_ring(
                 [(e.slot, e.packets) for e in wave], self.B)
             logits, all_logits, self.caches = \
@@ -386,8 +591,7 @@ class CloudBatcher:
                                                 self._block_tbl())
             for e in wave:
                 # every ring entry's logits: what a k-token draft reply
-                # reconciles against (ROADMAP A.3); a single-token reply
-                # reads "logits" only
+                # reconciles against; a single-token reply reads "logits"
                 e.group["all"] = all_logits
         else:
             first = wave[0].packets[0][1].hidden

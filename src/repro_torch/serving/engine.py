@@ -36,9 +36,15 @@ Cloud requests travel through a ``transport.CloudChannel`` in virtual
 time: a reply that misses its deadline loses to the edge's l_ee2 token,
 ``fallback_after`` misses in a row switch a stream to standalone, and
 ``overlap=False`` is the blocking baseline.  Samplers: greedy, and
-temperature with top-k.  Not ported yet, and refused with the ROADMAP
-queue item that ports them: speculative drafting (A.3), preemption, its
-schedule and the admission watermark (A.4), chunked prefill and prefix
+temperature with top-k.  With ``CollmConfig.speculative`` a below-θ row
+commits its provisional edge token and keeps decoding; up to ``spec_k``
+such tokens ship as one verification request, and the reply keeps the
+agreeing prefix and rewinds the stream at the first disagreement.  With
+``CollmConfig.preemption`` the paged pool admits optimistically (the
+prompt's pages plus a ``watermark``) and a decode tick that finds no free
+page preempts a victim stream, which resumes later by re-prefill
+("recompute") or from host memory ("swap").  Not ported yet, and refused
+with the ROADMAP queue item that ports them: chunked prefill and prefix
 sharing (A.5), open-loop arrivals, SLOs, adaptive control and resume
 pricing (A.6).
 """
@@ -56,17 +62,24 @@ import torch
 from repro_torch.core.collm import CoLLM, CollmConfig
 from repro_torch.core.content_manager import ContentManager
 from repro_torch.core.exits import first_confident_exit, select_exit_logits
-from repro_torch.core.paging import PagePool, pages_needed
+from repro_torch.core.paging import (PREEMPT_POLICIES, OutOfPages,
+                                     PagePool, SwapPool, VictimCandidate,
+                                     pages_needed, select_victim)
 from repro_torch.core.transport import (TOKEN_BYTES, ChannelStats,
                                         CloudChannel, StatePacket,
-                                        SyncChannel, hidden_wire_bytes)
+                                        SyncChannel, draft_request_bytes,
+                                        hidden_wire_bytes)
 from repro_torch.models.transformer import Caches, Model
 from repro_torch.serving import sampler as samplerlib
 from repro_torch.serving.cloud_batcher import (CloudBatcher, _bucket,
                                                _reset_pages_tree,
                                                _scatter_row,
                                                _scatter_row_paged,
-                                               build_upload_ring)
+                                               _write_pages_tree, all_paged,
+                                               build_upload_ring,
+                                               gather_slot_pages,
+                                               rebind_slot_pages,
+                                               snapshot_to_device)
 
 
 @dataclasses.dataclass
@@ -252,14 +265,38 @@ class Request:
 
 
 @dataclasses.dataclass
+class _DraftTok:
+    """One provisional token of a slot's edge draft (speculative path).
+
+    The upload packet is popped from the ContentManager at draft time (the
+    upload window must never release a position still awaiting
+    verification) and held here until the draft flushes into one
+    verification request.  ``ring_idx`` is the entry's index in that
+    request's upload ring (set at flush; the reply's per-position logits
+    are indexed with it)."""
+    pos: int
+    tok_index: int           # index in slot.tokens of the provisional token
+    provisional: int
+    pkt: Any                 # the popped StatePacket
+    ring_idx: int = 0
+
+
+@dataclasses.dataclass
 class _Pending:
-    """One in-flight cloud request of a slot."""
+    """One in-flight cloud request of a slot.
+
+    Speculative requests ship k-token drafts: ``draft`` lists the request's
+    provisional tokens in position order, ``tok_index``/``provisional``
+    mirror the FIRST entry (preemption cuts at the earliest unvalidated
+    token) and ``pos`` the LAST entry (a rewind drops the requests past its
+    cut).  Other requests leave ``draft`` as None."""
     pos: int                 # decode position the request serves
     tok_index: int           # index in slot.tokens its token lands at
     provisional: int         # edge l_ee2 token committed on deadline miss
     stall_from: float        # virtual submit time
     deadline_t: float
     idle_at: float = 0.0     # engine idle integral at submit (overlap_s)
+    draft: Optional[List[_DraftTok]] = None
 
 
 @dataclasses.dataclass
@@ -268,25 +305,64 @@ class _Slot:
     FREE -> (admit: prefill + scatter row caches) ACTIVE
          -> (decode ticks) ... -> (EOS / max_new) FINISHED -> FREE.
 
-    ``seq`` is the slot *generation*: it increments at every admission, so
-    a cloud reply issued by a retired stream can never be applied to the
-    slot's successor.  ``pending`` holds the in-flight cloud request (at
-    most one: the row stalls until it resolves).  ``miss_streak`` counts
-    deadline misses in a row; ``standalone`` is the latency fallback (the
-    row stops uploading and serves itself)."""
+    ``seq`` is the slot *generation*: it increments at every admission (and
+    preemption and resume), so a cloud reply issued for an earlier stream
+    can never be applied to the slot's successor.  ``pending`` holds the
+    in-flight cloud requests (at most one without speculation: the row
+    stalls; any number with ``CollmConfig.speculative``: the row keeps
+    decoding on provisional tokens).  ``events`` records each emitted
+    token's origin ("admit"/"l1"/"l2"/"cloud"/"spec"/"full") so that a
+    rewind can unwind the per-token counters exactly.  ``miss_streak``
+    counts deadline misses in a row; ``standalone`` is the latency
+    fallback (the row stops uploading and serves itself)."""
     index: int
     req: Optional[Request] = None
     stats: Optional[GenStats] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
-    # virtual commit time of each entry of ``tokens``
+    # virtual commit time of each entry of ``tokens`` (kept in lockstep
+    # through rewinds and preemption)
     emit_ts: List[float] = dataclasses.field(default_factory=list)
     pos: int = 0
     last_token: int = 0
     active: bool = False
     seq: int = 0
     pending: Dict[int, _Pending] = dataclasses.field(default_factory=dict)
+    events: List[str] = dataclasses.field(default_factory=list)
     miss_streak: int = 0
     standalone: bool = False
+    admit_seq: int = 0           # global admission order (victim policies)
+    # buffered (not yet dispatched) draft tokens of the speculative path:
+    # up to spec_k below-θ provisional tokens, flushed as ONE request
+    draft: List[_DraftTok] = dataclasses.field(default_factory=list)
+    # uploads the cloud consumed for this stream, in consumption order: a
+    # recompute resume replays them to rebuild the cloud KV (gaps
+    # included) without recomputing the hidden states
+    cloud_pkts: List[tuple] = dataclasses.field(default_factory=list)
+
+
+@dataclasses.dataclass
+class _Checkpoint:
+    """A preempted stream, frozen between its slot generations.
+
+    Everything needed to resume is on the host: the emitted tokens (the
+    resume point is ``len(prompt) + len(tokens) - 1`` — the last emitted
+    token is fed again, so an interrupted edge pass simply runs again),
+    the stream's stats and events, the ContentManager uploads still
+    pending, and the consumed upload packets whose replay rebuilds the
+    cloud KV.  ``swap_key`` points into the scheduler's ``SwapPool`` when
+    the device pages were swapped out instead of dropped."""
+    req: Request
+    stats: GenStats
+    tokens: List[int]
+    emit_ts: List[float]
+    events: List[str]
+    cloud_pkts: List[tuple]               # [(pos, StatePacket)] pos < resume
+    uploads: List[tuple]                  # pending CM uploads, pos < resume
+    standalone: bool
+    miss_streak: int
+    swap_key: Optional[int] = None        # SwapPool key (swap mode)
+    swap_pages: int = 0                   # pages the snapshot restores
+    batcher_swap: Optional[dict] = None   # CloudBatcher.swap_out snapshot
 
 
 class BatchScheduler:
@@ -297,11 +373,18 @@ class BatchScheduler:
     serves all below-θ rows of a tick; finished slots are refilled from
     the queue.  KV lives in per-slot dense rings (``kv_layout="dense"``)
     or in a block-paged pool shared across slots (``"paged"``, float or
-    int8 pages): admission allocates the prompt's pages and waits while
+    int8 pages): admission allocates the prompt's pages, each decode tick
+    allocates a page only when a row crosses a page boundary, and
+    retirement frees the slot's pages and invalidates them on the card.
+    Admission follows ``CollmConfig.preemption``: ``"off"`` waits while
     the pool cannot cover a request's worst case (conservative
-    back-pressure), each decode tick allocates a page only when a row
-    crosses a page boundary, and retirement frees the slot's pages and
-    invalidates them on the card.  The block table lives on the host
+    back-pressure, a decode alloc never fails); ``"recompute"``/``"swap"``
+    admit on the prompt's pages alone (holding ``watermark`` pages back)
+    and answer a decode-time ``OutOfPages`` by preempting a victim stream
+    chosen by ``preempt_policy``: checkpoint, free its pages, resume it
+    later by re-prefill or from a host swap.  Preemption is invisible in
+    greedy output space.  ``preempt_schedule`` ([(tick, slot), ...])
+    forces preemptions at given ticks.  The block table lives on the host
     (``PagePool.block_table``); its device copy is rebuilt only after an
     alloc or free changed it, and is shared by every layer of a step.
 
@@ -323,10 +406,12 @@ class BatchScheduler:
     When every active row waits on the channel, the clock jumps to the
     next arrival or deadline.  ``overlap=False`` degrades stage 2 to a
     blocking drain (the whole pool waits).  The default ``SyncChannel``
-    (zero latency) is the blocking engine, token for token.  Samplers
-    other than greedy draw from a ``torch.Generator`` seeded with
-    ``seed`` on the model's device.  Refused with their ROADMAP item:
-    preemption's schedule and the watermark (A.4), adaptive control and
+    (zero latency) is the blocking engine, token for token.  With
+    ``CollmConfig.speculative`` a below-θ row does not stall: it commits
+    the provisional edge token, keeps decoding, and reconciles on arrival
+    (keep on match, rewind-and-replace on mismatch).  Samplers other than
+    greedy draw from a ``torch.Generator`` seeded with ``seed`` on the
+    model's device.  Refused with their ROADMAP item: adaptive control and
     resume pricing (A.6)."""
 
     def __init__(self, collm: CoLLM, cm: ContentManager, num_slots: int,
@@ -342,9 +427,7 @@ class BatchScheduler:
                  adaptive: Any = None, resume_cost: Any = None):
         if mode not in ("collm", "standalone", "cloud"):
             raise ValueError(mode)
-        refused = {"watermark": (watermark != 0, "A.4"),
-                   "preempt_schedule": (bool(preempt_schedule), "A.4"),
-                   "adaptive": (adaptive is not None, "A.6"),
+        refused = {"adaptive": (adaptive is not None, "A.6"),
                    "resume_cost": (resume_cost is not None, "A.6")}
         _refuse("BatchScheduler options", refused)
         # cloud compute delegated to a shared CloudBatcher (multi-engine
@@ -373,6 +456,13 @@ class BatchScheduler:
         self.last_virtual_time = 0.0
         self.late_drops = 0          # replies dropped after slot moved on
         self._idle_s = 0.0           # virtual time nobody decoded (waits)
+        self._spec = bool(self.ccfg.speculative) and mode == "collm"
+        # draft length of the speculative path: below-θ rows accumulate up
+        # to spec_k provisional tokens into one verification request
+        self._spec_k = int(self.ccfg.spec_k) if self._spec else 1
+        if self._spec and sampler != "greedy":
+            raise ValueError("speculative decode reconciles token ids and "
+                             "requires greedy sampling")
 
         self.layout = self.ccfg.kv_layout
         if self.layout not in ("dense", "paged"):
@@ -384,12 +474,45 @@ class BatchScheduler:
             self.max_ctx = max_ctx or max_seq
             n_pages = num_pages or num_slots * pages_needed(max_seq, ps)
             self.pool = PagePool(n_pages, ps, num_slots,
-                                 pages_needed(self.max_ctx, ps))
+                                 pages_needed(self.max_ctx, ps),
+                                 watermark=watermark)
             row_seq = _bucket(self.max_ctx)
         else:
             self.max_ctx = max_seq
             row_seq = max_seq
         self._row_seq = row_seq        # single-row prefill cache capacity
+
+        # preemption: admission is optimistic, and a decode-time
+        # OutOfPages checkpoints a victim stream that resumes later by
+        # re-prefill ("recompute") or a host page round trip ("swap");
+        # "off" keeps the conservative worst-case admission
+        self.preemption = self.ccfg.preemption
+        if self.preemption not in ("off", "recompute", "swap"):
+            raise ValueError(f"preemption {self.preemption!r}")
+        self.preempt_policy = self.ccfg.preempt_policy
+        if self.preempt_policy not in PREEMPT_POLICIES:
+            raise ValueError(f"preempt_policy {self.preempt_policy!r} "
+                             f"(choose from {PREEMPT_POLICIES})")
+        if self.preemption != "off" and sampler != "greedy":
+            raise ValueError(
+                "preemption requires greedy sampling: per-stream sampler "
+                "state cannot be checkpointed out of the shared generator")
+        if self.preemption == "swap" and self.layout != "paged":
+            raise ValueError('preemption="swap" swaps KV pages and needs '
+                             'kv_layout="paged" (use "recompute" on dense)')
+        self._preempted = collections.deque()     # of _Checkpoint
+        self.swap = SwapPool() if self.preemption == "swap" else None
+        self._swap_key = 0
+        self._admit_counter = 0
+        self._tick_no = 0
+        self.preemptions = 0          # scheduler-lifetime preempt events
+        self.oops = 0                 # scheduler-lifetime OutOfPages events
+        self._preempt_schedule: Dict[int, List[int]] = {}
+        if preempt_schedule:
+            if self.preemption == "off":
+                raise ValueError("preempt_schedule needs preemption enabled")
+            for t, idx in preempt_schedule:
+                self._preempt_schedule.setdefault(int(t), []).append(int(idx))
 
         # pooled caches, and one single-row prefill cache per partition
         # that every admission reuses (a prefill rewrites slots [0, pad)
@@ -408,6 +531,16 @@ class BatchScheduler:
                 self.cloud_caches = self._init_pool_cache(
                     collm.init_cloud_cache, collm.init_cloud_cache_paged)
                 self._cloud_row0 = collm.init_cloud_cache(1, row_seq)
+
+        if self.preemption == "swap":
+            # a page-only snapshot would silently lose a dense cache leaf
+            trees = self._trees()
+            if self._batcher is not None:
+                trees.append(self._batcher.caches)
+            if not all(all_paged(t) for t in trees):
+                raise ValueError(
+                    'preemption="swap" requires every cache node to be '
+                    'paged (attention-only models); use "recompute"')
 
     def _init_pool_cache(self, dense_init, paged_init):
         if self.layout == "paged":
@@ -447,7 +580,8 @@ class BatchScheduler:
 
     # -- admission ----------------------------------------------------------
     def _outstanding_pages(self) -> int:
-        """Worst-case pages still owed to the active streams, so that an
+        """Worst-case pages still owed to the active streams: the
+        never-preempt (``preemption="off"``) admission check, so that an
         admitted stream can always finish."""
         out = 0
         for s in self.slots:
@@ -458,11 +592,23 @@ class BatchScheduler:
             out += max(0, worst - self.pool.owned_pages(s.index))
         return out
 
+    def _fits_now(self, need_pages: int) -> bool:
+        """Optimistic admission: do ``need_pages`` fit the free list right
+        now?  The watermark holds back decode headroom — except when
+        nothing is running, where it would wedge the pool instead of
+        protecting it."""
+        free = self.pool.available_pages
+        if not any(s.active for s in self.slots):
+            free = self.pool.free_pages
+        return need_pages <= free
+
     def _admissible(self, req: Request, p_len: int, pad: int) -> bool:
         """Capacity check.  Impossible requests raise; a request the paged
         pool could serve but not *right now* stays queued (back-pressure).
-        The check is the conservative worst case, so a decode-time alloc
-        can never fail."""
+        With preemption the check is optimistic — only the prompt's pages
+        must fit (decode pages come from alloc-on-write, backstopped by
+        preemption); with ``preemption="off"`` it is the conservative
+        worst case, so a decode alloc can never fail."""
         if p_len + req.max_new > self.max_ctx or pad > self._row_seq:
             raise ValueError(
                 f"request {req.device_id}: prompt {p_len} + max_new "
@@ -477,8 +623,14 @@ class BatchScheduler:
             raise ValueError(
                 f"request {req.device_id}: needs {need_worst} pages but the "
                 f"pool only has {self.pool.num_pages}")
-        return need_worst <= (self.pool.free_pages
-                              - self._outstanding_pages())
+        if self.preemption == "off":
+            return need_worst <= (self.pool.free_pages
+                                  - self._outstanding_pages())
+        return self._fits_now(pages_needed(p_len, self.pool.page_size))
+
+    def _next_admit_seq(self) -> int:
+        self._admit_counter += 1
+        return self._admit_counter
 
     def _reset_freed(self, freed: List[int]) -> None:
         """Invalidate freed physical pages (pos = -1) on every cache tree
@@ -511,7 +663,12 @@ class BatchScheduler:
         return _scatter_row_paged(full, row, slot.index, pages)
 
     def _admit(self, queue) -> bool:
-        admitted = False
+        # preempted streams resume first (they hold finished work, and the
+        # head of the line must not starve behind fresh admissions); while
+        # any still waits for pages, new requests stay queued
+        admitted = self._resume_preempted()
+        if self._preempted:
+            return admitted
         dev = self.model.device
         for slot in self.slots:
             if slot.active or slot.req is not None or not queue:
@@ -574,13 +731,17 @@ class BatchScheduler:
             slot.req, slot.stats = req, st
             slot.tokens = [tok]
             slot.emit_ts = [self.vnow]
+            slot.events = ["admit"]
             slot.last_token = tok
             slot.pos = p_len
             slot.active = True
             slot.seq += 1            # late replies of the predecessor drop
             slot.pending = {}
+            slot.draft = []
             slot.miss_streak = 0
             slot.standalone = False
+            slot.admit_seq = self._next_admit_seq()
+            slot.cloud_pkts = []
             admitted = True
             self._maybe_finish(slot)
         return admitted
@@ -617,7 +778,10 @@ class BatchScheduler:
         done = (len(slot.tokens) >= req.max_new
                 or (req.eos_id is not None
                     and slot.tokens[-1] == req.eos_id))
-        done = done and not slot.pending
+        # speculative: the tail tokens stay provisional until their replies
+        # reconcile (a rewind may resume decoding), and a buffered draft
+        # must flush before the slot can retire
+        done = done and not slot.pending and not slot.draft
         if done:
             self._finalize_latency(slot)
             if self.mode == "collm":
@@ -632,8 +796,11 @@ class BatchScheduler:
 
     def _runnable(self, s: _Slot) -> bool:
         """A slot decodes this tick unless it is stalled on an in-flight
-        cloud reply."""
-        if not s.active or s.pending:
+        cloud reply (non-speculative) or has provisionally reached its end
+        and awaits validation (speculative)."""
+        if not s.active:
+            return False
+        if s.pending and not self._spec:
             return False
         if len(s.tokens) >= s.req.max_new:
             return False
@@ -649,6 +816,269 @@ class BatchScheduler:
         self._tbl_device = None
         self._reset_freed(freed)
 
+    # -- preemption ---------------------------------------------------------
+    # Admission is optimistic, so a decode-time alloc can find the free list
+    # empty.  The scheduler then checkpoints a victim stream (tokens,
+    # events, stats, pending ContentManager uploads, the cloud-consumed
+    # upload packets, the CloudBatcher row) and frees its pages; the stream
+    # resumes later by re-prefill of its token prefix ("recompute") or a
+    # host round trip of its pages ("swap").  The resume point is always
+    # ``len(prompt) + len(tokens) - 1``: the last emitted token is fed
+    # again, so an interrupted edge pass simply runs again, and greedy
+    # decode makes the rerun deterministic.
+
+    def _preempt_victim(self, s: _Slot) -> None:
+        """Pick and preempt one victim stream to free pages for ``s``."""
+        if self.preemption == "off":
+            raise RuntimeError(
+                f"slot {s.index}: out of pages mid-decode with preemption "
+                f"off — the conservative admission check should make this "
+                f"impossible")
+        cands = [VictimCandidate(v.index, v.admit_seq,
+                                 self.pool.owned_pages(v.index))
+                 for v in self.slots if v.active and v is not s]
+        try:
+            victim = select_victim(cands, self.preempt_policy)
+        except OutOfPages:
+            raise RuntimeError(
+                f"slot {s.index}: out of pages and no preemptible victim "
+                f"(pool of {self.pool.num_pages} pages too small for one "
+                f"stream?)") from None
+        self._preempt(self.slots[victim])
+
+    def _ensure_page(self, s: _Slot, lp: int) -> None:
+        """Alloc-on-write with preemption: keep freeing victims until the
+        page for ``s``'s next write exists."""
+        while True:
+            try:
+                self._alloc_page(s.index, lp)
+                return
+            except OutOfPages:
+                self.oops += 1
+                self._preempt_victim(s)
+
+    def _preempt(self, s: _Slot) -> None:
+        """Checkpoint one active stream and free its slot and pages.
+
+        In-flight cloud replies are abandoned (the ``seq`` bump makes them
+        late-drop), and queued CloudBatcher requests are cancelled before
+        any KV is released."""
+        req, st = s.req, s.stats
+        if (s.pending or s.draft) and self._spec:
+            # provisional tokens past the earliest unvalidated position
+            # would never be reconciled: cut the checkpoint back to the
+            # validated prefix (the rerun speculates them again)
+            cand = [p.tok_index for p in s.pending.values()]
+            if s.draft:
+                cand.append(s.draft[0].tok_index)
+            cut = min(cand)
+            for kind in reversed(s.events[cut:]):
+                self._unwind_event(s, kind)
+            del s.tokens[cut:]
+            del s.emit_ts[cut:]
+            del s.events[cut:]
+        # abandoned waits are virtual time this stream really spent: bill
+        # them here, because their replies will late-drop
+        for pend in s.pending.values():
+            if not self._spec:
+                st.stall_s += self.vnow - pend.stall_from
+            st.overlap_s += self._hidden_s(pend)
+        s.pending = {}
+        # dropped draft packets sit at or after the resume point: the rerun
+        # uploads them again, so they are not checkpointed
+        s.draft = []
+        resume_pos = len(req.prompt) + len(s.tokens) - 1
+        use_swap = self.preemption == "swap"
+        # cloud KV at or after the resume point is rebuilt by the rerun;
+        # everything before it replays from the consumed-upload log
+        ck_pkts = [e for e in s.cloud_pkts if e[0] < resume_pos]
+        uploads = []
+        if self.mode == "collm":
+            uploads = [u for u in self.cm.take_all_uploads(req.device_id)
+                       if u[0] < resume_pos]
+        batcher_swap = None
+        if self._batcher is not None:
+            if use_swap:
+                batcher_swap = self._batcher.swap_out(req.device_id)
+            else:
+                self._batcher.release(req.device_id)
+        swap_key, swap_pages = None, 0
+        if self.pool is not None:
+            if use_swap:
+                swap_key, swap_pages = self._swap_out_slot(s)
+            self._free_pages(s)
+        self._preempted.append(_Checkpoint(
+            req=req, stats=st, tokens=list(s.tokens), events=list(s.events),
+            emit_ts=list(s.emit_ts), cloud_pkts=ck_pkts, uploads=uploads,
+            standalone=s.standalone, miss_streak=s.miss_streak,
+            swap_key=swap_key, swap_pages=swap_pages,
+            batcher_swap=batcher_swap))
+        st.preemptions += 1
+        self.preemptions += 1
+        s.seq += 1               # outstanding replies must never land here
+        s.active = False
+        s.req = None
+        s.stats = None
+        s.tokens = []
+        s.emit_ts = []
+        s.events = []
+        s.cloud_pkts = []
+
+    def _swap_out_slot(self, s: _Slot) -> tuple:
+        """Copy the slot's physical pages (every cache tree this engine
+        holds) to the host-side SwapPool; returns (key, n_pages)."""
+        key = self._swap_key
+        self._swap_key += 1
+        logical, trees = np.zeros((0,), np.int32), {}
+        for name in ("main_caches", "edge_caches", "cloud_caches"):
+            c = getattr(self, name, None)
+            if c is None:
+                continue
+            logical, t = gather_slot_pages(self.pool, s.index, c)
+            if t is not None:
+                trees[name] = t
+        self.swap.put(key, {"logical": logical, "trees": trees or None})
+        return key, len(logical)
+
+    def _resume_preempted(self) -> bool:
+        """Resume checkpointed streams, first in first out, into free slots
+        while their pages (and, in collm mode, a cloud row) are
+        available."""
+        resumed = False
+        while self._preempted:
+            slot = next((s for s in self.slots
+                         if not s.active and s.req is None), None)
+            if slot is None or not self._resumable(self._preempted[0]):
+                break
+            self._resume(self._preempted.popleft(), slot)
+            resumed = True
+        return resumed
+
+    def _resumable(self, ck: _Checkpoint) -> bool:
+        req = ck.req
+        p_len = len(req.prompt)
+        if self._batcher is not None \
+                and not self._batcher.can_admit(p_len + req.max_new):
+            return False
+        if self.pool is None:
+            return True
+        need = (ck.swap_pages if ck.swap_key is not None
+                else pages_needed(p_len + len(ck.tokens) - 1,
+                                  self.pool.page_size))
+        return self._fits_now(need)
+
+    def _resume_pad(self, length: int) -> int:
+        """Prefill bucket for a resume prefix: the usual power-of-two
+        bucket, clamped to the single-row cache capacity (the prefix itself
+        always fits)."""
+        return min(_bucket(length), self._row_seq)
+
+    def _resume(self, ck: _Checkpoint, slot: _Slot) -> None:
+        req = ck.req
+        prompt = np.asarray(req.prompt, np.int32)
+        resume_pos = len(prompt) + len(ck.tokens) - 1
+        if self.mode == "collm":
+            self.cm.restore_uploads(req.device_id, ck.uploads)
+        if ck.swap_key is not None:
+            self._swap_in_slot(slot, self.swap.take(ck.swap_key))
+            if self._batcher is not None:
+                self._batcher.swap_in(req.device_id, ck.batcher_swap)
+        else:
+            self._reprefill(slot, ck, prompt, resume_pos)
+        slot.req, slot.stats = req, ck.stats
+        slot.tokens = list(ck.tokens)
+        slot.emit_ts = list(ck.emit_ts)
+        slot.events = list(ck.events)
+        slot.last_token = ck.tokens[-1]
+        slot.pos = resume_pos
+        slot.active = True
+        slot.seq += 1
+        slot.pending = {}
+        slot.draft = []
+        slot.miss_streak = ck.miss_streak
+        slot.standalone = ck.standalone
+        slot.cloud_pkts = list(ck.cloud_pkts)
+        slot.admit_seq = self._next_admit_seq()
+        self._maybe_finish(slot)
+
+    def _swap_in_slot(self, slot: _Slot, snap: dict) -> None:
+        """Write a swap snapshot into freshly allocated physical pages and
+        bind them in the slot's block table (pages are row-agnostic)."""
+        if snap["trees"] is None or not len(snap["logical"]):
+            return
+        padded = rebind_slot_pages(self.pool, slot.index, snap["logical"])
+        self._tbl_device = None
+        trees = snapshot_to_device(snap["trees"], self.model.device)
+        for name, data in trees.items():
+            _write_pages_tree(getattr(self, name), padded, data)
+
+    def _reprefill(self, slot: _Slot, ck: _Checkpoint, prompt: np.ndarray,
+                   resume_pos: int) -> None:
+        """Recompute resume: one prefill over ``prompt + tokens[:-1]``
+        rebuilds the edge (or full-model) KV, and the checkpointed
+        consumed-upload log replays the cloud KV — gaps at early-exited
+        positions included, as the unpreempted run left them."""
+        dev = self.model.device
+        p_len = len(prompt)
+        st = ck.stats
+        pad = self._resume_pad(resume_pos)
+        tokens = torch.zeros((1, pad), dtype=torch.long, device=dev)
+        tokens[0, :p_len] = torch.as_tensor(prompt, device=dev)
+        tokens[0, p_len:resume_pos] = torch.as_tensor(ck.tokens[:-1],
+                                                      device=dev)
+        pages = (self._admit_pages(slot, resume_pos, pad)
+                 if self.pool is not None else None)
+        if self.mode == "cloud":
+            t0 = time.perf_counter()
+            _, row = self.collm.full_prefill_padded(tokens, resume_pos,
+                                                    self._full_row0)
+            self.main_caches = self._scatter_admit(self.main_caches, row,
+                                                   slot, pages)
+            st.cloud_time += time.perf_counter() - t0
+            return
+        t0 = time.perf_counter()
+        _, h1_seq, row = self.collm.edge_prefill_padded(tokens, resume_pos,
+                                                        self._edge_row0)
+        self.edge_caches = self._scatter_admit(self.edge_caches, row, slot,
+                                               pages)
+        st.edge_time += time.perf_counter() - t0
+        if self.mode != "collm":
+            return
+        # the cloud's prompt prefill (the admission's padded hidden slice)
+        # and a replay of the consumed decode uploads; the re-prefill's
+        # hidden is not uploaded again: the wire carried it before
+        t0 = time.perf_counter()
+        h1_p = h1_seq[:, :self._resume_pad(p_len)]
+        dev_id = ck.req.device_id
+        if self._batcher is not None:
+            self._batcher.admit(dev_id, h1_p, p_len, p_len + ck.req.max_new)
+            self._batcher.restore(dev_id, ck.cloud_pkts)
+        else:
+            cpages = None
+            if self.pool is not None:
+                n_prompt = pages_needed(p_len, self.pool.page_size)
+                cpages = np.full((pages_needed(h1_p.shape[1],
+                                               self.pool.page_size),),
+                                 -1, np.int32)
+                cpages[:n_prompt] = self.pool.block_table[slot.index,
+                                                          :n_prompt]
+            _, crow = self.collm.cloud_prefill_padded(h1_p, p_len,
+                                                      self._cloud_row0)
+            self.cloud_caches = self._scatter_admit(self.cloud_caches, crow,
+                                                    slot, cpages)
+            self._replay_cloud(slot, ck.cloud_pkts)
+        st.cloud_time += time.perf_counter() - t0
+
+    def _replay_cloud(self, slot: _Slot, pkts: List[tuple]) -> None:
+        """Own-cloud replay of the checkpointed consumed uploads (one
+        masked ring pass over this slot's row)."""
+        if not pkts:
+            return
+        ring, ring_pos, valid = build_upload_ring([(slot.index, pkts)],
+                                                  self.B)
+        _, self.cloud_caches = self.collm.ring_cloud_steps(
+            ring, ring_pos, valid, self.cloud_caches, self._block_tbl())
+
     # -- one decode tick ----------------------------------------------------
     def tick(self) -> None:
         """One step of the two-stage pipeline: resolve due replies, run the
@@ -656,6 +1086,10 @@ class BatchScheduler:
         requests, resolve again (a ``SyncChannel`` reply arrives within
         the same tick).  When every active row waits on the channel, the
         virtual clock jumps to the next arrival or deadline instead."""
+        self._tick_no += 1
+        for idx in self._preempt_schedule.get(self._tick_no, ()):
+            if self.slots[idx].active:        # forced preemption
+                self._preempt(self.slots[idx])
         self._resolve()
         runnable = [s for s in self.slots if self._runnable(s)]
         if not runnable:
@@ -665,10 +1099,12 @@ class BatchScheduler:
             return
         if self.pool is not None:
             for s in runnable:
-                # alloc-on-write: this tick writes KV at s.pos
+                # alloc-on-write: this tick writes KV at s.pos; an empty
+                # free list preempts a victim stream (never s itself)
                 lp = s.pos // self.pool.page_size
-                if self.pool.block_table[s.index, lp] == -1:
-                    self._alloc_page(s.index, lp)
+                if s.active and self.pool.block_table[s.index, lp] == -1:
+                    self._ensure_page(s, lp)
+            runnable = [s for s in runnable if s.active]  # minus victims
         tokens = np.zeros((self.B, 1), np.int64)
         pos = np.zeros((self.B,), np.int32)
         for s in self.slots:
@@ -701,7 +1137,7 @@ class BatchScheduler:
         dt = (time.perf_counter() - t0) / len(runnable)
         for s in runnable:
             s.stats.cloud_time += dt
-            self._emit(s, int(next_tok[s.index]))
+            self._emit(s, int(next_tok[s.index]), "full")
 
     def _tick_edge(self, runnable, tokens, pos) -> None:
         collm, ccfg = self.collm, self.ccfg
@@ -744,9 +1180,10 @@ class BatchScheduler:
             for s in runnable:
                 if s.stats.confidences[-1][0] >= ccfg.theta:
                     s.stats.exits_l1 += 1
+                    self._emit(s, int(tok2[s.index]), "l1")
                 else:
                     s.stats.exits_l2 += 1
-                self._emit(s, int(tok2[s.index]))
+                    self._emit(s, int(tok2[s.index]), "l2")
             return
 
         # parallel upload (always dispatched at l_ee1) — batched receive.
@@ -765,20 +1202,46 @@ class BatchScheduler:
 
         # ``tok2`` is the provisional token a deadline miss commits
         needy = [s for s in uploaders if not exited[s.index]]
-        if needy:
+        if self._spec:
+            # below-θ rows buffer provisional tokens and ship them in
+            # k-token verification requests (spec_k=1: one a request)
+            self._draft_tick(needy, uploaders, tok2)
+        elif needy:
             self._dispatch_cloud(needy, pos, tok2)
         for s in runnable:
             if exited[s.index]:
                 if s.stats.confidences[-1][0] >= ccfg.theta:
                     s.stats.exits_l1 += 1
+                    self._emit(s, int(exit_toks[s.index]), "l1")
                 else:
                     s.stats.exits_l2 += 1
-                self._emit(s, int(exit_toks[s.index]))
+                    self._emit(s, int(exit_toks[s.index]), "l2")
             elif s.standalone:
                 # latency fallback: the edge serves its below-θ tokens
                 s.stats.exits_l2 += 1
-                self._emit(s, int(tok2[s.index]))
-            # else: needy — token arrives via the channel (_resolve)
+                self._emit(s, int(tok2[s.index]), "l2")
+            # else: needy — the token arrives via the channel (_resolve),
+            # or was committed provisionally by _draft_tick
+
+    def _masked_cloud(self, rows: List[int], pkts: List[StatePacket],
+                      pos: torch.Tensor) -> torch.Tensor:
+        """One masked cloud step over the pool: ``pkts[i]`` is row
+        ``rows[i]``'s upload at position ``pos[rows[i]]``; the other rows'
+        caches stay as they were.  The (B, ...) input is built on the
+        device by index copies.  Returns the (B, V) logits."""
+        dev = self.model.device
+        idx = torch.as_tensor(rows, device=dev)
+        dense = {}
+        for k, v in pkts[0].hidden.items():
+            dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
+                                   dtype=v.dtype, device=dev)
+            dense[k][idx] = torch.cat([p.hidden[k] for p in pkts])
+        mask = torch.zeros((self.B,), dtype=torch.bool, device=dev)
+        mask[idx] = True
+        logits, self.cloud_caches = self.collm.cloud_step(
+            dense, self.cloud_caches, pos, block_tbl=self._block_tbl(),
+            write_mask=mask)
+        return logits
 
     def _dispatch_cloud(self, needy: List[_Slot], pos: torch.Tensor,
                         prov_toks: np.ndarray) -> None:
@@ -790,18 +1253,25 @@ class BatchScheduler:
         call itself is deferred too: the requests queue with the batcher so
         that other engines' concurrent rows join the same wave."""
         ccfg = self.ccfg
-        dev = self.model.device
+        # the consumed-upload log backs the recompute resume's cloud
+        # replay; a swap resume restores pages directly
+        track = self.preemption == "recompute"
         t0 = time.perf_counter()
         if self._batcher is not None:
             payloads = {}
             for s in needy:
-                group, row, _ = self._batcher.submit(
+                group, row, consumed = self._batcher.submit(
                     s.req.device_id, s.pos, backfill=ccfg.backfill)
                 payloads[s.index] = (group, row)
+                if track:
+                    s.cloud_pkts.extend(consumed)
         else:
             if ccfg.backfill:
                 rings = self.cm.take_uploads_upto_batch(
                     [(s.req.device_id, s.pos) for s in needy])
+                if track:
+                    for s, pend in zip(needy, rings):
+                        s.cloud_pkts.extend(pend)
                 ring, ring_pos, valid = build_upload_ring(
                     [(s.index, pend) for s, pend in zip(needy, rings)],
                     self.B)
@@ -811,17 +1281,11 @@ class BatchScheduler:
             else:
                 pkts = self.cm.take_upload_batch(
                     [(s.req.device_id, s.pos) for s in needy])
-                rows = torch.as_tensor([s.index for s in needy], device=dev)
-                dense = {}
-                for k, v in pkts[0].hidden.items():
-                    dense[k] = torch.zeros((self.B,) + tuple(v.shape[1:]),
-                                           dtype=v.dtype, device=dev)
-                    dense[k][rows] = torch.cat([p.hidden[k] for p in pkts])
-                mask = torch.zeros((self.B,), dtype=torch.bool, device=dev)
-                mask[rows] = True
-                logits, self.cloud_caches = self.collm.cloud_step(
-                    dense, self.cloud_caches, pos,
-                    block_tbl=self._block_tbl(), write_mask=mask)
+                if track:
+                    for s, pkt in zip(needy, pkts):
+                        s.cloud_pkts.append((s.pos, pkt))
+                logits = self._masked_cloud(
+                    [s.index for s in needy], pkts, pos)
             group = {"logits": logits, "np": None}   # materialized at drain
             payloads = {s.index: (group, s.index) for s in needy}
 
@@ -838,14 +1302,158 @@ class BatchScheduler:
                 deadline_t=self.vnow + self.channel.deadline_s,
                 idle_at=self._idle_s)
             handles.append(h)
-        if not self.overlap:
-            # blocking baseline: the whole pool waits for this tick's
-            # replies (still paying the channel's virtual latency); the
-            # jump is pure idle time, nothing decodes during it
-            arr = [self.channel.arrival_of(h) for h in handles]
-            target = max([self.vnow] + [a for a in arr if a is not None])
-            self._idle_s += target - self.vnow
-            self.vnow = target
+        self._block_on(handles)
+
+    def _block_on(self, handles: List[int]) -> None:
+        """``overlap=False``, the blocking baseline: the whole pool waits
+        for these replies (still paying the channel's virtual latency); the
+        jump is pure idle time, nothing decodes during it."""
+        if self.overlap:
+            return
+        arr = [self.channel.arrival_of(h) for h in handles]
+        target = max([self.vnow] + [a for a in arr if a is not None])
+        self._idle_s += target - self.vnow
+        self.vnow = target
+
+    # -- multi-token drafting (speculative path) ----------------------------
+    def _draft_tick(self, needy: List[_Slot], uploaders: List[_Slot],
+                    prov_toks: np.ndarray) -> None:
+        """Speculative drafting: every below-θ row commits its provisional
+        l_ee2 token into the slot's draft buffer — popping the
+        just-uploaded packet so that the ContentManager window can never
+        release a position still awaiting verification — then full
+        drafts, drafts whose row took a confident tick (drafts stay
+        position-contiguous), and drafts whose row just reached its end
+        flush as single verification requests (``_flush_drafts``)."""
+        needy_idx = set()
+        for s in needy:
+            needy_idx.add(s.index)
+            dev = s.req.device_id
+            # release mode consumes the position (releasing the earlier
+            # confident-tick uploads); backfill keeps those for the flush
+            pkt = (self.cm.take_upload_keep(dev, s.pos) if self.ccfg.backfill
+                   else self.cm.take_upload(dev, s.pos))
+            s.draft.append(_DraftTok(
+                pos=s.pos, tok_index=len(s.tokens),
+                provisional=int(prov_toks[s.index]), pkt=pkt))
+            # latency hiding: commit the edge token provisionally and keep
+            # decoding; the verification reply reconciles it (_resolve)
+            self._emit(s, int(prov_toks[s.index]), "spec")
+        flush = []
+        for s in uploaders:
+            if not s.draft:
+                continue
+            eos = s.req.eos_id
+            at_end = (len(s.tokens) >= s.req.max_new
+                      or (eos is not None and s.tokens[-1] == eos))
+            if (len(s.draft) >= self._spec_k
+                    or s.index not in needy_idx   # a confident tick ends it
+                    or at_end):                   # the row won't tick again
+                flush.append(s)
+        if flush:
+            self._flush_drafts(flush)
+
+    def _flush_drafts(self, rows: List[_Slot]) -> None:
+        """Ship each row's buffered draft as ONE verification request: the
+        k draft packets form the row's upload ring (backfill also drains
+        the older uploads not yet consumed, keeping the cloud KV exact) and
+        one masked ring pass scores every draft position
+        (``ring_cloud_steps_all``); the reply carries per-position logits
+        for the accept-prefix reconcile.  A wave of single tokens (spec_k=1,
+        release mode) takes the dense masked step."""
+        ccfg = self.ccfg
+        track = self.preemption == "recompute"
+        t0 = time.perf_counter()
+        ring_maps: Dict[int, Dict[int, int]] = {}
+        if self._batcher is not None:
+            payloads = {}
+            for s in rows:
+                group, row, consumed = self._batcher.submit_draft(
+                    s.req.device_id, [(d.pos, d.pkt) for d in s.draft],
+                    backfill=ccfg.backfill)
+                payloads[s.index] = (group, row)
+                ring_maps[s.index] = {p: i for i, (p, _)
+                                      in enumerate(consumed)}
+                if track:
+                    s.cloud_pkts.extend(consumed)
+        else:
+            entries = []
+            for s in rows:
+                pkt_list = [(d.pos, d.pkt) for d in s.draft]
+                if ccfg.backfill:
+                    # a confident tick flushes, so drafts are contiguous:
+                    # every older upload not yet consumed precedes them
+                    pkt_list = self.cm.take_uploads_upto(
+                        s.req.device_id, s.draft[-1].pos) + pkt_list
+                if track:
+                    s.cloud_pkts.extend(pkt_list)
+                entries.append((s.index, pkt_list))
+                ring_maps[s.index] = {p: i for i, (p, _)
+                                      in enumerate(pkt_list)}
+            if max(len(pl) for _, pl in entries) == 1 and not ccfg.backfill:
+                # a wave of single tokens: the dense masked step (the
+                # classic speculative dispatch)
+                posv = np.zeros((self.B,), np.int32)
+                for s in rows:
+                    posv[s.index] = s.draft[0].pos
+                logits = self._masked_cloud(
+                    [s.index for s in rows], [pl[0][1] for _, pl in entries],
+                    torch.as_tensor(posv, device=self.model.device))
+                all_logits = None
+            else:
+                ring, ring_pos, valid = build_upload_ring(entries, self.B)
+                logits, all_logits, self.cloud_caches = \
+                    self.collm.ring_cloud_steps_all(
+                        ring, ring_pos, valid, self.cloud_caches,
+                        self._block_tbl())
+            group = {"logits": logits, "all": all_logits, "np": None,
+                     "np_all": None}
+            payloads = {s.index: (group, s.index) for s in rows}
+
+        dt = (time.perf_counter() - t0) / len(rows)
+        handles = []
+        for s in rows:
+            s.stats.cloud_time += dt
+            kk = len(s.draft)
+            rm = ring_maps[s.index]
+            for d in s.draft:
+                d.ring_idx = rm[d.pos]
+            # wire: the k hidden rows were billed by their per-tick uploads;
+            # the request carries the k provisional ids up and k verified
+            # ids down
+            h = self.channel.submit(
+                slot=s.index, seq=s.seq, pos=s.draft[-1].pos,
+                reply=payloads[s.index], now=self.vnow,
+                nbytes_up=draft_request_bytes(kk),
+                nbytes_down=TOKEN_BYTES * kk)
+            s.pending[h] = _Pending(
+                pos=s.draft[-1].pos, tok_index=s.draft[0].tok_index,
+                provisional=s.draft[0].provisional, stall_from=self.vnow,
+                deadline_t=self.vnow + self.channel.deadline_s,
+                idle_at=self._idle_s, draft=s.draft)
+            s.stats.draft_tokens += kk
+            s.draft = []
+            handles.append(h)
+        self._block_on(handles)
+
+    def _draft_tokens(self, rep) -> np.ndarray:
+        """A verification reply's per-position greedy tokens for this row,
+        shape (depth,); each draft entry's ``ring_idx`` indexes it.  The
+        argmax runs on the device over the group's (depth, B, V) logits,
+        once a group; only the (depth, B) tokens are copied to the host."""
+        group, row = rep.reply
+        if group.get("np_all") is None:
+            if group["logits"] is None and group.get("all") is None:
+                # lazy CloudBatcher wave: the first materialization
+                # computes it
+                group["flush"]()
+            if group.get("all") is not None:
+                group["np_all"] = group["all"].argmax(dim=-1).cpu().numpy()
+            else:
+                # a wave of single tokens: the final logits, depth 1
+                group["np_all"] = group["logits"].argmax(
+                    dim=-1)[None, :].cpu().numpy()
+        return group["np_all"][:, row]
 
     # -- reply drain --------------------------------------------------------
     def _reply_token(self, rep) -> int:
@@ -876,15 +1484,29 @@ class BatchScheduler:
         its deadline), so the row's edge l_ee2 token wins."""
         s.stats.deadline_misses += 1
         s.miss_streak += 1
-        s.stats.stall_s += self.vnow - pend.stall_from
-        s.stats.overlap_s += self._hidden_s(pend)
-        s.stats.exits_l2 += 1
-        self._emit(s, pend.provisional)
+        if self._spec:
+            # the whole edge draft becomes final: every position the reply
+            # would have reconciled commits as an l2 exit
+            for d in pend.draft:
+                s.events[d.tok_index] = "l2"
+                s.stats.exits_l2 += 1
+        else:
+            s.stats.stall_s += self.vnow - pend.stall_from
+            s.stats.overlap_s += self._hidden_s(pend)
+            s.stats.exits_l2 += 1
+            self._emit(s, pend.provisional, "l2")
         if (self.fallback_after
                 and s.miss_streak >= self.fallback_after
                 and not s.standalone):
             s.standalone = True
             s.stats.fallbacks += 1
+            # a buffered draft can never flush once the row stops
+            # uploading: its provisional tokens become final l2 exits,
+            # never billed as draft_tokens
+            for d in s.draft:
+                s.events[d.tok_index] = "l2"
+                s.stats.exits_l2 += 1
+            s.draft = []
 
     def _resolve(self) -> None:
         """Drain the replies that have arrived by the current virtual time,
@@ -893,8 +1515,8 @@ class BatchScheduler:
             s = self.slots[rep.slot] if rep.slot < self.B else None
             if (s is None or not s.active or s.seq != rep.seq
                     or rep.handle not in s.pending):
-                # the slot retired or was refilled: a late reply must never
-                # land on its successor
+                # the slot retired, was refilled, or rewound past this
+                # position: a late reply must never land on its successor
                 self.late_drops += 1
                 continue
             pend = s.pending.pop(rep.handle)
@@ -906,12 +1528,33 @@ class BatchScheduler:
                 self.late_drops += 1
                 self._maybe_finish(s)
                 continue
-            tok = self._reply_token(rep)
-            s.stats.cloud_requests += 1
-            s.stats.stall_s += self.vnow - pend.stall_from
-            s.stats.overlap_s += self._hidden_s(pend)
-            s.miss_streak = 0
-            self._emit(s, tok)
+            if self._spec:
+                s.stats.overlap_s += self._hidden_s(pend)
+                s.miss_streak = 0
+                toks = self._draft_tokens(rep)
+                accepted = 0
+                for d in pend.draft:
+                    cloud_tok = int(toks[d.ring_idx])
+                    if cloud_tok == s.tokens[d.tok_index]:
+                        # validated: the provisional token IS the cloud's
+                        s.events[d.tok_index] = "cloud"
+                        s.stats.cloud_requests += 1
+                        s.stats.accepted_tokens += 1
+                        accepted += 1
+                    else:
+                        # first disagreement: correct it and discard the
+                        # rejected suffix (later positions were scored on
+                        # a wrong token)
+                        self._rewind(s, d, cloud_tok)
+                        break
+                s.stats.accept_lens.append(accepted)
+            else:
+                tok = self._reply_token(rep)
+                s.stats.cloud_requests += 1
+                s.stats.stall_s += self.vnow - pend.stall_from
+                s.stats.overlap_s += self._hidden_s(pend)
+                s.miss_streak = 0
+                self._emit(s, tok, "cloud")
             self._maybe_finish(s)
         # latency-aware early exit: overdue replies commit the edge token
         for s in self.slots:
@@ -943,9 +1586,69 @@ class BatchScheduler:
         self._idle_s += target - self.vnow     # nothing decodes while idle
         self.vnow = target
 
-    def _emit(self, slot: _Slot, tok: int) -> None:
+    def _unwind_event(self, s: _Slot, kind: str) -> None:
+        """Undo one discarded token's contribution to the per-stream
+        counters (rewind, preemption cut).  ``deadline_misses`` is an event
+        count, not a token property: it stays."""
+        st = s.stats
+        st.tokens -= 1
+        if st.confidences:
+            st.confidences.pop()
+        if kind == "l1":
+            st.exits_l1 -= 1
+        elif kind == "l2":
+            st.exits_l2 -= 1
+        elif kind == "cloud":
+            st.cloud_requests -= 1
+
+    def _rewind(self, s: _Slot, pend: _DraftTok, tok: int) -> None:
+        """Speculative reconcile: the cloud disagreed with the provisional
+        token at ``pend.tok_index`` (``pend``: the ``_DraftTok``) — replace
+        it, discard everything the row decoded after it, and invalidate the
+        discarded cloud KV (a position the re-decoded stream never serves
+        from the cloud again must read a gap, not stale K/V; edge KV needs
+        no repair, decode overwrites a slot before reading it)."""
+        i = pend.tok_index
+        for kind in reversed(s.events[i + 1:]):
+            self._unwind_event(s, kind)
+        del s.tokens[i + 1:]
+        del s.emit_ts[i + 1:]
+        del s.events[i + 1:]
+        s.tokens[i] = tok
+        s.emit_ts[i] = self.vnow   # the corrected token streams out now
+        s.events[i] = "cloud"
+        s.stats.cloud_requests += 1
+        s.stats.spec_rewinds += 1
+        s.last_token = tok
+        s.pos = pend.pos + 1
+        for h, p2 in list(s.pending.items()):
+            if p2.pos > pend.pos:      # requests of discarded positions
+                del s.pending[h]       # (their replies will late-drop)
+        # buffered draft tokens of discarded positions go too (a buffered
+        # draft is always newer than any dispatched group)
+        s.draft = [d for d in s.draft if d.pos <= pend.pos]
+        # the invalidated cloud KV must not come back through a later
+        # preemption replay either
+        s.cloud_pkts = [e for e in s.cloud_pkts if e[0] <= pend.pos]
+        # nor may the discarded positions' uploads stay in the upload
+        # window: eight of them would release every new upload below them
+        # before its draft takes it (the JAX package raises KeyError there)
+        self.cm.drop_uploads_after(s.req.device_id, pend.pos)
+        if self._batcher is not None:
+            # drop the discarded positions' queued requests FIRST (a later
+            # flush would write the KV being invalidated again)
+            self._batcher.cancel(s.req.device_id, pend.pos + 1)
+            self._batcher.invalidate(s.req.device_id, pend.pos + 1)
+        else:
+            cut = np.full((self.B,), np.iinfo(np.int32).max, np.int32)
+            cut[s.index] = pend.pos + 1
+            self.cloud_caches = self.collm.invalidate_rows_after(
+                self.cloud_caches, cut, self._block_tbl())
+
+    def _emit(self, slot: _Slot, tok: int, event: str) -> None:
         slot.tokens.append(tok)
         slot.emit_ts.append(self.vnow)
+        slot.events.append(event)
         slot.last_token = tok
         if self.mode == "cloud":
             slot.stats.tokens += 1
@@ -970,22 +1673,24 @@ class BatchScheduler:
         stats: List[Optional[GenStats]] = [None] * len(requests)
         v0 = self.vnow
         self.late_drops = 0
+        self._tick_no = 0        # forced-preemption schedules are per run
         # a reused channel must not leak the previous run's link/service
         # virtual times (or stale in-flight replies) into this run's trace
         self.channel.reset()
-        while queue or any(s.active for s in self.slots):
+        while queue or self._preempted or any(s.active for s in self.slots):
             admitted = self._admit(queue)
             self._collect(results, stats)     # finished at admission
             if any(s.active for s in self.slots):
                 self.tick()
                 self._collect(results, stats)
-            elif queue and not admitted:
-                # nothing active, nothing admitted, yet work remains: no
-                # tick can ever free pages (conservative admission makes
-                # this impossible; an admission that finished instantly
-                # sets ``admitted`` and refills)
+            elif (queue or self._preempted) and not admitted:
+                # nothing active, nothing admitted or resumed, yet work
+                # remains: no tick can ever free pages (an idle pool
+                # resumes ignoring the watermark; an admission that
+                # finished instantly sets ``admitted`` and refills)
                 raise RuntimeError(
-                    f"scheduler wedged: {len(queue)} queued, 0 active, "
+                    f"scheduler wedged: {len(queue)} queued, "
+                    f"{len(self._preempted)} preempted, 0 active, "
                     f"pool {self.pool and self.pool.free_pages} pages free")
         # replies still in flight belong to retired slots — discard them
         self.late_drops += self.channel.drop_in_flight()
@@ -1017,6 +1722,7 @@ def run_multi(scheds: Sequence[BatchScheduler],
     services = {}
     for s in scheds:
         s.late_drops = 0
+        s._tick_no = 0
         s.channel.reset()
         svc = getattr(s.channel, "service", None)
         if svc is not None:
@@ -1025,7 +1731,8 @@ def run_multi(scheds: Sequence[BatchScheduler],
         svc.reset()      # a shared point resets once per run, not per channel
 
     def busy(i: int) -> bool:
-        return bool(queues[i]) or any(sl.active for sl in scheds[i].slots)
+        return (bool(queues[i]) or bool(scheds[i]._preempted)
+                or any(sl.active for sl in scheds[i].slots))
 
     while any(busy(i) for i in range(len(scheds))):
         progressed = False
@@ -1101,8 +1808,12 @@ class ServingSystem:
         drain, and ``fallback_after`` consecutive deadline misses flip a
         stream to standalone.  ``sampler="temperature"`` draws with
         ``temperature`` and ``top_k`` from a generator seeded with
-        ``seed``.  Refused with their ROADMAP item: ``watermark`` and
-        ``preempt_schedule`` (A.4), open-loop ``arrivals``, SLO targets,
+        ``seed``.  Under ``CollmConfig.preemption != "off"`` the paged pool
+        admits optimistically and preempts victims when pages run dry;
+        ``watermark`` holds that many free pages back from admission as
+        decode headroom, and ``preempt_schedule`` ([(tick, slot), ...])
+        forces preemptions of given slots at given ticks.  Refused with
+        their ROADMAP item: open-loop ``arrivals``, SLO targets,
         ``adaptive`` and ``resume_cost`` (A.6).  Returns the JAX package's
         result keys."""
         _refuse("generate options", {
@@ -1113,10 +1824,12 @@ class ServingSystem:
         longest = max(len(p) for p in prompts)
         max_seq = max_seq or (longest + max_new + 8)
         max_seq = max(max_seq, _bucket(longest))
+        sched_tuple = (tuple((int(t), int(i)) for t, i in preempt_schedule)
+                       if preempt_schedule else None)
         key = (mode, slots, max_seq, sampler, temperature, top_k, seed,
                max_ctx, num_pages,
                id(channel) if channel is not None else None,
-               tick_time_s, overlap, fallback_after)
+               tick_time_s, overlap, fallback_after, watermark, sched_tuple)
         sched = self._schedulers.get(key)
         if sched is None:
             # bounded cache: each scheduler owns pooled device caches
@@ -1129,7 +1842,7 @@ class ServingSystem:
                 seed=seed, max_ctx=max_ctx, num_pages=num_pages,
                 channel=channel, tick_time_s=tick_time_s, overlap=overlap,
                 fallback_after=fallback_after, watermark=watermark,
-                preempt_schedule=preempt_schedule, adaptive=adaptive,
+                preempt_schedule=sched_tuple, adaptive=adaptive,
                 resume_cost=resume_cost)
             self._schedulers[key] = sched
         reqs = [Request(device_id=f"edge-{i}", prompt=np.asarray(p),
@@ -1142,7 +1855,7 @@ class ServingSystem:
                 "virtual_time": sched.last_virtual_time,
                 "late_drops": sched.late_drops,
                 "channel_stats": sched.channel.stats.as_row(),
-                "preemptions": 0, "oops": 0,
+                "preemptions": sched.preemptions, "oops": sched.oops,
                 "adaptive": None,
                 "pool_stats": (dataclasses.asdict(sched.pool.stats)
                                if sched.pool is not None else None)}
@@ -1173,12 +1886,12 @@ class ServingSystem:
         cloud calls (the per-request FIFO cloud the batcher is compared
         with).  ``channels`` optionally gives one ``CloudChannel`` per
         engine, e.g. ``AsyncSimChannel``s sharing one ``CloudServicePoint``;
-        the default is a ``SyncChannel`` each.  Refused with their ROADMAP
-        item: ``preempt_schedules`` (A.4), open-loop ``arrivals`` and SLO
-        targets (A.6).  Returns the JAX package's result keys, with
-        ``n_engines`` and, in cloud-batch mode, the batcher's stats row."""
+        the default is a ``SyncChannel`` each.  ``preempt_schedules``
+        gives each engine its ``preempt_schedule`` (or None).  Refused with
+        their ROADMAP item: open-loop ``arrivals`` and SLO targets (A.6).
+        Returns the JAX package's result keys, with ``n_engines`` and, in
+        cloud-batch mode, the batcher's stats row."""
         _refuse("generate_multi options", {
-            "preempt_schedules": (bool(preempt_schedules), "A.4"),
             "arrivals": (arrivals is not None, "A.6"),
             "slo": (slo_ttft_s is not None or slo_tpot_s is not None,
                     "A.6")})
@@ -1197,7 +1910,9 @@ class ServingSystem:
             self.collm, self.cloud.cm, 1, max_seq, mode=mode,
             channel=(channels[i] if channels is not None else None),
             tick_time_s=tick_time_s, overlap=overlap,
-            fallback_after=fallback_after, cloud_batcher=batcher)
+            fallback_after=fallback_after, cloud_batcher=batcher,
+            preempt_schedule=(preempt_schedules[i]
+                              if preempt_schedules is not None else None))
             for i in range(n)]
         per_engine = [[] for _ in range(n)]
         assign = [[] for _ in range(n)]

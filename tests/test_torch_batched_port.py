@@ -8,7 +8,8 @@ float32 pages give the dense layout's streams; ``generate`` gives
 scheduler reuses the freed pages; an impossible request raises; a masked
 cloud step leaves the masked-out rows' caches bit for bit; every option
 that is not ported raises ``NotImplementedError`` naming its ROADMAP item,
-and the four that this port's async-channel slice accepted now run.
+the four that this port's async-channel slice accepted now run, and so do
+the five of speculative drafting and preemption.
 """
 import re
 
@@ -142,21 +143,16 @@ class _OtherChannel(CloudChannel):
 
 # still refused: option -> (generate kwargs, ROADMAP item that ports it)
 REFUSED_GENERATE = {
-    "preempt_schedule": (dict(preempt_schedule=[(1, 0)]), "A.4"),
-    "watermark": (dict(watermark=1), "A.4"),
     "adaptive": (dict(adaptive=object()), "A.6"),
     "resume_cost": (dict(resume_cost=object()), "A.6"),
     "arrivals": (dict(arrivals=[0.0] * len(LENS)), "A.6"),
     "slo": (dict(slo_ttft_s=1.0), "A.6"),
 }
 REFUSED_CONFIG = {
-    "speculative": (dict(speculative=True), "A.3"),
-    "spec_k": (dict(speculative=True, spec_k=2), "A.3"),
     "chunked_prefill": (dict(kv_layout="paged", chunked_prefill=True),
                         "A.5"),
     "prefix_share": (dict(kv_layout="paged", chunked_prefill=True,
                           prefix_share=True), "A.5"),
-    "preemption": (dict(kv_layout="paged", preemption="recompute"), "A.4"),
     "cloud_mesh": (dict(cloud_mesh=(1, 1)), "A.11"),
 }
 
@@ -221,3 +217,43 @@ def test_kv_dtype_checks(pair):
         CoLLM(tm, CollmConfig(kv_dtype="int8"))           # dense ring
     with pytest.raises(ValueError, match="kv_dtype"):
         CoLLM(tm, CollmConfig(kv_dtype="int4", kv_layout="paged"))
+
+
+@pytest.mark.parametrize("name", ["preempt_schedule", "watermark",
+                                  "speculative", "spec_k", "preemption"])
+def test_drafting_and_preemption_options_run(pair, name):
+    """The five options refused before speculative drafting and preemption
+    were ported now run, keep the default greedy streams, and move the
+    counter they exist for."""
+    tm, prompts = pair[2], pair[3]
+    base = ServingSystem(tm, CollmConfig(theta=0.2)).generate(
+        prompts, 6, num_slots=2)
+    paged = dict(theta=0.2, kv_layout="paged", preemption="recompute")
+    if name == "preempt_schedule":
+        r = ServingSystem(tm, CollmConfig(**paged)).generate(
+            prompts, 6, num_slots=2, preempt_schedule=[(2, 0)])
+        assert r["preemptions"] == r["stats"].preemptions == 1
+    elif name == "watermark":
+        # 2 pages: without headroom the second stream is admitted and one
+        # of the two is preempted; one held-back page admits one at a time
+        runs = [ServingSystem(tm, CollmConfig(**paged)).generate(
+            prompts, 6, num_slots=2, num_pages=2, watermark=w)
+            for w in (0, 1)]
+        assert [r["preemptions"] for r in runs] == [1, 0]
+        assert runs[0]["tokens"] == base["tokens"]
+        r = runs[1]
+    elif name == "preemption":
+        r = ServingSystem(tm, CollmConfig(**paged)).generate(
+            prompts, 6, num_slots=2, num_pages=2)
+        assert r["preemptions"] == r["stats"].preemptions > 0
+    else:
+        k = 4 if name == "spec_k" else 1
+        r = ServingSystem(tm, CollmConfig(
+            theta=0.2, speculative=True, spec_k=k)).generate(
+            prompts, 6, num_slots=2)
+        drafts, requests = (r["stats"].draft_tokens,
+                            r["channel_stats"]["requests"])
+        assert drafts > 0
+        # a k-token draft ships several provisional tokens a request
+        assert (requests < drafts) if k > 1 else (requests == drafts)
+    assert r["tokens"] == base["tokens"]

@@ -7,7 +7,11 @@ small float32 model served on block-paged KV on the card gives the streams
 of the dense layout on the card and on the CPU; so do its deadline misses
 and standalone fallback under a ``ScriptedChannel``, and N single-slot
 engines behind one ``CloudBatcher`` (``generate_multi``); ``top_k=1``
-sampling is greedy on the card.
+sampling is greedy on the card.  So are speculative drafts (k = 1 and 4)
+with their rewinds, recompute and swap preemption (float32 and int8
+pages), and drafts in flight across a preemption behind the
+``CloudBatcher``; a rewind of paged rows whose block table has unmapped
+entries, and an int8 swap round trip (byte-exact), are checked directly.
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -562,3 +566,183 @@ def test_generate_sequential_on_the_card_matches_cpu(cuda, mode, theta, wire,
     assert got["tokens"] == want["tokens"]
     for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
         assert getattr(got["stats"], name) == getattr(want["stats"], name)
+
+
+def _spec_fields(got, want):
+    for name in ("draft_tokens", "accepted_tokens", "spec_rewinds",
+                 "preemptions"):
+        assert getattr(got["stats"], name) == getattr(want["stats"], name)
+    assert got["stats"].accept_lens == want["stats"].accept_lens
+
+
+@pytest.mark.parametrize("layout,k", [("dense", 1), ("dense", 4),
+                                      ("paged", 4)])
+def test_speculative_on_the_card_matches_cpu(cuda, layout, k):
+    """Speculative drafts of k tokens, verified in one ring pass, with
+    rewinds (the cloud's KV invalidated past each): the card equals the
+    CPU token for token, in its counters and in virtual time."""
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel
+    cpu, gpu, prompts = _paged_pair(cuda, seed=9)
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout=layout,
+                       speculative=True, spec_k=k)
+    runs = [ServingSystem(m, ccfg).generate(
+        prompts, 16, num_slots=3, tick_time_s=0.01,
+        channel=AsyncSimChannel(NetworkParams(), service_s=0.008))
+        for m in (cpu, gpu)]
+    _same_run(runs[1], runs[0])
+    _spec_fields(runs[1], runs[0])
+    assert runs[1]["stats"].draft_tokens > 0
+
+
+@pytest.mark.parametrize("pre,kv_dtype", [("recompute", "float32"),
+                                          ("swap", "float32"),
+                                          ("recompute", "int8"),
+                                          ("swap", "int8")])
+def test_preemption_on_the_card_matches_cpu(cuda, pre, kv_dtype):
+    """A pool too small for the streams' worst case (a natural preemption),
+    plus a forced schedule: the card preempts, swaps or re-prefills (int8 pages through
+    ``quantize_kv_scatter``) and resumes exactly as the CPU does, and its
+    pool and swap pool drain."""
+    cpu, gpu, prompts = _paged_pair(cuda, seed=10)
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout="paged",
+                       kv_dtype=kv_dtype, preemption=pre)
+    runs, systems = [], []
+    for m in (cpu, gpu):
+        system = ServingSystem(m, ccfg)
+        before = quantize_kv_scatter.launches
+        runs.append(system.generate(prompts, 16, num_slots=3, num_pages=6,
+                                    preempt_schedule=[(3, 0), (5, 1)]))
+        runs[-1]["scatters"] = quantize_kv_scatter.launches - before
+        systems.append(system)
+    _same_run(runs[1], runs[0])
+    _spec_fields(runs[1], runs[0])
+    assert runs[1]["pool_stats"] == runs[0]["pool_stats"]
+    assert (runs[1]["preemptions"], runs[1]["oops"]) == \
+        (runs[0]["preemptions"], runs[0]["oops"])
+    assert runs[1]["oops"] >= 1 and runs[1]["preemptions"] >= 3
+    sched = next(iter(systems[1]._schedulers.values()))
+    assert sched.pool.free_pages == sched.pool.num_pages
+    if pre == "swap":
+        cpu_swap = next(iter(systems[0]._schedulers.values())).swap.stats
+        assert sched.swap.stats == cpu_swap and len(sched.swap) == 0
+    if kv_dtype == "int8":
+        # one scatter per prefilled layer at each admission, and again at
+        # each recompute resume
+        assert runs[1]["scatters"] > 0
+        if pre == "recompute":
+            layers = PAGED_SMALL.n_layers + PAGED_SMALL.exit_layers[-1] \
+                - PAGED_SMALL.exit_layers[0]
+            assert runs[1]["scatters"] > len(prompts) * layers
+
+
+@pytest.mark.parametrize("pre", ["recompute", "swap"])
+def test_draft_inflight_preemption_batcher_on_the_card(cuda, pre):
+    """k = 4 drafts in flight when two single-slot engines behind one
+    ``CloudBatcher`` are preempted: the card equals the CPU, and every
+    cloud row comes back."""
+    from repro_torch.core.transport import ScriptedChannel
+    cpu, gpu, prompts = _paged_pair(cuda, seed=11)
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout="paged",
+                       speculative=True, spec_k=4, preemption=pre)
+    runs = []
+    for m in (cpu, gpu):
+        system = ServingSystem(m, ccfg)
+        runs.append(system.generate_multi(
+            prompts, 16, cloud_batch=True, tick_time_s=0.01,
+            channels=[ScriptedChannel([0.05], deadline_s=float("inf"))
+                      for _ in prompts],
+            preempt_schedules=[[(5, 0)], None, [(7, 0)], None]))
+        assert system.cloud.cm.cloud_slots_free() == len(prompts)
+    _same_run(runs[1], runs[0])
+    _spec_fields(runs[1], runs[0])
+    assert runs[1]["stats"].preemptions == 2
+    assert runs[1]["batcher"] == {**runs[0]["batcher"], "cloud_time_s":
+                                  runs[1]["batcher"]["cloud_time_s"]}
+
+
+def test_paged_rewind_with_unmapped_entries_on_the_card(cuda):
+    """``invalidate_rows_after`` on paged pools scatters each row's cut
+    through its block table; unmapped entries all land on the trash page
+    (duplicate indices, in no fixed order on CUDA), which is harmless only
+    because its markers stay -1.  On the card: exactly the markers at or
+    past each row's cut are -1, nothing else moved, the trash page stays
+    invalid, and the result equals the CPU's."""
+    from repro_torch.core.collm import CoLLM
+    ps, n_pages = 16, 8
+    tbl = np.array([[1, 2, -1, -1], [3, -1, -1, -1], [4, 5, 6, -1],
+                    [-1, -1, -1, -1]], np.int32)
+    cut = np.array([20, 2**31 - 1, 35, 3], np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        model = build_model(PAGED_SMALL, device=dev, seed=12)
+        co = CoLLM(model, CollmConfig(kv_layout="paged"))
+        caches = co.init_cloud_cache_paged(4, n_pages, ps)
+        for layers in caches.values():
+            for c in layers:
+                pos = c["self"]["pos"]
+                for row in tbl:
+                    for lp, page in enumerate(row):
+                        if page >= 0:
+                            pos[page] = torch.arange(lp * ps, (lp + 1) * ps)
+        co.invalidate_rows_after(caches, cut, torch.as_tensor(tbl,
+                                                              device=dev))
+        out[str(dev)] = [c["self"]["pos"].cpu() for layers in caches.values()
+                         for c in layers]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(got, want)
+        assert (got[0] == -1).all() and (got[7:] == -1).all()
+        for r, row in enumerate(tbl):
+            for lp, page in enumerate(row):
+                if page >= 0:
+                    p = torch.arange(lp * ps, (lp + 1) * ps)
+                    assert torch.equal(got[page],
+                                       torch.where(p >= int(cut[r]), -1, p))
+
+
+def test_int8_swap_roundtrip_on_the_card_is_byte_exact(cuda):
+    """An int8 slot written on the card (``quantize_kv_scatter``), swapped
+    to host memory, its pages freed and reset, and written back into other
+    pages: every byte of int8 data, float32 scales and markers comes back
+    as it was."""
+    from repro_torch.core.paging import PagePool, SwapPool
+    from repro_torch.models.attention import (init_paged_attn_cache,
+                                              paged_reset_pages,
+                                              paged_scatter_prefill)
+    from repro_torch.serving.cloud_batcher import (gather_slot_pages,
+                                                   rebind_slot_pages,
+                                                   snapshot_to_device,
+                                                   _write_pages_tree)
+    ps, num_pages, n = 16, 10, 70
+    pool = PagePool(num_pages, ps, 2, 6)
+    cache = {0: [{"self": init_paged_attn_cache(
+        PAGED_SMALL, num_pages, ps, device=cuda, kv_dtype="int8")}]}
+    node = cache[0][0]["self"]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kvh, hd = PAGED_SMALL.n_kv_heads, PAGED_SMALL.resolved_head_dim
+    row = {"k": 2 * torch.randn((1, 80, kvh, hd), generator=gen,
+                                device=cuda),
+           "v": 2 * torch.randn((1, 80, kvh, hd), generator=gen,
+                                device=cuda),
+           "pos": torch.where(torch.arange(80, device=cuda) < n,
+                              torch.arange(80, device=cuda), -1
+                              ).to(torch.int32)[None]}
+    pool.alloc(1, 0)                       # another stream holds page 1
+    pages = [pool.alloc(0, lp) for lp in range(5)]
+    before = quantize_kv_scatter.launches
+    paged_scatter_prefill(node, row, pages)
+    assert quantize_kv_scatter.launches == before + 1
+    logical, snap = gather_slot_pages(pool, 0, cache)
+    assert snap[0][0]["self"]["kp"].device.type == "cpu"
+    swap = SwapPool()
+    swap.put(0, {"logical": logical, "trees": snap})
+    paged_reset_pages(node, pool.free_slot(0))
+    pool.alloc(1, 1)                       # the freed pages move around
+    got = swap.take(0)
+    padded = rebind_slot_pages(pool, 0, got["logical"])
+    assert set(padded.tolist()) != set(pages)
+    _write_pages_tree(cache, padded, snapshot_to_device(got["trees"], cuda))
+    _, again = gather_slot_pages(pool, 0, cache)
+    for key, leaf in snap[0][0]["self"].items():
+        assert torch.equal(again[0][0]["self"][key], leaf), key
+    assert swap.stats.bytes_out == swap.stats.bytes_in > 0

@@ -14,7 +14,9 @@ case holds the tokens, every ``GenStats`` counter and virtual-time list,
 ``virtual_time``, ``late_drops``, ``channel_stats``, the shared service
 point's ``batches`` / ``busy_s`` and the ``batcher`` row (all but its host
 ``cloud_time_s``) equal to JAX's.  The batcher's methods that serve
-features not ported yet raise, naming their ROADMAP item.
+features not ported yet raise, naming their ROADMAP item; those of draft
+verification and preemption run (``tests/test_torch_spec.py`` and
+``tests/test_torch_preemption.py`` hold them against JAX).
 """
 import dataclasses
 import re
@@ -36,6 +38,7 @@ from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
 from repro_torch.core import transport as ttransport  # noqa: E402
 from repro_torch.core.collm import CollmConfig  # noqa: E402
 from repro_torch.core.netsim import NetworkParams  # noqa: E402
+from repro_torch.core.paging import pages_needed  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.cloud_batcher import CloudBatcher  # noqa: E402
 from repro_torch.serving.engine import GenStats, ServingSystem  # noqa: E402
@@ -172,9 +175,7 @@ def test_batched_equals_fifo_and_beats_it_in_virtual_time(pair, jax_runs):
 
 
 UNPORTED = {"prefix_hit": "A.5", "admit_begin": "A.5", "admit_chunk": "A.5",
-            "pages_filled": "A.5", "submit_draft": "A.3",
-            "invalidate": "A.3", "restore": "A.4", "swap_out": "A.4",
-            "swap_in": "A.4"}
+            "pages_filled": "A.5"}
 
 
 @pytest.mark.parametrize("method", sorted(UNPORTED))
@@ -187,7 +188,6 @@ def test_unported_batcher_methods_raise(pair, method):
 
 
 @pytest.mark.parametrize("name,kw,item", [
-    ("preempt_schedules", dict(preempt_schedules=[[(1, 0)], None]), "A.4"),
     ("arrivals", dict(arrivals=[0.0, 0.1]), "A.6"),
     ("slo", dict(slo_tpot_s=0.05), "A.6")])
 def test_generate_multi_refuses_unported_options(pair, name, kw, item):
@@ -195,3 +195,66 @@ def test_generate_multi_refuses_unported_options(pair, name, kw, item):
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"{name}: ROADMAP {item}")):
         tsys.generate_multi(pair[3][:2], 4, **kw)
+
+
+@pytest.mark.parametrize("method", ["submit_draft", "invalidate", "restore",
+                                    "swap_out", "swap_in"])
+@torch.no_grad()
+def test_batcher_draft_and_swap_methods_run(pair, method):
+    """The five batcher methods refused before drafting and preemption
+    were ported now run on a paged pool, each moving its counter."""
+    tsys = ServingSystem(pair[2], CollmConfig(kv_layout="paged"))
+    cm, collm = tsys.cloud.cm, tsys.collm
+    batcher = CloudBatcher(collm, cm, 2, 32)
+    prompt = torch.as_tensor(pair[3][0][None, :], dtype=torch.long)
+    p_len = prompt.shape[1]
+    _, h1, _ = collm.edge_prefill({"tokens": prompt},
+                                  collm.init_edge_cache(1, p_len))
+    batcher.admit("edge-0", h1, p_len, p_len + 8)
+    pkts = [(p, ttransport.StatePacket(hidden=ttransport.quantize(
+        h1[:, i:i + 1], "float16"))) for i, p in enumerate(
+        (p_len, p_len + 1))]
+    slot = cm.cloud_slot("edge-0")
+    valid = lambda: sum(int((c["self"]["pos"] >= 0).sum())  # noqa: E731
+                        for layers in batcher.caches.values()
+                        for c in layers)
+    if method == "submit_draft":
+        group, row, packets = batcher.submit_draft("edge-0", pkts)
+        assert (row, packets) == (slot, pkts)
+        assert batcher.stats.requests == 1
+        batcher.flush()
+        assert group["all"].shape[:2] == (2, 2)       # (depth, rows)
+        assert batcher.stats.steps == 1
+    elif method == "invalidate":
+        before = valid()
+        batcher.invalidate("edge-0", 4)
+        # 4 of the prompt's positions stay valid, in every cloud layer
+        n_layers = sum(len(layers) for layers in batcher.caches.values())
+        assert valid() == 4 * n_layers < before
+    elif method == "restore":
+        batcher.restore("edge-0", pkts)
+        assert batcher.stats.restores == 1
+        assert batcher.pool.owned_pages(slot) == pages_needed(p_len + 2, 16)
+    else:
+        snap = batcher.swap_out("edge-0")
+        assert batcher.stats.swaps == 1
+        assert cm.cloud_slot("edge-0") is None
+        assert batcher.pool.free_pages == batcher.pool.num_pages
+        if method == "swap_in":
+            before = valid()
+            batcher.swap_in("edge-0", snap)
+            assert batcher.pool.owned_pages(cm.cloud_slot("edge-0")) == \
+                len(snap["logical"])
+            assert valid() > before == 0
+
+
+def test_generate_multi_preempt_schedules_run(pair):
+    """``preempt_schedules`` (refused before preemption was ported) runs:
+    the scheduled engine is preempted once and resumes to the same
+    streams."""
+    ccfg = CollmConfig(theta=0.2, kv_layout="paged", preemption="recompute")
+    base = ServingSystem(pair[2], ccfg).generate_multi(pair[3][:2], 6)
+    r = ServingSystem(pair[2], ccfg).generate_multi(
+        pair[3][:2], 6, preempt_schedules=[[(2, 0)], None])
+    assert r["stats"].preemptions == 1 and base["stats"].preemptions == 0
+    assert r["tokens"] == base["tokens"]
