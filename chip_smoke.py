@@ -11,10 +11,11 @@ exit code and no result line:
    source, all at once) with ptxas' registers, shared memory and spills;
 2. each kernel against its plain PyTorch version on CUDA tensors at the
    shapes of the ee-llm-7b decode path (the ring decode attention at B=1
-   and B=8, the paged one at 8 slots and at B=1, float32, bfloat16 and int8
-   pages; the wire quantizer at 1 and 8 rows; the int8 page writes, a
-   decode step at 8 slots and at B=1 and a 512-token prefill scatter, every
-   pool byte, beside PR 13's torch sequence for the same write), with its
+   and B=8, the paged one at 8 slots, at B=1 and as a 16-token prefill
+   chunk, float32, bfloat16 and int8 pages; the wire quantizer at 1 and 8 rows; the int8 page writes, a
+   decode step at 8 slots and at B=1, a 16-token prefill chunk and a
+   512-token prefill scatter, every pool byte, beside the torch sequence
+   the write kernels replaced), with its
    device time (CUDA
    events), the plain version's, one PyTorch library call's where one
    computes the same function, and the bound (bytes over 3.35 TB/s or
@@ -26,8 +27,10 @@ exit code and no result line:
    behind one batched cloud (equal to N engines with a cloud each), with
    speculative drafts of 1 and 4 tokens (dense and paged, and under
    deadline misses), under recompute and swap preemption (float32 and int8
-   pages), and with drafts in flight across preemptions behind the batched
-   cloud;
+   pages), with drafts in flight across preemptions behind the batched
+   cloud, and through chunked prefill with prefix sharing (float32 and
+   int8 pages, a second wave, swap preemption with cache eviction, behind
+   the batched cloud), open-loop arrivals with SLOs and adaptive control;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -58,7 +61,18 @@ exit code and no result line:
    preemption behind one ``CloudBatcher``, two of them preempted by
    schedule; streams are compared with phase 4's paged run and phase 5
    (a), and reported, not asserted;
-7. the kernel table as one JSON line (launches: phases 3 to 6), the
+7. chunked prefill, prefix sharing and fleet replay on the same model
+   with the launch counters set to 0 before and read after: 12 prompts
+   behind one 240-token system prompt plus copies of two of them, 8 slots,
+   paged KV: (a) chunked prefill on bf16 pages (against the monolithic
+   run), (b) with prefix sharing (must equal (a)), (c) and (d) the same
+   on int8 pages (each chunk's int8 write one ``quantize_kv_write`` launch
+   a layer), (e) a second wave of three prompts (terminal hits only), (f)
+   sharing with swap preemption and cache eviction in a small pool, (g) 4
+   engines sharing behind one ``CloudBatcher``, (h) Poisson arrivals at 20
+   a second with SLO targets on phase 5 (a)'s channel and (i) the same
+   with adaptive control;
+8. the kernel table as one JSON line (launches: phases 3 to 7), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
@@ -72,6 +86,7 @@ fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import subprocess
@@ -92,6 +107,10 @@ ENGINES = 8                                     # phase 5 (e), (f)
 SPEC_ENGINES, SPEC_K = 4, 4                     # phase 6
 PREEMPT_PAGES, WATERMARK = 140, 4               # phase 6 (e), (f)
 PREEMPT_SCHEDULE = [(4, 0), (12, 1)]            # (tick, slot)
+SHARED_PROMPTS, SHARED_PREFIX = 12, 240         # phase 7: 15 full pages
+OWN_TOKENS = (16, 200)                          # phase 7: each prompt's own
+SHARED_MAX_SEQ = 512                            # phase 7: one scheduler
+SHARED_ENGINES, SWAP_PAGES = 4, 110             # phase 7 (g), (f)
 KNEE_NET = dict(up_bw=3.8e6, down_bw=8e6, rtt=0.003)  # a WiFi-class link
 FILLS = (128, 552)                      # phase 2 paged fills, keys a row
 MAX_SEQ = PROMPT_LEN + MAX_NEW + 8      # generate_sequential's ring size
@@ -283,20 +302,23 @@ def check_decode_attn(dev, gen) -> dict:
     return row
 
 
-def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS):
+def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS,
+                 chunk=False):
     """Float32 K/V pages at ee-llm-7b's head shape (H = KV = 32, d = 128,
     16-token pages) and, for each of ``sets`` tables, (q, pos, tbl, cur)
     of ``b`` rows with ragged fills of 128-552 keys, pages handed out in
     shuffled order.  ``holes`` leaves one row's second table entry
     unmapped, punches never-written positions into the pages and maps
-    nothing for the last row (output 0).  The tables map disjoint pages of
-    one pool, so that timed calls in turn find their pages outside the L2
-    cache."""
+    nothing for the last row (output 0).  ``chunk``: the ``b`` rows are one
+    stream's prefill chunk as ``chunk_attention_paged`` issues it, its
+    last ``b`` tokens (cur = fill - b, ..., fill - 1) over one table.  The
+    tables map disjoint pages of one pool, so that timed calls in turn
+    find their pages outside the L2 cache."""
     h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
     ps = PAGE_SIZE
     n_lp = -(-FILLS[1] // ps)
-    fills = torch.randint(FILLS[0], FILLS[1] + 1, (sets, b), generator=gen,
-                          device=dev).tolist()
+    fills = torch.randint(FILLS[0], FILLS[1] + 1, (sets, 1 if chunk else b),
+                          generator=gen, device=dev).tolist()
     n_pages = 1 + sum(-(-f // ps) for row in fills for f in row)
     kp = torch.randn((n_pages, ps, kv, d), generator=gen, device=dev)
     vp = torch.randn((n_pages, ps, kv, d), generator=gen, device=dev)
@@ -305,7 +327,8 @@ def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS):
                                 device=dev)).tolist()
     out = []
     for row_fills in fills:
-        tbl = torch.full((b, n_lp), -1, dtype=torch.int32, device=dev)
+        tbl = torch.full((len(row_fills), n_lp), -1, dtype=torch.int32,
+                         device=dev)
         cur = torch.tensor([f - 1 for f in row_fills], dtype=torch.int32,
                            device=dev)
         for bi, fill in enumerate(row_fills):
@@ -314,6 +337,10 @@ def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS):
                 tbl[bi, lp] = pg
                 n = min(ps, fill - lp * ps)
                 pos[pg, :n] = torch.arange(lp * ps, lp * ps + n, device=dev)
+        if chunk:
+            tbl = tbl[:1].expand(b, n_lp).contiguous()
+            cur = row_fills[0] - b + torch.arange(b, dtype=torch.int32,
+                                                  device=dev)
         if holes:
             tbl[0, 1] = -1
             tbl[-1] = -1
@@ -336,20 +363,26 @@ def paged_pool(kp, vp, dtype, int8: bool) -> dict:
 
 
 def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
-    """Bytes the call must move: the K/V (and int8 scales) of its valid
-    keys, the position markers of its mapped pages, the table, cur, q and
-    out; operations: 4 per (head, valid key, element)."""
+    """Bytes the call must move: the K/V (and int8 scales) of the keys
+    valid for some row, each once (a chunk's rows share their keys), the
+    position markers of its mapped pages, the table, cur, q and out;
+    operations: 4 per (head, row, key valid for the row, element)."""
     h, d = q.shape[1], q.shape[2]
     kv, ps = pool["kp"].shape[2], pool["kp"].shape[1]
     pages = torch.unique(tbl[tbl >= 0]).long()
     rows = torch.nonzero(tbl >= 0)
     p = pos[tbl[rows[:, 0], rows[:, 1]].long()]          # (mapped, ps)
     c = cur[rows[:, 0]][:, None]
-    n_valid = int(((p >= 0) & (p <= c)).sum())
+    valid = (p >= 0) & (p <= c)
+    n_valid = int(valid.sum())
+    # a key is read once however many rows attend to it
+    ids = (tbl[rows[:, 0], rows[:, 1]].long()[:, None] * ps
+           + torch.arange(ps, device=p.device))[valid]
+    n_keys = int(torch.unique(ids).numel())
     per_key = 2 * kv * d * pool["kp"].element_size()
     if "k_scale" in pool:
         per_key += 2 * kv * 4
-    nbytes = (n_valid * per_key + pages.numel() * ps * 4 + tbl.numel() * 4
+    nbytes = (n_keys * per_key + pages.numel() * ps * 4 + tbl.numel() * 4
               + cur.numel() * 4 + 2 * q.numel() * q.element_size())
     return nbytes, 4 * h * n_valid * d
 
@@ -359,7 +392,7 @@ PAGED_VARIANTS = (("decode_attn_paged", False, ((torch.float32, 2e-5),
                   ("decode_attn_paged_int8", True, ((torch.bfloat16, 2e-2),)))
 
 
-def time_paged(b, n_sets, dev, gen) -> dict:
+def time_paged(b, n_sets, dev, gen, chunk=False) -> dict:
     """Device time of both paged variants at ``b`` rows, bf16 q, on
     ``n_sets`` tables over disjoint pages of one pool (more than the 50 MB
     L2 in all) called in turn, beside the plain version and paged_gather +
@@ -369,7 +402,8 @@ def time_paged(b, n_sets, dev, gen) -> dict:
     from repro_torch.kernels.decode_attn.ops import decode_attn_paged
     from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
     from repro_torch.models.attention import paged_gather
-    kp, vp, sets = paged_inputs(torch.bfloat16, dev, gen, sets=n_sets, b=b)
+    kp, vp, sets = paged_inputs(torch.bfloat16, dev, gen, sets=n_sets, b=b,
+                                chunk=chunk)
     h, d = CFG.n_heads, CFG.resolved_head_dim
     out = {}
     for name, int8, _ in PAGED_VARIANTS:
@@ -408,8 +442,9 @@ def time_paged(b, n_sets, dev, gen) -> dict:
 def check_decode_attn_paged(dev, gen) -> list:
     """Both paged variants against their plain version: 8 slots with
     ragged fills, with holes, gaps and a row with nothing mapped, with a
-    single mapped page a row, and one row (its pages cut in splits).  Timed
-    at 8 slots (the batched engine) and at B=1."""
+    single mapped page a row, one row (its pages cut in splits), and a
+    16-token prefill chunk (16 rows over one table, phase 7).  Timed at 8
+    slots (the batched engine), at B=1 and as the chunk."""
     from repro_torch.kernels.decode_attn.ops import decode_attn_paged
     from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
     errs = {}
@@ -419,9 +454,11 @@ def check_decode_attn_paged(dev, gen) -> list:
             for label, b, holes in (("", SLOTS, False),
                                     (" holes+gaps+empty row", SLOTS, True),
                                     (" one page a row", SLOTS, False),
-                                    ("", 1, False)):
+                                    ("", 1, False),
+                                    (" a 16-token chunk", PAGE_SIZE, False)):
                 kp, vp, [(q, pos, tbl, cur)] = paged_inputs(
-                    dtype, dev, gen, holes=holes, b=b)
+                    dtype, dev, gen, holes=holes, b=b,
+                    chunk=label == " a 16-token chunk")
                 if label == " one page a row":
                     tbl[:, 1:] = -1
                 pool = paged_pool(kp, vp, dtype, int8)
@@ -440,11 +477,13 @@ def check_decode_attn_paged(dev, gen) -> list:
                 check(e <= tol, f"{name} disagrees with its plain version")
                 err = max(err, e)
         errs[name] = err
-    # 8 slots: 4 tables over one pool of > 50 MB; B=1: 12 tables
+    # 8 slots: 4 tables over one pool of > 50 MB; B=1 and the chunk: 12
     t8, t1 = time_paged(SLOTS, 4, dev, gen), time_paged(1, 12, dev, gen)
+    tc = time_paged(PAGE_SIZE, 12, dev, gen, chunk=True)
     return [dict(name=name, source="src/repro_torch/csrc/decode_attn_paged.cu",
                  replaces="src/repro/kernels/decode_attn/kernel.py:236",
-                 max_abs_err=errs[name], **t8[name], b1=t1[name])
+                 max_abs_err=errs[name], **t8[name], b1=t1[name],
+                 chunk=tc[name])
             for name, _, _ in PAGED_VARIANTS]
 
 
@@ -614,6 +653,25 @@ def write_inputs(b, dtype, dev, gen, *, masked=False):
     return pool, (knew, vnew, pos, tbl, mask)
 
 
+def chunk_write_inputs(dtype, dev, gen):
+    """A final prefill chunk's int8 page write as ``chunk_attention_paged``
+    issues it: one stream's 16 tokens at positions 432-447 (11 real, the 5
+    pads masked out) as 16 rows that share its table row of 35 pages."""
+    from repro_torch.models.attention import chunk_rows
+    kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
+    n_lp = -(-FILLS[1] // PAGE_SIZE)
+    pool = kv_pool(1 + n_lp, dev, gen)
+    tbl = (1 + torch.randperm(n_lp, generator=gen, device=dev)).view(
+        1, n_lp).int()
+    pos = torch.tensor([432], dtype=torch.int32, device=dev)
+    mask = (torch.arange(PAGE_SIZE, device=dev) < 11)[None]
+    knew = (torch.randn((PAGE_SIZE, kv, d), generator=gen, device=dev)
+            * 4).to(dtype)
+    vnew = (torch.randn((PAGE_SIZE, kv, d), generator=gen, device=dev)
+            * 4).to(dtype)
+    return pool, (knew, vnew, *chunk_rows(pos, tbl, mask, PAGE_SIZE))
+
+
 def scatter_inputs(length, n_real, pages, dtype, dev, gen):
     """A prefilled row of ``length`` ring slots (positions 0..n_real-1,
     then -1) over ``pages`` (ids; < 0 the trash page) of a fresh pool."""
@@ -682,22 +740,26 @@ def time_page_write(name, op, ref, pool, args, nbytes, nelem) -> dict:
 def check_kv_write(dev, gen) -> dict:
     """``quantize_kv_write`` against its plain version and against PR 13's
     sequence, every pool byte outside page 0's codes and scales, at 8
-    slots (with and without a mask, bf16 and f32) and at B=1; timed at 8
-    slots and at B=1 (bf16)."""
+    slots (with and without a mask, bf16 and f32), at B=1, and as a
+    16-token prefill chunk's write (phase 7's int8 chunks); timed at 8
+    slots, at B=1 and as the chunk (bf16)."""
     from repro_torch.kernels.quantize.ops import (quantize_int8,
                                                   quantize_kv_write)
     from repro_torch.kernels.quantize.ref import quantize_kv_write_ref
     err = 0.0
     for b, dtype, masked in ((SLOTS, torch.bfloat16, True),
                              (SLOTS, torch.float32, False),
-                             (1, torch.bfloat16, False)):
-        pool, args = write_inputs(b, dtype, dev, gen, masked=masked)
+                             (1, torch.bfloat16, False),
+                             (0, torch.bfloat16, True)):
+        pool, args = (write_inputs(b, dtype, dev, gen, masked=masked)
+                      if b else chunk_write_inputs(dtype, dev, gen))
         want = quantize_kv_write_ref(clone_pool(pool), *args)
         old = quantize_kv_write_ref(clone_pool(pool), *args,
                                     quantize=quantize_int8)
         got = quantize_kv_write(pool, *args)
         e, e_old = pool_err(got, want), pool_err(old, want)
-        print(f"quantize_kv_write {str(dtype)[6:]} B={b}"
+        print(f"quantize_kv_write {str(dtype)[6:]} "
+              f"{f'B={b}' if b else 'a 16-token chunk'}"
               f"{' masked' if masked else ''}: pool max|err|={e:.3g} vs "
               f"plain, PR-13 sequence {e_old:.3g} (exact)")
         check(e == 0 and e_old == 0,
@@ -705,17 +767,21 @@ def check_kv_write(dev, gen) -> dict:
         err = max(err, e)
     kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
     out = {}
-    for b in (SLOTS, 1):
-        pool, args = write_inputs(b, torch.bfloat16, dev, gen)
-        nelem = 2 * b * kv * d
-        nbytes = nelem * 2 + 8 * b + nelem + 2 * b * kv * 4 + 4 * b
-        out[b] = time_page_write(f"quantize_kv_write (B={b})",
-                                 quantize_kv_write, quantize_kv_write_ref,
-                                 pool, args, nbytes, nelem)
+    for b in (SLOTS, 1, 0):
+        pool, args = (write_inputs(b, torch.bfloat16, dev, gen) if b
+                      else chunk_write_inputs(torch.bfloat16, dev, gen))
+        rows = b or PAGE_SIZE
+        nelem = 2 * rows * kv * d
+        nbytes = (nelem * 2 + 8 * rows + nelem + 2 * rows * kv * 4
+                  + 4 * rows)
+        out[b] = time_page_write(
+            f"quantize_kv_write ({f'B={b}' if b else 'a 16-token chunk'})",
+            quantize_kv_write, quantize_kv_write_ref, pool, args, nbytes,
+            nelem)
     return dict(name="quantize_kv_write",
                 source="src/repro_torch/csrc/quantize.cu",
                 replaces="src/repro/kernels/quantize/kernel.py:31",
-                max_abs_err=err, **out[SLOTS], b1=out[1])
+                max_abs_err=err, **out[SLOTS], b1=out[1], chunk=out[0])
 
 
 def check_kv_scatter(dev, gen) -> dict:
@@ -840,6 +906,7 @@ def check_small_model(dev) -> None:
               f"the card differs from the CPU's")
     check_small_adaptive(cpu, gpu, prompts, theta)
     check_small_spec_preempt(cpu, gpu, prompts, theta)
+    check_small_prefix_fleet(cpu, gpu, theta)
 
 
 def same_run(a, b) -> bool:
@@ -987,6 +1054,106 @@ def check_small_spec_preempt(cpu, gpu, prompts, theta) -> None:
           f"drafts {st.draft_tokens}, batcher swaps {row['swaps']})")
     check(ok and st.preemptions == 2 and st.draft_tokens > 0,
           "small model drafts across preemptions: the card differs")
+
+
+PREFIX_FIELDS = ("prefix_hit_tokens", "cow_copies", "prefill_chunks",
+                 "slo_total", "slo_met")
+
+
+def same_prefix_run(a, b) -> bool:
+    """``same_spec_run`` plus the prefix and SLO counters, the virtual
+    time to first token and inter-token gaps, and the adaptive row."""
+    return (same_spec_run(a, b)
+            and all(getattr(a["stats"], f) == getattr(b["stats"], f)
+                    for f in PREFIX_FIELDS)
+            and a["stats"].ttft_s == b["stats"].ttft_s
+            and a["stats"].token_lat_s == b["stats"].token_lat_s
+            and a.get("adaptive") == b.get("adaptive"))
+
+
+def shared_prompts(n, prefix, lo, hi, vocab, seed):
+    """``n`` prompts behind one common ``prefix``-token system prompt,
+    each with ``lo``-``hi`` tokens of its own, then exact copies of the
+    first two (``n + 2`` in all)."""
+    rng = np.random.default_rng(seed)
+    pre = rng.integers(0, vocab, prefix)
+    prompts = [np.concatenate([pre, rng.integers(0, vocab,
+                                                 rng.integers(lo, hi + 1))])
+               for _ in range(n)]
+    return prompts + [prompts[0].copy(), prompts[1].copy()]
+
+
+def check_small_prefix_fleet(cpu, gpu, theta) -> None:
+    """Phase 7's paths on the small model: chunked prefill, prefix sharing
+    (float32 and int8 pages), a second wave of terminal hits, sharing with
+    swap preemption and cache eviction in a small pool, sharing behind
+    the ``CloudBatcher``, open-loop arrivals with SLOs, and adaptive
+    control; the card (kernels) equals the CPU (plain versions) in each,
+    and each path moves its counter."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel
+    from repro_torch.core.workload import ArrivalProcess, arrival_times
+    from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
+    from repro_torch.serving.engine import ServingSystem
+    prompts = shared_prompts(6, 40, 3, 20, 500, 7)
+    arr = arrival_times(ArrivalProcess(rate=20.0), len(prompts), seed=0)
+    chunked = dict(kv_layout="paged", chunked_prefill=True)
+    share = dict(chunked, prefix_share=True)
+    sim = dict(tick_time_s=0.01, arrivals=arr, slo_ttft_s=0.5,
+               slo_tpot_s=0.05)
+    cases = {
+        "chunked": (chunked, {}, "prefill_chunks"),
+        "shared": (share, {}, "prefix_hit_tokens"),
+        "shared int8": (dict(share, kv_dtype="int8"), {},
+                        "prefix_hit_tokens"),
+        "shared, swap in 9 pages": (dict(share, preemption="swap"),
+                                    dict(num_pages=9), "prefix_evictions"),
+        "arrivals + SLOs": (chunked, sim, "slo_total"),
+        "adaptive, swap": (dict(chunked, preemption="swap"),
+                           dict(sim, adaptive=AdaptiveConfig(),
+                                resume_cost=ResumeCostModel()),
+                           "slo_total")}
+    for name, (ckw, kw, counter) in cases.items():
+        runs, systems = [], []
+        for m in (cpu, gpu):
+            call = dict(kw)
+            if "arrivals" in call:
+                call["channel"] = AsyncSimChannel(NetworkParams(),
+                                                  service_s=0.008)
+            systems.append(ServingSystem(m, CollmConfig(theta=theta, **ckw)))
+            runs.append(systems[-1].generate(prompts, 16, num_slots=3,
+                                             **call))
+        if name == "shared":
+            # a second wave through the same systems: terminal hits only
+            for sysm, r in zip(systems, runs):
+                r["wave2"] = sysm.generate(prompts[:3], 16, num_slots=3)
+        st = runs[1]["stats"]
+        moved = (runs[1]["pool_stats"][counter] if counter ==
+                 "prefix_evictions" else getattr(st, counter))
+        ok = same_prefix_run(*runs)
+        print(f"small model {name}: card == CPU: {ok} (chunks "
+              f"{st.prefill_chunks}, prefix hits {st.prefix_hit_tokens}, "
+              f"cow {st.cow_copies}, {counter} {moved}, slo "
+              f"{st.slo_met}/{st.slo_total}, adaptive "
+              f"{runs[1].get('adaptive')})")
+        check(ok and moved > 0, f"small model {name}: the card differs "
+              f"from the CPU, or the path did not run")
+        if name == "shared":
+            w = [r["wave2"] for r in runs]
+            check(same_prefix_run(*w) and w[1]["stats"].prefill_chunks == 0
+                  and w[1]["tokens"] == runs[1]["tokens"][:3],
+                  "small model second wave: not all terminal hits")
+    multi = [ServingSystem(m, CollmConfig(theta=theta, **share))
+             .generate_multi(prompts, 16, n_engines=4) for m in (cpu, gpu)]
+    row = multi[1]["batcher"]
+    ok = (same_prefix_run(*multi)
+          and row == {**multi[0]["batcher"],
+                      "cloud_time_s": row["cloud_time_s"]})
+    print(f"small model shared behind the batcher: card == CPU: {ok} "
+          f"(batcher {row})")
+    check(ok and row["prefix_hit_tokens"] > 0,
+          "small model sharing behind the batcher: the card differs")
 
 
 def print_time(label, r) -> None:
@@ -1515,6 +1682,173 @@ def serve_phase6(model, theta, paged, async_a) -> None:
           "phase 6 (g): the batcher swapped nothing")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: ee-llm-7b with chunked prefill, prefix sharing and fleet replay
+# ---------------------------------------------------------------------------
+def phase7_prompts(vocab: int) -> list:
+    """12 prompts behind one 240-token system prompt (15 full pages), each
+    with 16-200 tokens of its own (seed 2), then copies of prompts 0 and
+    1: 14 in all."""
+    return shared_prompts(SHARED_PROMPTS, SHARED_PREFIX, *OWN_TOKENS, vocab,
+                          seed=2)
+
+
+def phase7_run(label, fn, sync) -> dict:
+    """Run ``fn`` (a ``generate`` or ``generate_multi``) between two
+    ``sync`` calls under a ``Meter``; print tokens/s, the chunk and
+    prefix counters, the pools, the wire bytes, the virtual time and the
+    time to first token, SLO attainment and the launches per kernel."""
+    ops = kernel_ops()
+    before = {n: op.launches for n, op in ops.items()}
+    with Meter() as meter:
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        dt = time.perf_counter() - t0
+    r["launched"] = {n: op.launches - before[n] for n, op in ops.items()}
+    r["pools"] = [dataclasses.asdict(p.stats) for p in meter.pools]
+    r["evictions"] = sum(p["prefix_evictions"] for p in r["pools"])
+    r["allocs"] = sum(p["allocs"] for p in r["pools"])
+    r["wall_s"] = dt
+    st = r["stats"]
+    check(all(len(t) == r["max_new"] for t in r["tokens"]),
+          f"{label}: a stream did not end at its max_new tokens")
+    slo = (f" ttft_p50={st.ttft_p(50):.6f}s ttft_p99={st.ttft_p(99):.6f}s "
+           f"tpot_p50={st.token_lat_p(50):.6f}s tpot_p99="
+           f"{st.token_lat_p(99):.6f}s slo={st.slo_met}/{st.slo_total}"
+           if st.slo_total else "")
+    print(f"phase7 {label:34s} tokens={st.tokens} tokens/s="
+          f"{st.tokens / dt:.2f} wall={dt:.2f}s exits_l1={st.exits_l1} "
+          f"exits_l2={st.exits_l2} cloud_requests={st.cloud_requests} "
+          f"prefill_chunks={st.prefill_chunks} prefix_hit_tokens="
+          f"{st.prefix_hit_tokens} cow_copies={st.cow_copies} "
+          f"upload_bytes={st.upload_bytes} allocs={r['allocs']} "
+          f"evictions={r['evictions']} preemptions={st.preemptions} "
+          f"virtual_t={r['virtual_time']:.6f}s{slo} "
+          f"adaptive={r.get('adaptive')} launches={r['launched']}"
+          + (f" batcher={r['batcher']}" if "batcher" in r else ""))
+    return r
+
+
+def serve_phase7(model, theta, max_new=MAX_NEW, slots=SLOTS,
+                 sync=torch.cuda.synchronize) -> dict:
+    """Phase 7 on ``model`` (paged KV, 16-token pages, float16 wire, the
+    split θ), phase 7's 14 prompts: (a) chunked prefill, bf16 pages,
+    against the monolithic paged run; (b) with prefix sharing, which must
+    equal (a); (c) and (d) the same on int8 pages, (d) == (c), every int8
+    chunk write one ``quantize_kv_write`` launch a paged layer; (e) a
+    second wave of prompts 0-2 through (b)'s system (all terminal hits);
+    (f) (b) with swap preemption in a pool small enough to evict cached
+    prefixes; (g) 4 engines sharing behind one ``CloudBatcher`` against
+    the unshared batched run (two prompts an engine: an engine maps only
+    pages its own cache holds); (h) open-loop Poisson
+    arrivals with SLOs on phase 5 (a)'s channel and configuration
+    (monolithic prefill), which must keep the closed-loop monolithic
+    streams; (i) (h) with adaptive control and swap preemption.  Returns
+    the runs."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.netsim import NetworkParams
+    from repro_torch.core.transport import AsyncSimChannel
+    from repro_torch.core.workload import ArrivalProcess, arrival_times
+    from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
+    from repro_torch.serving.engine import ServingSystem
+    prompts = phase7_prompts(model.cfg.vocab_size)
+
+    def mk(**kw):
+        return ServingSystem(model, CollmConfig(
+            theta=theta, page_size=PAGE_SIZE, kv_layout="paged",
+            wire_format="float16", **kw))
+
+    def gen(label, system, ps=prompts, **kw):
+        def fn():
+            r = system.generate(ps, max_new, num_slots=slots,
+                                max_seq=SHARED_MAX_SEQ, **kw)
+            r["max_new"] = max_new
+            return r
+        r = phase7_run(label, fn, sync)
+        sched = next(iter(system._schedulers.values()))
+        r["paged_layers"] = sum(len(layers) for tree in sched._trees()
+                                for layers in tree.values())
+        check(not sched._preempted, f"{label}: a stream stays preempted")
+        return r
+
+    def multi(label, system):
+        def fn():
+            r = system.generate_multi(prompts[:2 * SHARED_ENGINES], max_new,
+                                      n_engines=SHARED_ENGINES,
+                                      max_seq=SHARED_MAX_SEQ)
+            r["max_new"] = max_new
+            return r
+        return phase7_run(label, fn, sync)
+
+    chunked = dict(chunked_prefill=True)
+    share = dict(chunked, prefix_share=True)
+    runs = {"mono": gen("monolithic, bf16", mk())}
+    runs["a"] = gen("(a) chunked, bf16", mk(**chunked))
+    sys_b = mk(**share)
+    runs["b"] = gen("(b) chunked + shared, bf16", sys_b)
+    runs["c"] = gen("(c) chunked, int8", mk(**chunked, kv_dtype="int8"))
+    runs["d"] = gen("(d) chunked + shared, int8",
+                    mk(**share, kv_dtype="int8"))
+    runs["e"] = gen("(e) second wave of prompts 0-2", sys_b, ps=prompts[:3])
+    del sys_b
+    runs["f"] = gen(f"(f) shared, swap, {SWAP_PAGES} pages",
+                    mk(**share, preemption="swap"), num_pages=SWAP_PAGES)
+    runs["g_un"] = multi(f"(g) {SHARED_ENGINES} engines, chunked",
+                         mk(**chunked))
+    runs["g"] = multi(f"(g) {SHARED_ENGINES} engines, shared", mk(**share))
+    arrivals = arrival_times(ArrivalProcess(rate=20.0), len(prompts),
+                             seed=0)
+    fleet = dict(arrivals=arrivals, slo_ttft_s=0.5, slo_tpot_s=0.05,
+                 tick_time_s=0.01)
+
+    def sim():
+        return AsyncSimChannel(NetworkParams(), service_s=0.008)
+    runs["h"] = gen("(h) open loop, 20/s, SLOs", mk(), channel=sim(),
+                    **fleet)
+    runs["i"] = gen("(i) (h) + adaptive, swap", mk(preemption="swap"),
+                    channel=sim(), adaptive=AdaptiveConfig(),
+                    resume_cost=ResumeCostModel(), **fleet)
+    a, b, c, d = runs["a"], runs["b"], runs["c"], runs["d"]
+    print(f"phase 7 (a) chunked vs monolithic paged: "
+          f"{agreement(a['tokens'], runs['mono']['tokens'])}")
+    sa, sb = a["stats"], b["stats"]
+    check(b["tokens"] == a["tokens"] and sb.prefix_hit_tokens > 0
+          and sb.cow_copies >= 1 and sb.prefill_chunks < sa.prefill_chunks
+          and b["allocs"] < a["allocs"]
+          and sb.upload_bytes < sa.upload_bytes,
+          "phase 7 (b): sharing changed a stream, or moved no counter")
+    check(d["tokens"] == c["tokens"] and d["stats"].prefix_hit_tokens > 0,
+          "phase 7 (d): int8 sharing changed a stream")
+    for key in "cd":
+        # a chunk's layer is one int8 write and one attention launch, as a
+        # decode step's is; nothing is scattered
+        r = runs[key]
+        lc = r["launched"]
+        check(lc["quantize_kv_write"] == lc["decode_attn_paged_int8"]
+              >= r["stats"].prefill_chunks * r["paged_layers"]
+              and lc["quantize_kv_scatter"] == 0,
+              f"phase 7 ({key}): int8 writes {lc} are not one launch an "
+              f"attention call, or fewer than one a chunk and paged layer")
+    e = runs["e"]
+    check(e["stats"].prefill_chunks == 0 and e["tokens"] == b["tokens"][:3]
+          and e["stats"].prefix_hit_tokens == sum(len(p)
+                                                  for p in prompts[:3]),
+          "phase 7 (e): the second wave computed a chunk or changed")
+    check(runs["f"]["tokens"] == b["tokens"] and runs["f"]["evictions"] >= 1,
+          "phase 7 (f): no eviction, or the streams changed")
+    g, g_un = runs["g"], runs["g_un"]
+    check(g["tokens"] == g_un["tokens"]
+          and g["batcher"]["prefix_hit_tokens"] > 0,
+          "phase 7 (g): the batcher shared nothing, or streams changed")
+    h, i = runs["h"], runs["i"]
+    check(h["tokens"] == runs["mono"]["tokens"] and i["tokens"] == h["tokens"]
+          and h["stats"].slo_total == len(prompts),
+          "phase 7 (h), (i): open-loop or adaptive runs changed a stream")
+    return runs
+
+
 def profile_window(label, fn) -> None:
     """Device time by kernel, the card's busy share and the host's
     costliest operators over one call of ``fn``."""
@@ -1587,7 +1921,7 @@ def main(argv=None) -> None:
     del cases
     for r in rows:
         print_time(r["name"], r)
-        for shape in ("b8", "b1"):
+        for shape in ("b8", "b1", "chunk"):
             if shape in r:
                 print_time(f"{r['name']} ({shape.upper()})", r[shape])
     check_small_model(dev)
@@ -1656,8 +1990,20 @@ def main(argv=None) -> None:
                  "exit_head", "quantize", "quantize_kv_write",
                  "quantize_kv_scatter"):
         check(spec[name] > 0, f"{name} was not launched in phase 6")
+    torch.cuda.empty_cache()
+
+    for op in ops.values():
+        op.launches = 0
+    t7 = time.perf_counter()
+    serve_phase7(model, theta)
+    shared = {name: op.launches for name, op in ops.items()}
+    print(f"phase 7 (chunked prefill, prefix sharing, fleet replay) "
+          f"launches: {shared} in {time.perf_counter() - t7:.1f} s")
+    for name in ("decode_attn_paged", "decode_attn_paged_int8", "exit_head",
+                 "quantize_kv_write"):
+        check(shared[name] > 0, f"{name} was not launched in phase 7")
     launches = {name: n + batched[name] + adaptive[name] + spec[name]
-                for name, n in launches.items()}
+                + shared[name] for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     if args.profile:

@@ -13,6 +13,8 @@ engine, on dense ring KV or a block-paged pool (float or int8 pages):
   * ``standalone_step``  — the paper's low-latency edge standalone mode.
   * ``full_step``        — undivided model (cloud-deployment baseline).
   * ``*_prefill_padded`` — right-padded prompt prefill of one admission.
+  * ``*_prefill_chunk``  — one page-sized prompt chunk of chunked prefill,
+                           through the paged decode write path.
   * ``cloud_step(write_mask=)``/``ring_cloud_steps``/
     ``ring_cloud_steps_all`` — the batched engines' cloud call over the
                            below-θ rows (and their backfill rings or
@@ -49,10 +51,8 @@ from repro_torch.models.transformer import Caches, Model
 
 
 # CollmConfig fields the port refuses, with the ROADMAP queue-A item that
-# ports each: chunked prefill and prefix sharing (A.5), the cloud mesh
-# (A.11)
-UNPORTED_FIELDS = {"chunked_prefill": "A.5", "prefix_share": "A.5",
-                   "cloud_mesh": "A.11"}
+# ports each: the cloud mesh (A.11)
+UNPORTED_FIELDS = {"cloud_mesh": "A.11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,6 +168,13 @@ class CoLLM:
         if ccfg.spec_k > 1 and not ccfg.speculative:
             raise ValueError("spec_k > 1 requires speculative=True "
                              "(drafting generalizes the speculative path)")
+        if ccfg.chunked_prefill and ccfg.kv_layout != "paged":
+            raise ValueError('chunked_prefill=True requires kv_layout='
+                             '"paged" (chunks ride the paged write path)')
+        if ccfg.prefix_share and not ccfg.chunked_prefill:
+            raise ValueError("prefix_share=True requires chunked_prefill="
+                             "True (suffix-only compute needs chunk-"
+                             "granular admission)")
         default = CollmConfig()
         changed = {name: item for name, item in UNPORTED_FIELDS.items()
                    if getattr(ccfg, name) != getattr(default, name)}
@@ -288,6 +295,49 @@ class CoLLM:
         return logits, self.model.invalidate_cache_after(caches, true_len)
 
     # ------------------------------------------------------------------
+    # chunked prefill (page-sized chunks interleaved with decode ticks)
+    # ------------------------------------------------------------------
+    def edge_prefill_chunk(self, tokens: torch.Tensor, pos0: int,
+                           chunk_len: int, caches: Caches,
+                           block_tbl: torch.Tensor,
+                           with_logits: bool = False):
+        """Edge prefill of ONE page-sized prompt chunk (tokens: (1, C),
+        right-padded to the page size; ``pos0`` is the chunk's first
+        absolute position, ``chunk_len`` its true token count).
+
+        Rides the paged decode write path (``chunk_attention_paged``): KV
+        rows land in the pages ``block_tbl`` (1, max_logical) maps, pad
+        positions write to the trash page through the per-token write
+        mask.  The shape stays (1, page_size) for every chunk of every
+        stream, so identical (tokens, pos0) compute bit-identical page
+        content, which prefix sharing relies on.  Returns (decisions at
+        the chunk's true last position, l_ee1 hidden chunk (1, C, d),
+        caches)."""
+        c = tokens.shape[1]
+        wm = (torch.arange(c, device=tokens.device) < chunk_len)[None]
+        _, exit_h, caches = self.model.decode_step(
+            tokens, caches, pos0, self.edge_segs, block_tbl=block_tbl,
+            write_mask=wm)
+        decisions = {l: self.exit_decision(l, h[:, chunk_len - 1],
+                                           with_logits)
+                     for l, h in exit_h.items()}
+        return decisions, exit_h[self.l_ee1], caches
+
+    def cloud_prefill_chunk(self, h1: torch.Tensor, pos0: int,
+                            chunk_len: int, caches: Caches,
+                            block_tbl: torch.Tensor):
+        """Cloud prefill of one uploaded hidden chunk (h1: (1, C, d));
+        returns (logits (1, V) at the chunk's true last position, caches).
+        Only the prompt's final chunk's logits matter; earlier chunks run
+        for the KV they write."""
+        c = h1.shape[1]
+        wm = (torch.arange(c, device=h1.device) < chunk_len)[None]
+        x, _, caches = self.model.decode_from_hidden(
+            h1, caches, pos0, self.cloud_segs, block_tbl=block_tbl,
+            write_mask=wm)
+        return self.model.logits(x[:, chunk_len - 1]), caches
+
+    # ------------------------------------------------------------------
     # decode steps
     # ------------------------------------------------------------------
     def edge_step(self, token: torch.Tensor, caches: Caches, pos,
@@ -304,8 +354,8 @@ class CoLLM:
 
     def edge_step_masked(self, token: torch.Tensor, caches: Caches, pos,
                          run_mask: torch.Tensor,
-                         block_tbl: Optional[torch.Tensor] = None
-                         ) -> EdgeStepOut:
+                         block_tbl: Optional[torch.Tensor] = None,
+                         with_logits: bool = False) -> EdgeStepOut:
         """Batched edge step that leaves masked-out rows' caches bit for
         bit: ``run_mask`` (B,) bool is the KV write mask (dense rows write
         their old entry back, paged rows write to the trash page), so no
@@ -315,7 +365,8 @@ class CoLLM:
                                                    self.edge_segs,
                                                    block_tbl=block_tbl,
                                                    write_mask=run_mask)
-        decisions = {l: self.exit_decision(l, h) for l, h in exit_h.items()}
+        decisions = {l: self.exit_decision(l, h, with_logits)
+                     for l, h in exit_h.items()}
         tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
         upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
         return EdgeStepOut(decisions, tok, exited, upload, caches)

@@ -35,6 +35,23 @@ computes in masked waves and, with ``--channel sim``, a batching
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --device cpu --clients 4 --channel sim --cloud-batch
 
+``--chunked-prefill`` prefills each prompt one page a tick, interleaved
+with the other slots' decode; ``--prefix-share`` puts every client's
+prompt behind one system prompt (2.5 pages) and maps its pages once:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+        --chunked-prefill --prefix-share --clients 8
+
+``--arrival-rate`` replays the clients as an open-loop fleet (Poisson, or
+bursty gamma with ``--arrival-cv2`` > 1, optionally ``--diurnal-amp``
+modulated) in virtual time, ``--slo-ttft`` / ``--slo-tpot`` set the
+service objectives, and ``--adaptive`` closes the engine's control loops
+over the paged pool:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --kv-layout paged \
+        --channel sim --arrival-rate 20 --slo-ttft 0.5 --slo-tpot 0.05 \
+        --preemption swap --adaptive
+
 Prints the run's stats and, for the collm and standalone modes, the token
 agreement against the undivided model (``--mode cloud``).
 """
@@ -43,14 +60,17 @@ from __future__ import annotations
 import argparse
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, get_smoke_config
 from repro_torch.core.collm import CollmConfig
 from repro_torch.core.netsim import NetworkParams
 from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
+from repro_torch.core.workload import ArrivalProcess, arrival_times
 from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
 from repro_torch.models.registry import build_model
+from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
 from repro_torch.serving.engine import ServingSystem, token_agreement
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -93,6 +113,15 @@ def main(argv=None):
     ap.add_argument("--preempt-policy", default="youngest",
                     choices=["youngest", "fewest-pages", "lru"],
                     help="victim selection under --preemption")
+    ap.add_argument("--chunked-prefill", action="store_true",
+                    help="prefill prompts one page-sized chunk per tick "
+                         "interleaved with decode (needs --kv-layout "
+                         "paged)")
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="radix prefix cache: streams sharing a prompt "
+                         "prefix map the same refcounted KV pages, "
+                         "copy-on-write on divergence (needs "
+                         "--chunked-prefill)")
     ap.add_argument("--channel", default="sync", choices=["sync", "sim"],
                     help="sim: WiFi-class async channel in virtual time")
     ap.add_argument("--deadline", type=float, default=math.inf,
@@ -117,6 +146,30 @@ def main(argv=None):
                     help="virtual cost of one cloud service step (the "
                          "shared cloud of --cloud-batch with --channel "
                          "sim)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="open-loop fleet replay: mean request arrivals "
+                         "per virtual second (0 = closed loop, the whole "
+                         "backlog at t=0)")
+    ap.add_argument("--arrival-cv2", type=float, default=1.0,
+                    help="interarrival squared coefficient of variation "
+                         "(1 = Poisson, >1 = bursty gamma renewals)")
+    ap.add_argument("--diurnal-amp", type=float, default=0.0,
+                    help="sinusoidal arrival-rate modulation depth in "
+                         "[0, 1)")
+    ap.add_argument("--diurnal-period", type=float, default=10.0,
+                    help="diurnal modulation period (virtual s)")
+    ap.add_argument("--arrival-seed", type=int, default=0)
+    ap.add_argument("--slo-ttft", type=float, default=None,
+                    help="per-request time-to-first-token target "
+                         "(virtual s) folded into SLO attainment")
+    ap.add_argument("--slo-tpot", type=float, default=None,
+                    help="per-request mean inter-token latency target "
+                         "(virtual s)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="engine-side adaptive control: watermark AIMD on "
+                         "the page pool, fluid-ODE admission gate, "
+                         "per-victim swap-vs-recompute (needs --kv-layout "
+                         "paged)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the prompts")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
@@ -143,6 +196,28 @@ def main(argv=None):
     if args.spec_k != 1 and not args.speculative:
         ap.error("--spec-k needs --speculative (drafting generalizes the "
                  "speculative path)")
+    if args.chunked_prefill and args.kv_layout != "paged":
+        ap.error("--chunked-prefill writes chunks through the paged "
+                 "decode path; needs --kv-layout paged")
+    if args.prefix_share and not args.chunked_prefill:
+        ap.error("--prefix-share admits the unshared suffix through "
+                 "chunked prefill; needs --chunked-prefill")
+    if args.arrival_rate < 0:
+        ap.error("--arrival-rate must be >= 0")
+    if args.arrival_rate == 0 and (args.arrival_cv2 != 1.0
+                                   or args.diurnal_amp != 0.0):
+        ap.error("--arrival-cv2/--diurnal-amp shape the arrival process; "
+                 "need --arrival-rate > 0")
+    if ((args.arrival_rate > 0 or args.slo_ttft is not None
+         or args.slo_tpot is not None) and args.channel != "sim"):
+        ap.error("--arrival-rate/--slo-* replay in virtual time; need "
+                 "--channel sim")
+    if args.adaptive and args.kv_layout != "paged":
+        ap.error("--adaptive tunes the paged pool's watermark and "
+                 "admission; needs --kv-layout paged")
+    if args.adaptive and args.cloud_batch:
+        ap.error("--adaptive drives the single-engine scheduler; drop "
+                 "--cloud-batch to use it")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
@@ -151,15 +226,39 @@ def main(argv=None):
                                       batch_size=1, seed=args.seed))
     prompts = [data.sample_tokens(args.prompt_len)
                for _ in range(args.clients)]
+    if args.prefix_share:
+        # the workload the flag exists for: every client opens with the
+        # same system prompt (2.5 KV pages of it, so full pages can be
+        # shared and the partial tail exercises copy-on-write), then its
+        # own request
+        system_prefix = data.sample_tokens(2 * args.page_size
+                                           + args.page_size // 2)
+        prompts = [np.concatenate([system_prefix, p]).astype(p.dtype)
+                   for p in prompts]
+    fleet_kw = {}
+    if args.arrival_rate > 0:
+        proc = ArrivalProcess(
+            rate=args.arrival_rate,
+            kind="poisson" if args.arrival_cv2 == 1.0 else "gamma",
+            cv2=args.arrival_cv2, diurnal_amp=args.diurnal_amp,
+            diurnal_period_s=args.diurnal_period)
+        fleet_kw["arrivals"] = arrival_times(proc, len(prompts),
+                                             seed=args.arrival_seed)
+    if args.slo_ttft is not None:
+        fleet_kw["slo_ttft_s"] = args.slo_ttft
+    if args.slo_tpot is not None:
+        fleet_kw["slo_tpot_s"] = args.slo_tpot
     system = ServingSystem(model, CollmConfig(
         theta=args.theta, wire_format=args.wire, backfill=args.backfill,
         speculative=args.speculative, spec_k=args.spec_k,
         kv_layout=args.kv_layout, page_size=args.page_size,
         kv_dtype=args.kv_dtype, preemption=args.preemption,
-        preempt_policy=args.preempt_policy))
+        preempt_policy=args.preempt_policy,
+        chunked_prefill=args.chunked_prefill,
+        prefix_share=args.prefix_share))
     gen_kw = dict(num_slots=args.num_slots, num_pages=args.num_pages)
     if args.cloud_batch:
-        multi_kw = {}
+        multi_kw = dict(fleet_kw)
         if args.channel == "sim":
             # a single client has nobody to coalesce with: plain FIFO
             svc = CloudServicePoint(
@@ -176,11 +275,16 @@ def main(argv=None):
                                   cloud_batch=True, **multi_kw)
         slots = f"engines={r['n_engines']}"
     else:
-        run_kw = dict(gen_kw)
+        run_kw = dict(gen_kw, **fleet_kw)
         if args.channel == "sim":
             run_kw.update(channel=AsyncSimChannel(NetworkParams(),
                                                   deadline_s=args.deadline),
                           tick_time_s=args.tick_time)
+        if args.adaptive:
+            # per-victim swap-or-recompute needs the cost model; the
+            # watermark loop and the admission gate hang off the config
+            run_kw.update(adaptive=AdaptiveConfig(),
+                          resume_cost=ResumeCostModel())
         r = system.generate(prompts, args.max_new, mode=args.mode, **run_kw)
         slots = f"slots={r['num_slots']}"
     st = r["stats"]
@@ -196,6 +300,10 @@ def main(argv=None):
     if args.preemption != "off":
         print(f"preemptions={st.preemptions} policy={args.preempt_policy} "
               f"mode={args.preemption}")
+    if args.chunked_prefill:
+        print(f"prefill_chunks={st.prefill_chunks} "
+              f"prefix_hit_tokens={st.prefix_hit_tokens} "
+              f"cow_copies={st.cow_copies}")
     if args.speculative and st.draft_tokens:
         print(f"draft: k={args.spec_k} draft_tokens={st.draft_tokens} "
               f"accepted={st.accepted_tokens} "
@@ -206,6 +314,16 @@ def main(argv=None):
               f"deadline_misses={st.deadline_misses} "
               f"fallbacks={st.fallbacks} stall={st.stall_s:.3f}s "
               f"overlap={st.overlap_s:.3f}s late_drops={r['late_drops']}")
+    if fleet_kw:
+        print(f"fleet: ttft_p50={st.ttft_p(50) * 1e3:.1f}ms "
+              f"ttft_p99={st.ttft_p(99) * 1e3:.1f}ms "
+              f"tpot_p50={st.token_lat_p(50) * 1e3:.1f}ms "
+              f"tpot_p99={st.token_lat_p(99) * 1e3:.1f}ms "
+              f"slo={st.slo_attainment:.2%} ({st.slo_met}/{st.slo_total}) "
+              f"preempt_rate={st.preemption_rate:.3f} "
+              f"miss_rate={st.deadline_miss_rate:.3f}")
+    if args.adaptive and r.get("adaptive") is not None:
+        print(f"adaptive: {r['adaptive']}")
     if "batcher" in r:
         print(f"cloud batcher: {r['batcher']}")
     if not args.cloud_batch:
@@ -213,7 +331,17 @@ def main(argv=None):
         print(f"kv_cache_bytes={sched.kv_cache_bytes()} "
               f"pool={r['pool_stats']}")
     if args.mode != "cloud":
-        base = system.generate(prompts, args.max_new, mode="cloud", **gen_kw)
+        base_sys = system
+        if args.chunked_prefill:
+            # chunked prefill is edge-resident; the cloud baseline runs on
+            # a plain config (same weights, same greedy streams)
+            base_sys = ServingSystem(model, CollmConfig(
+                theta=args.theta, wire_format=args.wire,
+                kv_layout=args.kv_layout, page_size=args.page_size,
+                kv_dtype=args.kv_dtype, preemption=args.preemption,
+                preempt_policy=args.preempt_policy))
+        base = base_sys.generate(prompts, args.max_new, mode="cloud",
+                                 **gen_kw)
         ags = [token_agreement(a, b)
                for a, b in zip(r["tokens"], base["tokens"])]
         print(f"agreement vs cloud (LCS-F1): "

@@ -1,6 +1,8 @@
 """Multi-head attention: GQA, optional bias, RoPE, sliding-window masks,
-the direct full-sequence path (training / prefill) and single-token decode
-over a dense ring KV cache or a block-paged KV pool (float or int8 pages).
+the direct full-sequence path (training / prefill), single-token decode
+over a dense ring KV cache or a block-paged KV pool (float or int8 pages),
+and the page-sized chunk decode of chunked prefill over the paged pool
+(its tokens as rows of the paged kernels).
 
 Port of ``repro.models.attention``.  Decode attention goes through the
 ``decode_attn`` / ``decode_attn_paged`` kernels
@@ -13,9 +15,7 @@ arrays: the cache passed in is the cache returned.  So a row excluded by a
 decode ``write_mask`` is never written (dense: its old entry is written
 back; paged: the write goes to the trash page with ``pos = -1``), where
 the JAX package computes every row and merges the old rows back.  The
-chunked and banded long-sequence paths (ROADMAP A.8) and the
-chunked-prefill paged path (``chunk_attention_paged``, ROADMAP A.5) are not
-ported yet.
+chunked and banded long-sequence paths (ROADMAP A.8) are not ported yet.
 """
 from __future__ import annotations
 
@@ -376,4 +376,79 @@ def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                             k_scale=cache.get("ks"), v_scale=cache.get("vs"),
                             window=window)
     y = out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
+    return y, cache
+
+
+def chunk_rows(pos: torch.Tensor, block_tbl: torch.Tensor,
+               write_mask: Optional[torch.Tensor], c: int
+               ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """A (B, C) chunk's tokens as the B*C rows of one decode-step page
+    write: per-row positions ``pos[b] + i`` (B*C,) int32, the stream's
+    block-table row repeated for each of its tokens (B*C, n_lp), and the
+    (B,C) or (B,) write mask flattened to (B*C,), all contiguous (the
+    operands ``quantize_kv_write`` takes)."""
+    b = pos.shape[0]
+    pos_bc = pos[:, None] + torch.arange(c, dtype=torch.int32,
+                                         device=pos.device)
+    rows_mask = None
+    if write_mask is not None:
+        wm = write_mask if write_mask.dim() == 2 else write_mask[:, None]
+        rows_mask = wm.expand(b, c).reshape(-1).contiguous()
+    return (pos_bc.reshape(-1).contiguous(),
+            block_tbl.repeat_interleave(c, dim=0).contiguous(), rows_mask)
+
+
+def chunk_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                          cache: Cache, pos: torch.Tensor,
+                          block_tbl: torch.Tensor, *, window: int = 0,
+                          use_rope: bool = True,
+                          write_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, Cache]:
+    """Multi-token chunk decode over a block-paged KV cache: the compute
+    path of chunked prefill (``decode_attention_paged`` generalized from
+    one token to a page-sized chunk).
+
+    x: (B,C,d); pos: (B,) int32 FIRST position of each row's chunk (token
+    ``i`` sits at ``pos + i``); block_tbl: (B, max_logical) int32.  Each
+    token writes its K/V in place at page ``block_tbl[b, (pos+i) // ps]``,
+    slot ``(pos+i) % ps``; tokens without a mapping or excluded by
+    ``write_mask`` ((B,C) per token, or (B,) per row) go to the trash page
+    with ``pos = -1`` (a right-padded final chunk keeps its pads invisible
+    so).  An int8 pool takes the chunk's B*C tokens as the rows of ONE
+    ``quantize_kv_write`` launch (each row carries its stream's table
+    row); float pages take the decode path's index writes.  Writes land
+    before the attention, so the chunk's tokens attend to each other
+    through the pages under the causal ``kpos <= qpos`` mask.  The
+    attention is ONE ``decode_attn_paged`` launch over the same B*C rows:
+    token ``i`` is a query row at ``cur = pos + i`` over its stream's
+    table, which is that causal mask (the JAX package's float32 einsums
+    over the gathered pages, plain XLA there, compute the same
+    function)."""
+    b, c, _ = x.shape
+    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    ps = cache["kp"].shape[1]
+    rows_pos, rows_tbl, rows_mask = chunk_rows(pos, block_tbl, write_mask,
+                                               c)
+    pos_bc = rows_pos.view(b, c)
+    q, knew, vnew = _project_qkv(p, cfg, x, x)
+    if use_rope:
+        q = apply_rope(q, pos_bc, cfg.rope_theta)
+        knew = apply_rope(knew, pos_bc, cfg.rope_theta)
+    k_rows = knew.reshape(b * c, kvh, hd).contiguous()
+    v_rows = vnew.reshape(b * c, kvh, hd).contiguous()
+    if "ks" in cache:                              # quantize on write
+        quantize_kv_write(cache, k_rows, v_rows, rows_pos, rows_tbl,
+                          rows_mask)
+    else:
+        dest, slot, ok = page_slots(rows_pos, rows_tbl, rows_mask, ps)
+        cache["pos"].index_put_((dest, slot),
+                                torch.where(ok, rows_pos, -1))
+        cache["kp"].index_put_((dest, slot), k_rows.to(cache["kp"].dtype))
+        cache["vp"].index_put_((dest, slot), v_rows.to(cache["vp"].dtype))
+
+    out = decode_attn_paged(q.reshape(b * c, h, hd).contiguous(),
+                            cache["kp"], cache["vp"], cache["pos"], rows_tbl,
+                            rows_pos, k_scale=cache.get("ks"),
+                            v_scale=cache.get("vs"), window=window)
+    y = out.reshape(b, c, h * hd) @ p.wo.to(x.dtype)
     return y, cache

@@ -22,6 +22,7 @@ from torch import nn
 
 from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.models.attention import (Attention, attention_forward,
+                                          chunk_attention_paged,
                                           decode_attention,
                                           decode_attention_paged,
                                           init_attention, init_attn_cache,
@@ -38,7 +39,8 @@ class BlockCtx:
     causal: bool = True
     pos: Optional[torch.Tensor] = None         # decode positions (B,) int32
     block_tbl: Optional[torch.Tensor] = None   # (B, max_logical) paged table
-    write_mask: Optional[torch.Tensor] = None  # (B,) rows allowed to write KV
+    # rows (B,) or chunk tokens (B,C) allowed to write KV
+    write_mask: Optional[torch.Tensor] = None
 
 
 class MLP(nn.Module):
@@ -138,9 +140,17 @@ def block_decode(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
                  cache: Cache, ctx: BlockCtx) -> Tuple[torch.Tensor, Cache]:
     """Single-token decode (x: (B,1,d)); updates ``cache`` in place.  A
     paged cache (it holds ``kp``) decodes through the block table in
-    ``ctx``; ``ctx.write_mask`` keeps the masked-out rows' KV as it was."""
+    ``ctx``, and also takes a multi-token chunk (x: (B,C,d), ``ctx.pos``
+    the chunk's first position, ``ctx.write_mask`` optionally (B,C)): the
+    chunked-prefill path.  ``ctx.write_mask`` keeps the masked-out rows'
+    (or tokens') KV as it was."""
     h = _norm(x, block, cfg, "ln1")
-    if "kp" in cache["self"]:
+    if "kp" in cache["self"] and x.shape[1] > 1:
+        att, _ = chunk_attention_paged(
+            block.attn, cfg, h, cache["self"], ctx.pos, ctx.block_tbl,
+            window=ctx.window, use_rope=cfg.use_rope,
+            write_mask=ctx.write_mask)
+    elif "kp" in cache["self"]:
         att, _ = decode_attention_paged(
             block.attn, cfg, h, cache["self"], ctx.pos, ctx.block_tbl,
             window=ctx.window, use_rope=cfg.use_rope,

@@ -265,7 +265,9 @@ class Model(nn.Module):
         (final hidden (B,1,d), exit_hiddens, caches).  Paged caches need
         ``block_tbl`` (B, max_logical) int32 on the model's device;
         ``write_mask`` (B,) bool leaves the masked-out rows' KV as it
-        was."""
+        was.  With paged caches ``token`` may also be a (B,C) chunk whose
+        first position is ``pos`` (chunked prefill), and ``write_mask``
+        then (B,C) per token."""
         seg_indices = seg_indices or self.all_segments()
         x = self.embed_tokens(token)
         ctx = BlockCtx(pos=self._rows_pos(pos, token.shape[0]),
@@ -277,7 +279,9 @@ class Model(nn.Module):
                            seg_indices: Sequence[int],
                            block_tbl: Optional[torch.Tensor] = None,
                            write_mask: Optional[torch.Tensor] = None):
-        """Cloud-partition decode: continue from an uploaded hidden state."""
+        """Cloud-partition decode: continue from an uploaded hidden state
+        (B,1,d), or with paged caches a (B,C,d) chunk starting at ``pos``
+        (``write_mask`` (B,) or (B,C), as ``decode_step``)."""
         ctx = BlockCtx(pos=self._rows_pos(pos, hidden.shape[0]),
                        block_tbl=block_tbl, write_mask=write_mask)
         return self.decode_segments(hidden, ctx, seg_indices, caches,

@@ -17,10 +17,11 @@ Port of ``repro.serving.cloud_batcher`` without the mesh (ROADMAP A.11):
   * the page-tree helpers of swap preemption: a slot's physical pages
     gathered out of every paged cache node into host memory, and written
     back into freshly allocated pages (int8 pages carry their scale leaves
-    along).
-
-Chunked admission and prefix sharing (ROADMAP A.5) are not ported yet;
-their methods raise.
+    along); and the device half of a copy-on-write split, one physical
+    page copied into another across every paged node;
+  * the batcher's chunked admission with prefix sharing: a prompt's full
+    pages already in the batcher's own radix cache are mapped, not
+    computed, and the rest is prefilled one uploaded chunk at a time.
 
 Caches are ``{segment index: [per-layer cache, ...]}`` with the batch at
 axis 0 of every dense leaf, and are written in place.
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.content_manager import ContentManager
-from repro_torch.core.paging import PagePool, pages_needed
+from repro_torch.core.paging import OutOfPages, PagePool, pages_needed
 from repro_torch.models.attention import (paged_reset_pages,
                                           paged_scatter_prefill)
 
@@ -177,6 +178,22 @@ def _write_pages_tree(caches: Pytree, phys, data: Pytree) -> Pytree:
     return caches
 
 
+def _copy_pages_tree(caches: Pytree, src: int, dst: int) -> Pytree:
+    """Copy-on-write device half: duplicate physical page ``src`` into
+    ``dst``, in place, across every paged cache node.  Every leaf of a node
+    is copied, so int8 nodes' scale rows and the ``pos`` markers ride
+    along with K/V."""
+    if isinstance(caches, dict):
+        if "kp" in caches:
+            for v in caches.values():
+                v[dst] = v[src]
+            return caches
+        return {k: _copy_pages_tree(v, src, dst) for k, v in caches.items()}
+    if isinstance(caches, list):
+        return [_copy_pages_tree(c, src, dst) for c in caches]
+    return caches
+
+
 def _map_tensors(tree: Pytree, fn) -> Pytree:
     if isinstance(tree, dict):
         return {k: _map_tensors(v, fn) for k, v in tree.items()}
@@ -280,14 +297,6 @@ class BatcherStats:
                 "cloud_time_s": round(self.cloud_time, 4)}
 
 
-def _unported(name: str, item: str):
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(
-            f"CloudBatcher.{name} is not ported yet (ROADMAP {item})")
-    method.__name__ = name
-    return method
-
-
 class CloudBatcher:
     """One cloud partition serving N client streams out of a pooled,
     batch-major KV cache: the compute half of the shared cloud service
@@ -296,8 +305,9 @@ class CloudBatcher:
     ``collm`` is a ``CoLLM``, ``cm`` the ``ContentManager`` the engines
     upload into (it also maps each client to its pool row).  The pool is
     dense rings or, with ``CollmConfig.kv_layout="paged"``, a page pool of
-    its own; its rows are not preemptible, so admission is the
-    conservative worst case.  A preempted engine releases its stream's row
+    its own (with ``CollmConfig.prefix_share``, a radix prefix cache too);
+    its rows are not preemptible, so admission is the conservative worst
+    case.  A preempted engine releases its stream's row
     (``release``, then ``admit`` and ``restore`` on resume) or swaps its
     pages to host memory (``swap_out`` / ``swap_in``)."""
 
@@ -320,7 +330,8 @@ class CloudBatcher:
             self.max_ctx = max_ctx or max_seq
             n_pages = num_pages or num_slots * pages_needed(self.max_ctx, ps)
             self.pool = PagePool(n_pages, ps, num_slots,
-                                 pages_needed(self.max_ctx, ps))
+                                 pages_needed(self.max_ctx, ps),
+                                 prefix_cache=collm.ccfg.prefix_share)
             row_seq = _bucket(self.max_ctx)
             self.caches = collm.init_cloud_cache_paged(
                 num_slots, self.pool.num_pages, ps)
@@ -348,23 +359,40 @@ class CloudBatcher:
                        - self.pool.owned_pages(slot))
         return out
 
-    def can_admit(self, budget_tokens: int) -> bool:
-        """One more stream of ``prompt + max_new`` tokens, right now?  (The
-        JAX package's ``hit_pages`` discount comes with prefix sharing,
-        ROADMAP A.5.)"""
+    def can_admit(self, budget_tokens: int, hit_pages: int = 0) -> bool:
+        """One more stream of ``prompt + max_new`` tokens, right now?
+        ``hit_pages`` discounts prompt pages a prospective prefix-cache hit
+        would map instead of allocating (``PagePool.can_admit``), and pages
+        held only by the prefix cache count as available: they come back
+        on demand through ``evict_prefix``."""
         if self.cm.cloud_slots_free() <= 0:
             return False
         if self.pool is not None:
-            need = pages_needed(budget_tokens, self.pool.page_size)
+            need = pages_needed(budget_tokens, self.pool.page_size) \
+                - hit_pages
             if need > self.pool.num_pages:
                 raise ValueError(
                     f"stream of {budget_tokens} tokens needs more pages "
                     f"than the cloud pool has ({self.pool.num_pages})")
-            return need <= self.pool.free_pages - self._outstanding_pages()
+            avail = (self.pool.free_pages + self.pool.reclaimable_pages
+                     - self._outstanding_pages())
+            return need <= avail
         return True
 
     def _alloc(self, slot: int, lp: int) -> None:
-        self.pool.alloc(slot, lp)
+        """Pool alloc that reclaims prefix-cache pages under pressure: a
+        failed alloc first evicts least recently used trie entries (their
+        ``pos`` markers are invalidated on the device here, so a recycled
+        page cannot leak stale K/V) and retries before letting
+        ``OutOfPages`` escape."""
+        try:
+            self.pool.alloc(slot, lp)
+        except OutOfPages:
+            freed = self.pool.evict_prefix(1)
+            if not freed:
+                raise
+            _reset_pages_tree(self.caches, freed)
+            self.pool.alloc(slot, lp)
         self._tbl_device = None
 
     def _alloc_for(self, slot: int, packets) -> None:
@@ -384,11 +412,10 @@ class CloudBatcher:
         token), still on the device."""
         slot = self.cm.assign_cloud_slot(device_id)
         self._budget[device_id] = budget_tokens
-        logits, row = self.collm.cloud_prefill_padded(h1_seq, true_len,
-                                                      self._row0)
-        if self.pool is None:
-            self.caches = _scatter_row(self.caches, row, slot)
-        else:
+        pages = None
+        if self.pool is not None:
+            # pages first: a reclaim invalidates evicted pages on the
+            # device, which must precede the scatter into them
             ps = self.pool.page_size
             n_prompt = pages_needed(true_len, ps)
             for lp in range(n_prompt):
@@ -396,14 +423,83 @@ class CloudBatcher:
             pages = np.full((pages_needed(h1_seq.shape[1], ps),), -1,
                             np.int32)
             pages[:n_prompt] = self.pool.block_table[slot, :n_prompt]
+        logits, row = self.collm.cloud_prefill_padded(h1_seq, true_len,
+                                                      self._row0)
+        if pages is None:
+            self.caches = _scatter_row(self.caches, row, slot)
+        else:
             self.caches = _scatter_row_paged(self.caches, row, slot, pages)
         self.stats.prefills += 1
         return logits
 
-    prefix_hit = _unported("prefix_hit", "A.5")
-    admit_begin = _unported("admit_begin", "A.5")
-    admit_chunk = _unported("admit_chunk", "A.5")
-    pages_filled = _unported("pages_filled", "A.5")
+    # -- chunked admission (prefix sharing) --------------------------------
+    def prefix_hit(self, tokens) -> int:
+        """Full-page prefix hit the batcher's OWN pool could serve for this
+        prompt (0 without prefix sharing).  The engine takes the smaller of
+        its own hit and this one, so a chunk is skipped only when both
+        pools already hold it."""
+        if self.pool is None or not self.pool.prefix_cache:
+            return 0
+        toks = [int(t) for t in np.asarray(tokens).reshape(-1)]
+        return len(self.pool.match_prefix(toks).pages)
+
+    def admit_begin(self, device_id: str, tokens, true_len: int,
+                    budget_tokens: int, hit_pages: int = 0) -> List[int]:
+        """Chunked admission, bookkeeping half: assign the cloud row, map
+        ``hit_pages`` shared prefix pages out of the batcher's own trie,
+        allocate the remaining prompt pages now (chunk compute never
+        allocates), and register the prompt's full chunks for future
+        sharers.  Returns the shared page ids: the engine must see
+        ``pages_filled`` on them before uploading chunks that attend past
+        them (their owning stream may still be mid-prefill)."""
+        slot = self.cm.assign_cloud_slot(device_id)
+        self._budget[device_id] = budget_tokens
+        if self.pool is None:
+            return []
+        ps = self.pool.page_size
+        toks = [int(t) for t in np.asarray(tokens).reshape(-1)[:true_len]]
+        shared: List[int] = []
+        if hit_pages:
+            hit = self.pool.match_prefix(toks)
+            shared = list(hit.pages[:hit_pages])
+            for lp, page in enumerate(shared):
+                self.pool.share_page(slot, lp, page)
+            self.pool.stats.prefix_hit_tokens += len(shared) * ps
+            self.stats.prefix_hit_tokens += len(shared) * ps
+        for lp in range(len(shared), pages_needed(true_len, ps)):
+            self._alloc(slot, lp)
+        if self.pool.prefix_cache:
+            self.pool.insert_prefix(slot, toks)
+        self._tbl_device = None
+        self.stats.prefills += 1
+        return shared
+
+    def admit_chunk(self, device_id: str, h1: torch.Tensor, pos0: int,
+                    chunk_len: int) -> torch.Tensor:
+        """Chunked admission, compute half: cloud-prefill ONE uploaded
+        hidden chunk (h1: (1, C, d), right-padded to the page size) into
+        the stream's pages.  Returns the logits (1, V) at the chunk's true
+        last position, still on the device: only the final chunk's
+        matter."""
+        slot = self.cm.cloud_slot(device_id)
+        if slot is None:
+            raise KeyError(f"{device_id} has no cloud slot "
+                           "(admit_begin first)")
+        row_tbl = torch.tensor(self.pool.block_table[slot:slot + 1],
+                               device=self.collm.model.device)
+        logits, self.caches = self.collm.cloud_prefill_chunk(
+            h1, pos0, chunk_len, self.caches, row_tbl)
+        self.stats.prefill_chunks += 1
+        ps = self.pool.page_size
+        if chunk_len == ps:
+            self.pool.mark_filled(
+                int(self.pool.block_table[slot, pos0 // ps]))
+        return logits
+
+    def pages_filled(self, pages) -> bool:
+        """True once every given shared page's owning stream has computed
+        its chunk (the engine's stall check for concurrent sharers)."""
+        return self.pool is None or self.pool.pages_filled(pages)
 
     def release(self, device_id: str) -> None:
         """Stream finished (or was preempted): cancel its queued requests,

@@ -43,10 +43,15 @@ agreeing prefix and rewinds the stream at the first disagreement.  With
 ``CollmConfig.preemption`` the paged pool admits optimistically (the
 prompt's pages plus a ``watermark``) and a decode tick that finds no free
 page preempts a victim stream, which resumes later by re-prefill
-("recompute") or from host memory ("swap").  Not ported yet, and refused
-with the ROADMAP queue item that ports them: chunked prefill and prefix
-sharing (A.5), open-loop arrivals, SLOs, adaptive control and resume
-pricing (A.6).
+("recompute") or from host memory ("swap").  With
+``CollmConfig.chunked_prefill`` a prompt is prefilled one page-sized chunk
+a tick, interleaved with the other slots' decode; ``prefix_share`` adds a
+radix prefix cache over the paged pool, so prompts behind a common prefix
+map its pages (and upload it once), with copy-on-write at the first
+divergent write.  Open-loop replay stamps each request with a virtual
+arrival time and SLO targets, and ``adaptive`` closes control loops over
+the admission gate, the pool's watermark and the resume mode, priced by a
+``ResumeCostModel``.
 """
 from __future__ import annotations
 
@@ -71,7 +76,11 @@ from repro_torch.core.transport import (TOKEN_BYTES, ChannelStats,
                                         hidden_wire_bytes)
 from repro_torch.models.transformer import Caches, Model
 from repro_torch.serving import sampler as samplerlib
+from repro_torch.serving.adaptive import (AdaptiveConfig,
+                                          AdaptiveController,
+                                          ResumeCostModel)
 from repro_torch.serving.cloud_batcher import (CloudBatcher, _bucket,
+                                               _copy_pages_tree,
                                                _reset_pages_tree,
                                                _scatter_row,
                                                _scatter_row_paged,
@@ -253,15 +262,21 @@ class EdgeClient:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class Request:
-    """One client stream queued for the scheduler.  ``arrival_t`` is its
-    virtual arrival: the scheduler's clock when the run started (open-loop
-    arrivals and SLO targets are not ported yet, ROADMAP A.6)."""
+    """One client stream queued for the scheduler.
+
+    ``arrival_t`` is the stream's open-loop virtual arrival time: the
+    scheduler never admits it earlier (closed-loop replay leaves it 0).
+    ``slo_ttft_s`` / ``slo_tpot_s`` arm per-stream service objectives:
+    time-to-first-token and mean time-per-output-token budgets checked at
+    retirement (``GenStats.slo_attainment``)."""
     device_id: str
     prompt: np.ndarray
     max_new: int
     eos_id: Optional[int] = None
     index: int = 0                   # submission order (result slot)
     arrival_t: float = 0.0
+    slo_ttft_s: Optional[float] = None
+    slo_tpot_s: Optional[float] = None
 
 
 @dataclasses.dataclass
@@ -338,6 +353,17 @@ class _Slot:
     # recompute resume replays them to rebuild the cloud KV (gaps
     # included) without recomputing the hidden states
     cloud_pkts: List[tuple] = dataclasses.field(default_factory=list)
+    # chunked-prefill state machine (CollmConfig.chunked_prefill): while
+    # ``prefill_prompt`` is set the slot is mid-prefill, and each tick
+    # computes ONE page-sized chunk starting at ``prefill_pos``.
+    # ``prefill_wait`` / ``prefill_wait_cloud`` list shared page ids (the
+    # engine's pool / the batcher's) still being computed by their owning
+    # stream: the sharer stalls until they are filled, then computes only
+    # its suffix.
+    prefill_prompt: Optional[np.ndarray] = None
+    prefill_pos: int = 0
+    prefill_wait: List[int] = dataclasses.field(default_factory=list)
+    prefill_wait_cloud: List[int] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -384,7 +410,15 @@ class BatchScheduler:
     chosen by ``preempt_policy``: checkpoint, free its pages, resume it
     later by re-prefill or from a host swap.  Preemption is invisible in
     greedy output space.  ``preempt_schedule`` ([(tick, slot), ...])
-    forces preemptions at given ticks.  The block table lives on the host
+    forces preemptions at given ticks.  With ``CollmConfig.chunked_prefill``
+    the prompt is prefilled ONE page-sized chunk per tick through the paged
+    decode write path, interleaved with the other slots' decode (a
+    per-slot state machine); with ``prefix_share`` on top, admission first
+    consults the pool's radix prefix index: prompt pages another live
+    stream (or the cache) already holds are mapped by reference
+    (suffix-only prefill, uploads deduplicated), a whole-prompt *terminal*
+    hit skips prefill entirely, and the first divergent write into a
+    shared page splits it copy-on-write.  The block table lives on the host
     (``PagePool.block_table``); its device copy is rebuilt only after an
     alloc or free changed it, and is shared by every layer of a step.
 
@@ -411,8 +445,11 @@ class BatchScheduler:
     the provisional edge token, keeps decoding, and reconciles on arrival
     (keep on match, rewind-and-replace on mismatch).  Samplers other than
     greedy draw from a ``torch.Generator`` seeded with ``seed`` on the
-    model's device.  Refused with their ROADMAP item: adaptive control and
-    resume pricing (A.6)."""
+    model's device.  Requests carry open-loop arrival times (admission
+    waits for them) and SLO targets; ``adaptive`` (an ``AdaptiveConfig``)
+    tunes the pool's watermark, gates admission on the fluid capacity
+    curve and picks each victim's resume mode, and ``resume_cost`` (a
+    ``ResumeCostModel``) bills each resume into the virtual clock."""
 
     def __init__(self, collm: CoLLM, cm: ContentManager, num_slots: int,
                  max_seq: int, mode: str = "collm", sampler: str = "greedy",
@@ -424,12 +461,10 @@ class BatchScheduler:
                  fallback_after: int = 0,
                  cloud_batcher: Optional[CloudBatcher] = None,
                  watermark: int = 0, preempt_schedule: Any = None,
-                 adaptive: Any = None, resume_cost: Any = None):
+                 adaptive: Optional[AdaptiveConfig] = None,
+                 resume_cost: Optional[ResumeCostModel] = None):
         if mode not in ("collm", "standalone", "cloud"):
             raise ValueError(mode)
-        refused = {"adaptive": (adaptive is not None, "A.6"),
-                   "resume_cost": (resume_cost is not None, "A.6")}
-        _refuse("BatchScheduler options", refused)
         # cloud compute delegated to a shared CloudBatcher (multi-engine
         # mode): this engine then keeps no cloud caches of its own
         self._batcher = cloud_batcher if mode == "collm" else None
@@ -463,6 +498,23 @@ class BatchScheduler:
         if self._spec and sampler != "greedy":
             raise ValueError("speculative decode reconciles token ids and "
                              "requires greedy sampling")
+        # chunked prefill + radix prefix sharing: admission maps
+        # shared-prefix pages and prefills the suffix one page-sized chunk
+        # per tick
+        self._chunked = bool(self.ccfg.chunked_prefill)
+        self._prefix_share = bool(self.ccfg.prefix_share)
+        if self._chunked and mode == "cloud":
+            raise ValueError(
+                "chunked_prefill is implemented for the edge-resident "
+                'modes ("collm"/"standalone"), not mode="cloud"')
+        if self._prefix_share and sampler != "greedy":
+            raise ValueError(
+                "prefix_share memoizes greedy first tokens (terminal hits) "
+                "and requires greedy sampling")
+        # chunked mode masks the edge step: a mid-prefill row's
+        # placeholder write would otherwise land in its (possibly shared)
+        # page-0 prefix
+        self._mask_edge = self._chunked
 
         self.layout = self.ccfg.kv_layout
         if self.layout not in ("dense", "paged"):
@@ -475,7 +527,8 @@ class BatchScheduler:
             n_pages = num_pages or num_slots * pages_needed(max_seq, ps)
             self.pool = PagePool(n_pages, ps, num_slots,
                                  pages_needed(self.max_ctx, ps),
-                                 watermark=watermark)
+                                 watermark=watermark,
+                                 prefix_cache=self._prefix_share)
             row_seq = _bucket(self.max_ctx)
         else:
             self.max_ctx = max_seq
@@ -507,6 +560,20 @@ class BatchScheduler:
         self._tick_no = 0
         self.preemptions = 0          # scheduler-lifetime preempt events
         self.oops = 0                 # scheduler-lifetime OutOfPages events
+        self._arrival_hint: Optional[float] = None   # next queued arrival
+        # resume pricing and adaptive control: the cost model is physics
+        # shared by every configuration; the controller is the optional
+        # loop that tunes watermark, admission and resume mode against it
+        self._resume_cost = resume_cost
+        self._adaptive: Optional[AdaptiveController] = None
+        self._kv_tok_bytes: Optional[float] = None
+        if adaptive is not None:
+            if self.pool is None:
+                raise ValueError("adaptive control tunes the paged pool's "
+                                 "watermark and admission; needs "
+                                 'kv_layout="paged"')
+            self._adaptive = AdaptiveController(adaptive)
+            self._adaptive.attach(self.pool, resume_cost)
         self._preempt_schedule: Dict[int, List[int]] = {}
         if preempt_schedule:
             if self.preemption == "off":
@@ -590,6 +657,14 @@ class BatchScheduler:
             worst = pages_needed(len(s.req.prompt) + s.req.max_new,
                                  self.pool.page_size)
             out += max(0, worst - self.pool.owned_pages(s.index))
+            if self.pool.prefix_cache:
+                # a stream's first decode write may hit a still-shared tail
+                # page: the copy-on-write split takes one more free page
+                # (a split leaves the owned count unchanged)
+                lp_tail = len(s.req.prompt) // self.pool.page_size
+                pg = self.pool.block_table[s.index, lp_tail]
+                if pg >= 0 and self.pool.is_shared(int(pg)):
+                    out += 1
         return out
 
     def _fits_now(self, need_pages: int) -> bool:
@@ -599,34 +674,59 @@ class BatchScheduler:
         protecting it."""
         free = self.pool.available_pages
         if not any(s.active for s in self.slots):
-            free = self.pool.free_pages
+            # reclaimable = prefix-cache pages nobody maps: evictable on
+            # demand, so an idle pool full of cached prefixes never wedges
+            free = self.pool.free_pages + self.pool.reclaimable_pages
         return need_pages <= free
 
-    def _admissible(self, req: Request, p_len: int, pad: int) -> bool:
+    def _admissible(self, req: Request, p_len: int, pad: int,
+                    hit_pages: int = 0, batcher_hit: int = 0) -> bool:
         """Capacity check.  Impossible requests raise; a request the paged
         pool could serve but not *right now* stays queued (back-pressure).
         With preemption the check is optimistic — only the prompt's pages
         must fit (decode pages come from alloc-on-write, backstopped by
         preemption); with ``preemption="off"`` it is the conservative
-        worst case, so a decode alloc can never fail."""
+        worst case, so a decode alloc can never fail.  ``hit_pages``
+        prompt pages come from the radix prefix cache (shared mappings,
+        not fresh allocations) and are discounted; pages only the prefix
+        cache holds count as reclaimable."""
         if p_len + req.max_new > self.max_ctx or pad > self._row_seq:
             raise ValueError(
                 f"request {req.device_id}: prompt {p_len} + max_new "
                 f"{req.max_new} exceeds max context {self.max_ctx}")
         if self._batcher is not None \
-                and not self._batcher.can_admit(p_len + req.max_new):
+                and not self._batcher.can_admit(p_len + req.max_new,
+                                                hit_pages=batcher_hit):
             return False        # shared cloud pool full: wait for a release
         if self.pool is None:
             return True
         need_worst = pages_needed(p_len + req.max_new, self.pool.page_size)
+        if self._prefix_share and p_len % self.pool.page_size:
+            need_worst += 1     # CoW split of the shared or cached tail page
         if need_worst > self.pool.num_pages:
             raise ValueError(
                 f"request {req.device_id}: needs {need_worst} pages but the "
                 f"pool only has {self.pool.num_pages}")
         if self.preemption == "off":
-            return need_worst <= (self.pool.free_pages
-                                  - self._outstanding_pages())
-        return self._fits_now(pages_needed(p_len, self.pool.page_size))
+            return need_worst - hit_pages <= (
+                self.pool.free_pages + self.pool.reclaimable_pages
+                - self._outstanding_pages())
+        need_now = max(0, pages_needed(p_len, self.pool.page_size)
+                       - hit_pages)
+        if not self._fits_now(need_now):
+            return False
+        if self._adaptive is not None and any(s.active for s in self.slots):
+            # fluid-ODE admission gate: hold the request while its
+            # worst-case residency would overcommit the capacity curve.
+            # Skipped when nothing runs: the gate protects running streams
+            # from churn and never wedges an idle engine
+            resident = (self.pool.num_pages - self.pool.free_pages
+                        - self.pool.reclaimable_pages) * self.pool.page_size
+            n_active = sum(1 for s in self.slots if s.active)
+            if not self._adaptive.admit_ok(resident, n_active,
+                                           p_len + req.max_new):
+                return False
+        return True
 
     def _next_admit_seq(self) -> int:
         self._admit_counter += 1
@@ -641,7 +741,19 @@ class BatchScheduler:
             _reset_pages_tree(tree, freed)
 
     def _alloc_page(self, idx: int, lp: int) -> None:
-        self.pool.alloc(idx, lp)
+        """``pool.alloc`` with prefix-cache reclaim: when the free list
+        alone cannot serve, evict least recently used radix-cache pages
+        nobody maps (and invalidate them on the device) before giving up.
+        Raises ``OutOfPages`` only when free and reclaimable pages are
+        both exhausted."""
+        try:
+            self.pool.alloc(idx, lp)
+        except OutOfPages:
+            freed = self.pool.evict_prefix(1)
+            if not freed:
+                raise
+            self._reset_freed(freed)
+            self.pool.alloc(idx, lp)
         self._tbl_device = None
 
     def _admit_pages(self, slot: _Slot, p_len: int, pad: int) -> np.ndarray:
@@ -676,14 +788,48 @@ class BatchScheduler:
                 # _collect copies the results out — never reuse it here
                 continue
             req: Request = queue[0]
+            if req.arrival_t > self.vnow:
+                # open-loop replay: the head request has not arrived yet,
+                # and the queue is arrival-sorted so nothing behind it is
+                # due either (the run loop jumps the clock when idle)
+                break
             prompt = np.asarray(req.prompt, np.int32)
             p_len = len(prompt)
             # right-padded prefill is exact: every ported block is
             # attention, where pads are causally invisible to real tokens
             pad = _bucket(p_len)
-            if not self._admissible(req, p_len, pad):
+            # radix prefix hit: full prompt pages already resident in the
+            # pool(s).  A *terminal* hit (whole prompt, memoized first
+            # token) skips prefill compute entirely; otherwise the hit is
+            # capped at (p_len-1)//ps full pages so the final chunk always
+            # computes into a private page.  With a shared CloudBatcher
+            # the usable hit is the smaller of both pools' hits: edge and
+            # cloud pages must cover the same positions
+            hit, hit_pages, b_hit, terminal = None, 0, 0, None
+            if self._prefix_share:
+                hit = self.pool.match_prefix([int(t) for t in prompt])
+                cap = max(0, (p_len - 1) // self.pool.page_size)
+                if self._batcher is not None:
+                    b_hit = min(self._batcher.prefix_hit(prompt),
+                                len(hit.pages), cap)
+                    hit_pages = b_hit
+                elif hit.terminal is not None:
+                    terminal = hit.terminal
+                    hit_pages = len(hit.pages) + (
+                        1 if terminal[0] is not None else 0)
+                else:
+                    hit_pages = min(len(hit.pages), cap)
+            if not self._admissible(req, p_len, pad, hit_pages=hit_pages,
+                                    batcher_hit=b_hit):
                 break                       # FIFO back-pressure: wait for pages
             queue.popleft()
+            if self._chunked:
+                self._admit_chunked(slot, req, prompt, hit, hit_pages,
+                                    terminal)
+                admitted = True
+                if slot.prefill_prompt is None:   # terminal fast path
+                    self._maybe_finish(slot)
+                continue
             pages = (self._admit_pages(slot, p_len, pad)
                      if self.pool is not None else None)
             tokens = torch.zeros((1, pad), dtype=torch.long, device=dev)
@@ -704,9 +850,7 @@ class BatchScheduler:
                     with_logits=self.sampler != "greedy")
                 self.edge_caches = self._scatter_admit(self.edge_caches, row,
                                                        slot, pages)
-                fetched = {l: (int(d.token[0]), float(d.confidence[0]),
-                               d.logits)
-                           for l, d in decisions.items()}
+                fetched = _fetch_decisions(decisions)
                 st.edge_time += time.perf_counter() - t0
 
                 prefill_logits = None
@@ -746,6 +890,154 @@ class BatchScheduler:
             self._maybe_finish(slot)
         return admitted
 
+    def _admit_chunked(self, slot: _Slot, req: Request, prompt: np.ndarray,
+                       hit, hit_pages: int, terminal) -> None:
+        """Chunked admission: map the shared-prefix pages, allocate the
+        remaining prompt pages now (mid-prefill slots are not
+        preemptible, so they must never allocate mid-flight), then either
+        emit the memoized first token (a whole-prompt *terminal* hit: no
+        prefill compute) or arm the slot's prefill state machine, which
+        ``tick`` advances one page-sized chunk at a time."""
+        pool, ps = self.pool, self.pool.page_size
+        p_len = len(prompt)
+        st = GenStats()
+        n_full_shared = min(hit_pages, len(hit.pages)) if hit else 0
+        shared = list(hit.pages[:n_full_shared]) if hit else []
+        for lp, page in enumerate(shared):
+            pool.share_page(slot.index, lp, page)
+        tail_page = terminal[0] if terminal is not None else None
+        if tail_page is not None:
+            pool.share_page(slot.index, len(shared), tail_page)
+        hit_toks = p_len if terminal is not None else n_full_shared * ps
+        if hit_toks:
+            pool.stats.prefix_hit_tokens += hit_toks
+            st.prefix_hit_tokens += hit_toks
+            if self.mode == "collm":
+                # dedup ledger: these prompt positions never cross the wire
+                self.cm.note_prefix_reuse(req.device_id, hit_toks)
+        first_alloc = len(shared) + (1 if tail_page is not None else 0)
+        for lp in range(first_alloc, pages_needed(p_len, ps)):
+            self._alloc_page(slot.index, lp)
+        if self._prefix_share:
+            # register this prompt's full chunks in the radix trie NOW
+            # (unfilled): a prompt admitted next tick maps them already
+            # and stalls until this stream's chunk compute fills them
+            pool.insert_prefix(slot.index, [int(t) for t in prompt])
+        self._tbl_device = None
+        slot.req, slot.stats = req, st
+        slot.pending = {}
+        slot.draft = []
+        slot.miss_streak = 0
+        slot.standalone = False
+        slot.admit_seq = self._next_admit_seq()
+        slot.cloud_pkts = []
+        slot.seq += 1
+        slot.active = True
+        slot.prefill_wait = []
+        slot.prefill_wait_cloud = []
+        if terminal is not None:
+            # the memoized greedy first token stands in for the whole
+            # prefill: exit decisions and cloud logits are deterministic
+            # functions of the (identical) prompt
+            tok = int(terminal[1])
+            st.tokens = 1
+            slot.tokens = [tok]
+            slot.emit_ts = [self.vnow]
+            slot.events = ["admit"]
+            slot.last_token = tok
+            slot.pos = p_len
+            slot.prefill_prompt = None
+            return
+        slot.tokens = []
+        slot.emit_ts = []
+        slot.events = []
+        slot.last_token = 0
+        slot.pos = 0                 # meaningless until prefill completes
+        slot.prefill_prompt = prompt
+        slot.prefill_pos = n_full_shared * ps
+        slot.prefill_wait = [p for p in shared if not pool.pages_filled([p])]
+        if self._batcher is not None:
+            b_shared = self._batcher.admit_begin(
+                req.device_id, prompt, p_len, p_len + req.max_new,
+                hit_pages=n_full_shared)
+            slot.prefill_wait_cloud = [
+                p for p in b_shared if not self._batcher.pages_filled([p])]
+
+    def _prefill_tick(self, s: _Slot) -> None:
+        """Advance one mid-prefill slot by ONE page-sized chunk.  A sharer
+        whose mapped shared pages are still being computed by their owning
+        stream stalls (never deadlocks: the owner was admitted in an
+        earlier tick or slot and advances every tick).  The final chunk
+        yields the first-token decision exactly like monolithic admission
+        (its decisions read back to the host in one copy), then the slot
+        decodes."""
+        pool = self.pool
+        if s.prefill_wait:
+            if not pool.pages_filled(s.prefill_wait):
+                return
+            s.prefill_wait = []
+        if s.prefill_wait_cloud:
+            if self._batcher is not None \
+                    and not self._batcher.pages_filled(s.prefill_wait_cloud):
+                return
+            s.prefill_wait_cloud = []
+        st, req = s.stats, s.req
+        prompt = s.prefill_prompt
+        p_len = len(prompt)
+        ps = pool.page_size
+        pos0 = s.prefill_pos
+        clen = min(ps, p_len - pos0)
+        dev = self.model.device
+        chunk = torch.zeros((1, ps), dtype=torch.long, device=dev)
+        chunk[0, :clen] = torch.as_tensor(prompt[pos0:pos0 + clen],
+                                          device=dev)
+        row_tbl = torch.tensor(pool.block_table[s.index:s.index + 1],
+                               device=dev)
+        t0 = time.perf_counter()
+        decisions, h1, self.edge_caches = self.collm.edge_prefill_chunk(
+            chunk, pos0, clen, self.edge_caches, row_tbl,
+            with_logits=self.sampler != "greedy")
+        st.edge_time += time.perf_counter() - t0
+        st.prefill_chunks += 1
+        final = pos0 + clen >= p_len
+        prefill_logits = None
+        if self.mode == "collm":
+            t0 = time.perf_counter()
+            if self._batcher is not None:
+                logits = self._batcher.admit_chunk(req.device_id, h1, pos0,
+                                                   clen)
+            else:
+                logits, self.cloud_caches = self.collm.cloud_prefill_chunk(
+                    h1, pos0, clen, self.cloud_caches, row_tbl)
+            st.cloud_time += time.perf_counter() - t0
+            # only the suffix that is not shared crosses the wire, chunk by
+            # chunk (the true chunk length, not the padded page: in sum
+            # the monolithic upload of the same suffix)
+            st.upload_bytes += hidden_wire_bytes(
+                self.model.cfg.d_model, self.ccfg.wire_format, seq=clen)
+            if final:
+                prefill_logits = logits
+        if clen == ps and self._prefix_share:
+            pool.mark_filled(int(pool.block_table[s.index, pos0 // ps]))
+        s.prefill_pos = pos0 + clen
+        if not final:
+            return
+        tok = self._first_token(_fetch_decisions(decisions), prefill_logits,
+                                st)
+        st.tokens += 1
+        s.prefill_prompt = None
+        s.tokens = [tok]
+        s.emit_ts = [self.vnow]
+        s.events = ["admit"]
+        s.last_token = tok
+        s.pos = p_len
+        if self._prefix_share and self._batcher is None:
+            # terminal insertion at admission: a later identical prompt
+            # reuses the partial tail page and this first token, and THIS
+            # stream's own first decode write copies the now-shared tail
+            pool.insert_terminal(s.index, [int(t) for t in prompt], tok)
+        self._maybe_finish(s)
+
     def _first_token(self, fetched: Dict, prefill_logits, st: GenStats) -> int:
         """First token from the prompt's last position — same decision tree
         as the sequential path."""
@@ -765,12 +1057,26 @@ class BatchScheduler:
 
     def _finalize_latency(self, slot: _Slot) -> None:
         """Fold the stream's per-token emission timestamps (virtual time)
-        into its stats at retirement: TTFT and inter-token gaps."""
+        into its stats at retirement: TTFT (first emission minus request
+        arrival), inter-token gaps, and, when the request carries SLO
+        targets, one met/total attainment sample."""
+        st, req = slot.stats, slot.req
         ts = slot.emit_ts
         if not ts:
             return
-        slot.stats.ttft_s.append(ts[0] - slot.req.arrival_t)
-        slot.stats.token_lat_s.extend(b - a for a, b in zip(ts, ts[1:]))
+        ttft = ts[0] - req.arrival_t
+        st.ttft_s.append(ttft)
+        gaps = [b - a for a, b in zip(ts, ts[1:])]
+        st.token_lat_s.extend(gaps)
+        if req.slo_ttft_s is not None or req.slo_tpot_s is not None:
+            st.slo_total += 1
+            met = True
+            if req.slo_ttft_s is not None and ttft > req.slo_ttft_s:
+                met = False
+            if (req.slo_tpot_s is not None and gaps
+                    and sum(gaps) / len(gaps) > req.slo_tpot_s):
+                met = False
+            st.slo_met += int(met)
 
     # -- slot retirement ----------------------------------------------------
     def _maybe_finish(self, slot: _Slot) -> bool:
@@ -797,8 +1103,11 @@ class BatchScheduler:
     def _runnable(self, s: _Slot) -> bool:
         """A slot decodes this tick unless it is stalled on an in-flight
         cloud reply (non-speculative) or has provisionally reached its end
-        and awaits validation (speculative)."""
+        and awaits validation (speculative).  Mid-prefill slots never
+        decode: ``_prefill_tick`` advances them instead."""
         if not s.active:
+            return False
+        if s.prefill_prompt is not None:
             return False
         if s.pending and not self._spec:
             return False
@@ -811,7 +1120,9 @@ class BatchScheduler:
 
     def _free_pages(self, slot: _Slot) -> None:
         """Bulk-free a retired slot's pages and invalidate them on device
-        (pos = -1) so reallocation can never leak its K/V."""
+        (pos = -1) so reallocation can never leak its K/V.  Pages the radix
+        prefix cache (or another slot) still references only lose one
+        reference, stay resident and are NOT invalidated."""
         freed = self.pool.free_slot(slot.index)
         self._tbl_device = None
         self._reset_freed(freed)
@@ -828,15 +1139,21 @@ class BatchScheduler:
     # decode makes the rerun deterministic.
 
     def _preempt_victim(self, s: _Slot) -> None:
-        """Pick and preempt one victim stream to free pages for ``s``."""
+        """Pick and preempt one victim stream to free pages for ``s``.
+        Shared (refcounted) pages do not come back on free, so victims are
+        ranked by *reclaimable* pages; mid-prefill slots are excluded (they
+        allocated everything at admission, and a checkpoint with no
+        emitted token has no resume point)."""
         if self.preemption == "off":
             raise RuntimeError(
                 f"slot {s.index}: out of pages mid-decode with preemption "
                 f"off — the conservative admission check should make this "
                 f"impossible")
         cands = [VictimCandidate(v.index, v.admit_seq,
-                                 self.pool.owned_pages(v.index))
-                 for v in self.slots if v.active and v is not s]
+                                 self.pool.owned_pages(v.index),
+                                 self.pool.shared_pages(v.index))
+                 for v in self.slots
+                 if v.active and v is not s and v.prefill_prompt is None]
         try:
             victim = select_victim(cands, self.preempt_policy)
         except OutOfPages:
@@ -847,8 +1164,9 @@ class BatchScheduler:
         self._preempt(self.slots[victim])
 
     def _ensure_page(self, s: _Slot, lp: int) -> None:
-        """Alloc-on-write with preemption: keep freeing victims until the
-        page for ``s``'s next write exists."""
+        """Alloc-on-write with reclaim and preemption: evict prefix-cache
+        pages nobody maps first, then keep freeing victims until the page
+        for ``s``'s next write exists."""
         while True:
             try:
                 self._alloc_page(s.index, lp)
@@ -856,6 +1174,28 @@ class BatchScheduler:
             except OutOfPages:
                 self.oops += 1
                 self._preempt_victim(s)
+
+    def _cow_write(self, s: _Slot, lp: int) -> None:
+        """Copy-on-write: ``s`` is about to write into a page another
+        stream (or the radix cache) still references.  Allocate a private
+        copy, copy the page on the device across every cache tree this
+        engine holds (K, V, ``pos`` and int8 scales), and repoint the block
+        table; co-holders keep reading the original."""
+        while True:
+            try:
+                src, dst = self.pool.cow_page(s.index, lp)
+                break
+            except OutOfPages:
+                self.oops += 1
+                freed = self.pool.evict_prefix(1)
+                if freed:
+                    self._reset_freed(freed)
+                    continue
+                self._preempt_victim(s)
+        self._tbl_device = None
+        for tree in self._trees():
+            _copy_pages_tree(tree, src, dst)
+        s.stats.cow_copies += 1
 
     def _preempt(self, s: _Slot) -> None:
         """Checkpoint one active stream and free its slot and pages.
@@ -889,6 +1229,13 @@ class BatchScheduler:
         s.draft = []
         resume_pos = len(req.prompt) + len(s.tokens) - 1
         use_swap = self.preemption == "swap"
+        if (use_swap and self._adaptive is not None
+                and self._adaptive.cfg.adapt_resume_mode
+                and self._resume_cost is not None):
+            # per-victim mode choice: short contexts re-prefill cheaper
+            # than their KV round-trips the host; long contexts flip
+            use_swap = self._resume_cost.prefer_swap(
+                resume_pos, int(resume_pos * self._kv_token_bytes()))
         # cloud KV at or after the resume point is rebuilt by the rerun;
         # everything before it replays from the consumed-upload log
         ck_pkts = [e for e in s.cloud_pkts if e[0] < resume_pos]
@@ -923,6 +1270,15 @@ class BatchScheduler:
         s.emit_ts = []
         s.events = []
         s.cloud_pkts = []
+
+    def _kv_token_bytes(self) -> float:
+        """Device bytes of KV per resident token (paged layout: the pooled
+        cache bytes over the pool's token capacity), the quantity the
+        swap cost model prices per victim."""
+        if self._kv_tok_bytes is None:
+            cap = self.pool.num_pages * self.pool.page_size
+            self._kv_tok_bytes = self.kv_cache_bytes() / max(1, cap)
+        return self._kv_tok_bytes
 
     def _swap_out_slot(self, s: _Slot) -> tuple:
         """Copy the slot's physical pages (every cache tree this engine
@@ -977,6 +1333,16 @@ class BatchScheduler:
         req = ck.req
         prompt = np.asarray(req.prompt, np.int32)
         resume_pos = len(prompt) + len(ck.tokens) - 1
+        if self._resume_cost is not None:
+            # bill the chosen resume mode's modelled cost into this
+            # engine's virtual clock: static and adaptive configurations
+            # pay the same physics, they only choose differently
+            if ck.swap_key is not None:
+                kv_bytes = int(ck.swap_pages * self.pool.page_size
+                               * self._kv_token_bytes())
+                self.vnow += self._resume_cost.swap_s(kv_bytes)
+            else:
+                self.vnow += self._resume_cost.recompute_s(resume_pos)
         if self.mode == "collm":
             self.cm.restore_uploads(req.device_id, ck.uploads)
         if ck.swap_key is not None:
@@ -1006,6 +1372,9 @@ class BatchScheduler:
         bind them in the slot's block table (pages are row-agnostic)."""
         if snap["trees"] is None or not len(snap["logical"]):
             return
+        short = len(snap["logical"]) - self.pool.free_pages
+        if short > 0:       # reclaim cached prefix pages for the rebind
+            self._reset_freed(self.pool.evict_prefix(short))
         padded = rebind_slot_pages(self.pool, slot.index, snap["logical"])
         self._tbl_device = None
         trees = snapshot_to_device(snap["trees"], self.model.device)
@@ -1087,23 +1456,46 @@ class BatchScheduler:
         the same tick).  When every active row waits on the channel, the
         virtual clock jumps to the next arrival or deadline instead."""
         self._tick_no += 1
+        if self._adaptive is not None:
+            self._adaptive.on_tick(self._tick_no, self.pool,
+                                   self.preemptions, self.oops)
         for idx in self._preempt_schedule.get(self._tick_no, ()):
-            if self.slots[idx].active:        # forced preemption
+            # forced preemption (mid-prefill slots are never preemptible:
+            # they have no resume point yet)
+            if (self.slots[idx].active
+                    and self.slots[idx].prefill_prompt is None):
                 self._preempt(self.slots[idx])
         self._resolve()
-        runnable = [s for s in self.slots if self._runnable(s)]
+        # chunked prefill: every mid-prefill slot advances by ONE
+        # page-sized chunk per tick, interleaved with the other slots'
+        # decode below (sharers stalled on unfilled pages just wait)
+        prefilling = [s for s in self.slots
+                      if s.active and s.prefill_prompt is not None]
+        for s in prefilling:
+            self._prefill_tick(s)
+        busy = {s.index for s in prefilling}
+        runnable = [s for s in self.slots
+                    if self._runnable(s) and s.index not in busy]
         if not runnable:
-            if any(s.active for s in self.slots):
+            # a prefill chunk IS progress: do not jump the virtual clock
+            if any(s.active for s in self.slots) and not prefilling:
                 self._advance_idle()
                 self._resolve()
             return
         if self.pool is not None:
             for s in runnable:
+                if not s.active:
+                    continue
                 # alloc-on-write: this tick writes KV at s.pos; an empty
-                # free list preempts a victim stream (never s itself)
+                # free list preempts a victim stream (never s itself).  A
+                # mapped but shared page (radix prefix or cached terminal
+                # tail) is split before the write: copy-on-write
                 lp = s.pos // self.pool.page_size
-                if s.active and self.pool.block_table[s.index, lp] == -1:
+                page = self.pool.block_table[s.index, lp]
+                if page == -1:
                     self._ensure_page(s, lp)
+                elif self.pool.is_shared(int(page)):
+                    self._cow_write(s, lp)
             runnable = [s for s in runnable if s.active]  # minus victims
         tokens = np.zeros((self.B, 1), np.int64)
         pos = np.zeros((self.B,), np.int32)
@@ -1143,8 +1535,16 @@ class BatchScheduler:
         collm, ccfg = self.collm, self.ccfg
         greedy = self.sampler == "greedy"
         t0 = time.perf_counter()
-        out = collm.edge_step(tokens, self.edge_caches, pos, self._block_tbl(),
-                              with_logits=not greedy)
+        if self._mask_edge:
+            run_mask = torch.zeros((self.B,), dtype=torch.bool,
+                                   device=tokens.device)
+            run_mask[[s.index for s in runnable]] = True
+            out = collm.edge_step_masked(tokens, self.edge_caches, pos,
+                                         run_mask, self._block_tbl(),
+                                         with_logits=not greedy)
+        else:
+            out = collm.edge_step(tokens, self.edge_caches, pos,
+                                  self._block_tbl(), with_logits=not greedy)
         self.edge_caches = out.caches
         # one device->host copy per tick: exit token, exit flag, the l_ee2
         # token and every exit's confidence (float64 holds all exactly)
@@ -1577,6 +1977,11 @@ class BatchScheduler:
         for s in self.slots:
             if s.active:
                 cands.extend(p.deadline_t for p in s.pending.values())
+        if self._arrival_hint is not None and self._arrival_hint > self.vnow:
+            # open-loop replay: a queued request's future arrival is also
+            # a wake-up point (a free slot may admit it before any reply
+            # lands; jumping past it would inflate its queueing delay)
+            cands.append(self._arrival_hint)
         cands = [t for t in cands if t != math.inf]
         if not cands:
             raise RuntimeError(
@@ -1667,8 +2072,14 @@ class BatchScheduler:
         (token lists, per-request GenStats) in submission order."""
         for i, r in enumerate(requests):
             r.index = i
+            # arrival stamps are relative to the trace start: rebase them
+            # onto this engine's (possibly reused) virtual clock
             r.arrival_t += self.vnow
-        queue = collections.deque(requests)
+        # open-loop replay admits in arrival order; the sort is stable, so
+        # the closed-loop default (every arrival_t == 0) keeps submission
+        # order
+        queue = collections.deque(
+            sorted(requests, key=lambda r: (r.arrival_t, r.index)))
         results: List[Optional[List[int]]] = [None] * len(requests)
         stats: List[Optional[GenStats]] = [None] * len(requests)
         v0 = self.vnow
@@ -1678,12 +2089,19 @@ class BatchScheduler:
         # virtual times (or stale in-flight replies) into this run's trace
         self.channel.reset()
         while queue or self._preempted or any(s.active for s in self.slots):
+            self._arrival_hint = queue[0].arrival_t if queue else None
             admitted = self._admit(queue)
             self._collect(results, stats)     # finished at admission
             if any(s.active for s in self.slots):
                 self.tick()
                 self._collect(results, stats)
             elif (queue or self._preempted) and not admitted:
+                if queue and queue[0].arrival_t > self.vnow:
+                    # open-loop gap: nothing running and the next request
+                    # has not arrived; jump the clock there (pure idle)
+                    self._idle_s += queue[0].arrival_t - self.vnow
+                    self.vnow = queue[0].arrival_t
+                    continue
                 # nothing active, nothing admitted or resumed, yet work
                 # remains: no tick can ever free pages (an idle pool
                 # resumes ignoring the watermark; an admission that
@@ -1694,6 +2112,7 @@ class BatchScheduler:
                     f"pool {self.pool and self.pool.free_pages} pages free")
         # replies still in flight belong to retired slots — discard them
         self.late_drops += self.channel.drop_in_flight()
+        self._arrival_hint = None
         self.last_virtual_time = self.vnow - v0
         return results, stats
 
@@ -1714,8 +2133,9 @@ def run_multi(scheds: Sequence[BatchScheduler],
     for reqs, s in zip(request_lists, scheds):
         for i, r in enumerate(reqs):
             r.index = i
-            r.arrival_t += s.vnow
-        queues.append(collections.deque(reqs))
+            r.arrival_t += s.vnow     # rebase trace time onto engine clock
+        queues.append(collections.deque(
+            sorted(reqs, key=lambda r: (r.arrival_t, r.index))))
     results = [[None] * len(rs) for rs in request_lists]
     stats = [[None] * len(rs) for rs in request_lists]
     v0 = [s.vnow for s in scheds]
@@ -1739,11 +2159,19 @@ def run_multi(scheds: Sequence[BatchScheduler],
         for i, s in enumerate(scheds):
             if not busy(i):
                 continue
+            s._arrival_hint = (queues[i][0].arrival_t if queues[i]
+                               else None)
             progressed |= s._admit(queues[i])
             s._collect(results[i], stats[i])
             if any(sl.active for sl in s.slots):
                 s.tick()
                 s._collect(results[i], stats[i])
+                progressed = True
+            elif queues[i] and queues[i][0].arrival_t > s.vnow:
+                # open-loop gap: this engine is empty until its next
+                # arrival; jumping its private clock there IS progress
+                s._idle_s += queues[i][0].arrival_t - s.vnow
+                s.vnow = queues[i][0].arrival_t
                 progressed = True
         if not progressed:
             raise RuntimeError(
@@ -1752,21 +2180,23 @@ def run_multi(scheds: Sequence[BatchScheduler],
                 "exhausted with nothing running?)")
     for s, v in zip(scheds, v0):
         s.late_drops += s.channel.drop_in_flight()
+        s._arrival_hint = None
         s.last_virtual_time = s.vnow - v
     makespan = max(s.last_virtual_time for s in scheds)
     return results, stats, makespan
 
 
-def _refuse(what: str, options: Dict[str, tuple]) -> None:
-    """Raise ``NotImplementedError`` for every option that is on, naming
-    the ROADMAP queue item that ports it; ``options``: name -> (on,
-    item)."""
-    bad = {name: item for name, (on, item) in options.items() if on}
-    if bad:
-        raise NotImplementedError(
-            f"{what} {sorted(bad)} are not ported yet ("
-            + ", ".join(f"{n}: ROADMAP {i}" for n, i in sorted(bad.items()))
-            + ")")
+def _fetch_decisions(decisions) -> Dict[int, tuple]:
+    """Row 0 of each exit's decision as {layer: (token, confidence,
+    logits)}: the tokens and confidences read back to the host in ONE
+    copy (float64 holds both exactly); the logits stay on the device."""
+    layers = sorted(decisions)
+    host = torch.stack([v for l in layers
+                        for v in (decisions[l].token[0].double(),
+                                  decisions[l].confidence[0].double())]
+                       ).cpu().tolist()
+    return {l: (int(host[2 * i]), host[2 * i + 1], decisions[l].logits)
+            for i, l in enumerate(layers)}
 
 
 class ServingSystem:
@@ -1794,7 +2224,8 @@ class ServingSystem:
                  arrivals: Optional[Sequence[float]] = None,
                  slo_ttft_s: Optional[float] = None,
                  slo_tpot_s: Optional[float] = None,
-                 adaptive: Any = None, resume_cost: Any = None
+                 adaptive: Optional[AdaptiveConfig] = None,
+                 resume_cost: Optional[ResumeCostModel] = None
                  ) -> Dict[str, Any]:
         """mode: collm | standalone | cloud.  One client per prompt, decoded
         by the continuous-batching ``BatchScheduler`` (num_slots streams in
@@ -1812,14 +2243,19 @@ class ServingSystem:
         admits optimistically and preempts victims when pages run dry;
         ``watermark`` holds that many free pages back from admission as
         decode headroom, and ``preempt_schedule`` ([(tick, slot), ...])
-        forces preemptions of given slots at given ticks.  Refused with
-        their ROADMAP item: open-loop ``arrivals``, SLO targets,
-        ``adaptive`` and ``resume_cost`` (A.6).  Returns the JAX package's
+        forces preemptions of given slots at given ticks.
+
+        Open-loop replay: ``arrivals`` stamps one virtual arrival time per
+        prompt (admission waits for it); ``slo_ttft_s`` / ``slo_tpot_s``
+        arm per-request SLO targets the stats fold into
+        ``slo_attainment``; ``adaptive`` turns on the engine's control
+        loops and ``resume_cost`` prices preemption resumes into the
+        virtual clock (both arms of a static-against-adaptive comparison
+        should share one ``ResumeCostModel``).  Returns the JAX package's
         result keys."""
-        _refuse("generate options", {
-            "arrivals": (arrivals is not None, "A.6"),
-            "slo": (slo_ttft_s is not None or slo_tpot_s is not None,
-                    "A.6")})
+        if arrivals is not None and len(arrivals) != len(prompts):
+            raise ValueError(f"need one arrival time per prompt "
+                             f"({len(arrivals)} != {len(prompts)})")
         slots = num_slots or max(1, min(len(prompts), 8))
         longest = max(len(p) for p in prompts)
         max_seq = max_seq or (longest + max_new + 8)
@@ -1829,7 +2265,11 @@ class ServingSystem:
         key = (mode, slots, max_seq, sampler, temperature, top_k, seed,
                max_ctx, num_pages,
                id(channel) if channel is not None else None,
-               tick_time_s, overlap, fallback_after, watermark, sched_tuple)
+               tick_time_s, overlap, fallback_after, watermark, sched_tuple,
+               dataclasses.astuple(adaptive) if adaptive is not None
+               else None,
+               dataclasses.astuple(resume_cost) if resume_cost is not None
+               else None)
         sched = self._schedulers.get(key)
         if sched is None:
             # bounded cache: each scheduler owns pooled device caches
@@ -1846,7 +2286,10 @@ class ServingSystem:
                 resume_cost=resume_cost)
             self._schedulers[key] = sched
         reqs = [Request(device_id=f"edge-{i}", prompt=np.asarray(p),
-                        max_new=max_new, eos_id=eos_id)
+                        max_new=max_new, eos_id=eos_id,
+                        arrival_t=(float(arrivals[i])
+                                   if arrivals is not None else 0.0),
+                        slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s)
                 for i, p in enumerate(prompts)]
         results, stats = sched.run(reqs)
         return {"tokens": results, "stats": _aggregate(stats),
@@ -1856,7 +2299,8 @@ class ServingSystem:
                 "late_drops": sched.late_drops,
                 "channel_stats": sched.channel.stats.as_row(),
                 "preemptions": sched.preemptions, "oops": sched.oops,
-                "adaptive": None,
+                "adaptive": (sched._adaptive.as_row()
+                             if sched._adaptive is not None else None),
                 "pool_stats": (dataclasses.asdict(sched.pool.stats)
                                if sched.pool is not None else None)}
 
@@ -1887,18 +2331,18 @@ class ServingSystem:
         with).  ``channels`` optionally gives one ``CloudChannel`` per
         engine, e.g. ``AsyncSimChannel``s sharing one ``CloudServicePoint``;
         the default is a ``SyncChannel`` each.  ``preempt_schedules``
-        gives each engine its ``preempt_schedule`` (or None).  Refused with
-        their ROADMAP item: open-loop ``arrivals`` and SLO targets (A.6).
+        gives each engine its ``preempt_schedule`` (or None).
+        ``arrivals`` / ``slo_ttft_s`` / ``slo_tpot_s`` mirror
+        ``generate()``: each engine admits its requests in arrival order.
         Returns the JAX package's result keys, with ``n_engines`` and, in
         cloud-batch mode, the batcher's stats row."""
-        _refuse("generate_multi options", {
-            "arrivals": (arrivals is not None, "A.6"),
-            "slo": (slo_ttft_s is not None or slo_tpot_s is not None,
-                    "A.6")})
         n = n_engines or len(prompts)
         if channels is not None and len(channels) != n:
             raise ValueError(f"need one channel per engine "
                              f"({len(channels)} != {n})")
+        if arrivals is not None and len(arrivals) != len(prompts):
+            raise ValueError(f"need one arrival time per prompt "
+                             f"({len(arrivals)} != {len(prompts)})")
         longest = max(len(p) for p in prompts)
         max_seq = max_seq or (longest + max_new + 8)
         max_seq = max(max_seq, _bucket(longest))
@@ -1919,7 +2363,10 @@ class ServingSystem:
         for j, p in enumerate(prompts):
             per_engine[j % n].append(Request(
                 device_id=f"edge-{j}", prompt=np.asarray(p),
-                max_new=max_new, eos_id=eos_id))
+                max_new=max_new, eos_id=eos_id,
+                arrival_t=(float(arrivals[j])
+                           if arrivals is not None else 0.0),
+                slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s))
             assign[j % n].append(j)
         results, stats, makespan = run_multi(scheds, per_engine)
         tokens: List[Optional[List[int]]] = [None] * len(prompts)

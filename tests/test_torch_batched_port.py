@@ -9,7 +9,8 @@ scheduler reuses the freed pages; an impossible request raises; a masked
 cloud step leaves the masked-out rows' caches bit for bit; every option
 that is not ported raises ``NotImplementedError`` naming its ROADMAP item,
 the four that this port's async-channel slice accepted now run, and so do
-the five of speculative drafting and preemption.
+the five of speculative drafting and preemption and the six of chunked
+prefill, prefix sharing, open-loop arrivals, SLOs and adaptive control.
 """
 import re
 
@@ -22,6 +23,8 @@ from test_torch_batched import (COUNTERS, LAYOUTS, LENS, MAX_NEW,  # noqa: E402
                                 SLOTS, pair)
 from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
 from repro_torch.core.transport import CloudChannel, quantize  # noqa: E402
+from repro_torch.serving.adaptive import (AdaptiveConfig,  # noqa: E402
+                                          ResumeCostModel)
 from repro_torch.serving.cloud_batcher import CloudBatcher  # noqa: E402
 from repro_torch.serving.engine import (BatchScheduler, Request,  # noqa: E402
                                         ServingSystem)
@@ -141,38 +144,73 @@ class _OtherChannel(CloudChannel):
     pass
 
 
-# still refused: option -> (generate kwargs, ROADMAP item that ports it)
-REFUSED_GENERATE = {
-    "adaptive": (dict(adaptive=object()), "A.6"),
-    "resume_cost": (dict(resume_cost=object()), "A.6"),
-    "arrivals": (dict(arrivals=[0.0] * len(LENS)), "A.6"),
-    "slo": (dict(slo_ttft_s=1.0), "A.6"),
-}
+# still refused: CollmConfig field -> (config kwargs, ROADMAP item)
 REFUSED_CONFIG = {
-    "chunked_prefill": (dict(kv_layout="paged", chunked_prefill=True),
-                        "A.5"),
-    "prefix_share": (dict(kv_layout="paged", chunked_prefill=True,
-                          prefix_share=True), "A.5"),
     "cloud_mesh": (dict(cloud_mesh=(1, 1)), "A.11"),
 }
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED_GENERATE) + sorted(
-    REFUSED_CONFIG))
+@pytest.mark.parametrize("name", sorted(REFUSED_CONFIG))
 def test_refused_options_raise(pair, name):
     """Every option not ported yet raises, naming its ROADMAP item."""
-    tm, prompts = pair[2], pair[3]
-    if name in REFUSED_CONFIG:
-        kw, item = REFUSED_CONFIG[name]
-        with pytest.raises(NotImplementedError,
-                           match=f"{name}: ROADMAP {re.escape(item)}"):
-            ServingSystem(tm, CollmConfig(**kw))
-        return
-    kw, item = REFUSED_GENERATE[name]
-    tsys = ServingSystem(tm, CollmConfig(kv_layout="paged"))
+    kw, item = REFUSED_CONFIG[name]
     with pytest.raises(NotImplementedError,
                        match=f"{name}: ROADMAP {re.escape(item)}"):
-        tsys.generate(prompts, 4, **kw)
+        ServingSystem(pair[2], CollmConfig(**kw))
+
+
+@pytest.mark.parametrize("name", ["adaptive", "resume_cost", "arrivals",
+                                  "slo", "chunked_prefill", "prefix_share"])
+def test_fleet_and_prefix_options_run(pair, name):
+    """The six options refused before chunked prefill, prefix sharing and
+    fleet replay were ported now run, keep the default greedy streams,
+    and move the counter they exist for."""
+    tm, prompts = pair[2], pair[3]
+    base = ServingSystem(tm, CollmConfig(theta=0.2)).generate(
+        prompts, 6, num_slots=2)
+    paged = dict(theta=0.2, kv_layout="paged", preemption="recompute")
+    if name == "adaptive":
+        # 8 four-token pages for two streams of up to 18 tokens: the
+        # admission gate holds requests or the watermark answers a
+        # preemption
+        r = ServingSystem(tm, CollmConfig(**paged, page_size=4)).generate(
+            prompts, 6, num_slots=2, num_pages=8,
+            adaptive=AdaptiveConfig(interval_ticks=1))
+        row = r["adaptive"]
+        assert row["gate_holds"] + row["watermark_raises"] > 0
+    elif name == "resume_cost":
+        # resumes are billed into the virtual clock (0 without the model)
+        r = ServingSystem(tm, CollmConfig(**paged)).generate(
+            prompts, 6, num_slots=2, num_pages=2,
+            resume_cost=ResumeCostModel())
+        assert r["preemptions"] > 0 and r["virtual_time"] > 0.0
+    elif name == "arrivals":
+        arr = [0.1 * i for i in range(len(prompts))]
+        r = ServingSystem(tm, CollmConfig(theta=0.2)).generate(
+            prompts, 6, num_slots=2, arrivals=arr)
+        assert r["virtual_time"] >= arr[-1]
+        assert len(r["stats"].ttft_s) == len(prompts)
+    elif name == "slo":
+        r = ServingSystem(tm, CollmConfig(theta=0.2)).generate(
+            prompts, 6, num_slots=2, tick_time_s=0.01, slo_ttft_s=1.0,
+            slo_tpot_s=1e-9)
+        assert r["stats"].slo_total == len(prompts)
+        assert r["stats"].slo_met == 0
+    elif name == "chunked_prefill":
+        r = ServingSystem(tm, CollmConfig(
+            theta=0.2, kv_layout="paged", page_size=4,
+            chunked_prefill=True)).generate(prompts, 6, num_slots=2)
+        assert r["stats"].prefill_chunks == sum(-(-n // 4) for n in LENS)
+    else:
+        # a repeated prompt maps the cached pages of its first run
+        r = ServingSystem(tm, CollmConfig(
+            theta=0.2, kv_layout="paged", page_size=4, chunked_prefill=True,
+            prefix_share=True)).generate(prompts + [prompts[0]], 6,
+                                         num_slots=2)
+        assert r["stats"].prefix_hit_tokens > 0
+        assert r["tokens"][-1] == base["tokens"][0]
+        r["tokens"] = r["tokens"][:-1]
+    assert r["tokens"] == base["tokens"]
 
 
 @pytest.mark.parametrize("name", ["sampler", "channel", "fallback_after",

@@ -12,6 +12,11 @@ with their rewinds, recompute and swap preemption (float32 and int8
 pages), and drafts in flight across a preemption behind the
 ``CloudBatcher``; a rewind of paged rows whose block table has unmapped
 entries, and an int8 swap round trip (byte-exact), are checked directly.
+Chunked prefill too: a chunk's int8 page write (one ``quantize_kv_write``
+launch for its tokens) against the plain version byte for byte, chunk
+attention on the card against the CPU, a copy-on-write page copy of an
+int8 pool (byte-exact), and prefix sharing with cache eviction behind the
+``CloudBatcher`` (the card equals the CPU).
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -47,7 +52,8 @@ from repro_torch.kernels.quantize.ops import (  # noqa: E402
     quantize_int8, quantize_kv_scatter, quantize_kv_write)
 from repro_torch.kernels.quantize.ref import (  # noqa: E402
     quantize_int8_ref, quantize_kv_scatter_ref, quantize_kv_write_ref)
-from repro_torch.models.attention import quantize_kv_rows  # noqa: E402
+from repro_torch.models.attention import (chunk_rows,  # noqa: E402
+                                          quantize_kv_rows)
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.serving.engine import ServingSystem  # noqa: E402
 
@@ -746,3 +752,144 @@ def test_int8_swap_roundtrip_on_the_card_is_byte_exact(cuda):
     for key, leaf in snap[0][0]["self"].items():
         assert torch.equal(again[0][0]["self"][key], leaf), key
     assert swap.stats.bytes_out == swap.stats.bytes_in > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_quantize_kv_chunk_write_kernel(cuda, d, dtype):
+    """A chunk's int8 page write in one launch against its plain version,
+    byte for byte: stream 0's final chunk (11 of 16 tokens, the pads
+    masked) at position 32, stream 1's full chunk at 16 through a table
+    whose page there is unmapped (all 16 tokens to the trash page)."""
+    rng = np.random.default_rng(d)
+    kvh, n_lp = 4, 4
+    pool = _kv_pool(rng, 1 + 2 * n_lp, kvh, d, cuda)
+    tbl = (1 + rng.permutation(2 * n_lp)).reshape(2, n_lp).astype(np.int32)
+    tbl[1, 1] = -1
+    pos = _t(np.array([32, 16], np.int32), cuda)
+    mask = _t(np.stack([np.arange(PS) < 11, np.ones(PS, bool)]), cuda)
+    rows = chunk_rows(pos, _t(tbl, cuda), mask, PS)
+    k = _t((rng.normal(size=(2 * PS, kvh, d)) * 5).astype(np.float32), cuda,
+           dtype)
+    v = _t((rng.normal(size=(2 * PS, kvh, d)) * 5).astype(np.float32), cuda,
+           dtype)
+    stale = pool["pos"].clone()
+    want = quantize_kv_write_ref(_clone(pool), k, v, *rows)
+    before = quantize_kv_write.launches
+    got = quantize_kv_write(pool, k, v, *rows)
+    torch.cuda.synchronize()
+    assert quantize_kv_write.launches == before + 1
+    _same_kv_pool(got, want)
+    # the real tokens' markers land; the pads leave their slots as they
+    # were (a freshly allocated page's markers are -1 already)
+    page = int(tbl[0, 2])
+    assert torch.equal(got["pos"][page][:11].cpu(),
+                       torch.arange(32, 43, dtype=torch.int32))
+    assert torch.equal(got["pos"][page][11:], stale[page][11:])
+
+
+@pytest.mark.parametrize("mask_kind", ["tokens", "rows"])
+@torch.no_grad()
+def test_chunk_attention_on_the_card_matches_cpu(cuda, mask_kind):
+    """``chunk_attention_paged`` over a float32 pool on the card equals the
+    CPU (attention tolerance 2e-5): a full chunk then a padded one for
+    row 0, a row with no page mapped, a row masked out per row."""
+    from repro_torch.models.attention import (chunk_attention_paged,
+                                              init_paged_attn_cache)
+    cpu = build_model(PAGED_SMALL, device="cpu", seed=14)
+    gpu = build_model(PAGED_SMALL, device=cuda, seed=14)
+    gpu.load_state_dict(cpu.state_dict())
+    tbl = np.array([[3, 5, -1], [-1, -1, -1], [1, 2, 7]], np.int32)
+    rng = np.random.default_rng(14)
+    pools = {str(m.device): init_paged_attn_cache(PAGED_SMALL, 9, PS,
+                                                  device=m.device)
+             for m in (cpu, gpu)}
+    for step, clen in enumerate((PS, 5)):
+        pos = np.array([step * PS, 0, step * PS], np.int32)
+        x = rng.normal(size=(3, PS, PAGED_SMALL.d_model)).astype(np.float32)
+        wm = (np.tile(np.arange(PS) < clen, (3, 1)) if mask_kind == "tokens"
+              else np.array([True, True, step == 0]))
+        outs = []
+        for m in (cpu, gpu):
+            dev = m.device
+            y, _ = chunk_attention_paged(
+                m.layers[0].attn, PAGED_SMALL, _t(x, dev), pools[str(dev)],
+                _t(pos, dev), _t(tbl, dev), write_mask=_t(wm, dev))
+            outs.append(y.cpu())
+        torch.testing.assert_close(outs[1], outs[0], atol=2e-5, rtol=0)
+    got, want = pools[str(gpu.device)], pools["cpu"]
+    assert torch.equal(got["pos"].cpu(), want["pos"])
+    torch.testing.assert_close(got["kp"][1:].cpu(), want["kp"][1:],
+                               atol=2e-5, rtol=0)
+
+
+def test_cow_copy_of_an_int8_pool_on_the_card_is_byte_exact(cuda):
+    """The device half of a copy-on-write split on an int8 pool: the
+    target page gets every byte of the source page's codes, scales and
+    markers, no other page moves, and the card equals the CPU."""
+    from repro_torch.serving.cloud_batcher import _copy_pages_tree
+    rng = np.random.default_rng(15)
+    pool = _kv_pool(rng, 8, 4, 128, "cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        tree = {0: [{"self": {k: v.clone().to(dev)
+                              for k, v in pool.items()}}]}
+        _copy_pages_tree(tree, 3, 6)
+        out[str(dev)] = {k: v.cpu() for k, v in tree[0][0]["self"].items()}
+    for k, leaf in pool.items():
+        got = out[str(cuda)][k]
+        assert got.numpy().tobytes() == out["cpu"][k].numpy().tobytes(), k
+        assert torch.equal(got[6], leaf[3]), k
+        keep = [i for i in range(8) if i != 6]
+        assert torch.equal(got[keep], leaf[keep]), k
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+@torch.no_grad()
+def test_prefix_share_with_eviction_behind_the_batcher_on_the_card(
+        cuda, kv_dtype):
+    """4 single-slot engines with chunked prefill and prefix sharing behind
+    one ``CloudBatcher`` whose pool is too small to keep every cached
+    prefix: the batcher maps shared pages, evicts (and resets on the
+    device) cache pages under pressure, and the card equals the CPU in
+    streams, counters and both pools' statistics."""
+    import dataclasses
+    from repro_torch.serving.cloud_batcher import CloudBatcher
+    from repro_torch.serving.engine import (BatchScheduler, Request,
+                                            run_multi)
+    cpu = build_model(PAGED_SMALL, device="cpu", seed=13)
+    gpu = build_model(PAGED_SMALL, device=cuda, seed=13)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(13)
+    pre = rng.integers(0, PAGED_SMALL.vocab_size, 40)
+    prompts = [np.concatenate([pre, rng.integers(0, PAGED_SMALL.vocab_size,
+                                                 5 + 7 * i)])
+               for i in range(8)]
+    runs = []
+    for m in (cpu, gpu):
+        system = ServingSystem(m, CollmConfig(
+            theta=1.0, kv_layout="paged", kv_dtype=kv_dtype,
+            chunked_prefill=True, prefix_share=True))
+        batcher = CloudBatcher(system.collm, system.cloud.cm, 4, 128,
+                               num_pages=16)
+        scheds = [BatchScheduler(system.collm, system.cloud.cm, 1, 128,
+                                 cloud_batcher=batcher) for _ in range(4)]
+        reqs = [[] for _ in range(4)]
+        for j, p in enumerate(prompts):
+            reqs[j % 4].append(Request(device_id=f"edge-{j}", prompt=p,
+                                       max_new=12))
+        tokens, stats, _ = run_multi(scheds, reqs)
+        runs.append((tokens, [[dataclasses.astuple(s) for s in e]
+                              for e in stats],
+                     dataclasses.asdict(batcher.pool.stats),
+                     {k: v for k, v in batcher.stats.as_row().items()
+                      if k != "cloud_time_s"},
+                     [dataclasses.asdict(s.pool.stats) for s in scheds]))
+    (t_c, s_c, bp_c, b_c, e_c), (t_g, s_g, bp_g, b_g, e_g) = runs
+    assert t_g == t_c and bp_g == bp_c and b_g == b_c and e_g == e_c
+    for eng_g, eng_c in zip(s_g, s_c):
+        for g, c in zip(eng_g, eng_c):
+            # every counter; host seconds (edge/cloud time) differ
+            assert [x for x in g if isinstance(x, int)] == \
+                [x for x in c if isinstance(x, int)]
+    assert bp_g["prefix_evictions"] >= 1 and b_g["prefix_hit_tokens"] > 0

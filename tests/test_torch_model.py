@@ -322,10 +322,45 @@ def test_collm_rejects_unported_features():
                        n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
                        exit_layers=(1,))
     model = Model(cfg, device="cpu")
-    # the paged layout is ported (tests/test_torch_batched.py); chunked
-    # prefill on it is not
-    CoLLM(model, CollmConfig(kv_layout="paged"))
-    with pytest.raises(NotImplementedError, match="chunked_prefill"):
-        CoLLM(model, CollmConfig(kv_layout="paged", chunked_prefill=True))
+    # the paged layout and chunked prefill on it are ported
+    # (tests/test_torch_batched.py, tests/test_torch_prefix.py); the cloud
+    # mesh is not
+    CoLLM(model, CollmConfig(kv_layout="paged", chunked_prefill=True))
+    with pytest.raises(NotImplementedError, match="cloud_mesh"):
+        CoLLM(model, CollmConfig(cloud_mesh=(1, 1)))
+    with pytest.raises(ValueError, match="paged"):
+        CoLLM(model, CollmConfig(chunked_prefill=True))
     with pytest.raises(ValueError):
         CoLLM(model, CollmConfig(wire_format="bfloat16"))
+
+
+@torch.no_grad()
+def test_collm_prefill_chunk_runs():
+    """Chunked prefill on the paged layout runs: a 13-token prompt in
+    page-sized chunks writes its positions' markers into the pages the
+    table maps, and its l_ee1 hidden equals the monolithic prefill's."""
+    cfg = TModelConfig(name="t", arch_type="dense", n_layers=2, d_model=32,
+                       n_heads=2, n_kv_heads=2, d_ff=64, vocab_size=64,
+                       exit_layers=(1,))
+    model = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    collm = CoLLM(model, CollmConfig(kv_layout="paged", page_size=8,
+                                     chunked_prefill=True))
+    prompt = torch.randint(0, 64, (1, 13),
+                           generator=torch.Generator().manual_seed(1))
+    caches = collm.init_edge_cache_paged(1, 4, 8)
+    tbl = torch.tensor([[3, 1, -1]], dtype=torch.int32)
+    chunks = []
+    for pos0 in (0, 8):
+        clen = min(8, 13 - pos0)
+        chunk = torch.zeros((1, 8), dtype=torch.long)
+        chunk[0, :clen] = prompt[0, pos0:pos0 + clen]
+        _, h1, caches = collm.edge_prefill_chunk(chunk, pos0, clen, caches,
+                                                 tbl)
+        chunks.append(h1[:, :clen])
+    _, want, _ = collm.edge_prefill({"tokens": prompt},
+                                    collm.init_edge_cache(1, 16))
+    _close(torch.cat(chunks, dim=1), want.numpy())
+    pos = caches[0][0]["self"]["pos"]
+    assert torch.equal(pos[3], torch.arange(8, dtype=torch.int32))
+    assert torch.equal(pos[1][:5], torch.arange(8, 13, dtype=torch.int32))
+    assert torch.all(pos[1][5:] == -1) and torch.all(pos[[2, 4]] == -1)

@@ -13,13 +13,13 @@ reassigned); deadline misses that cancel queued batcher entries.  Each
 case holds the tokens, every ``GenStats`` counter and virtual-time list,
 ``virtual_time``, ``late_drops``, ``channel_stats``, the shared service
 point's ``batches`` / ``busy_s`` and the ``batcher`` row (all but its host
-``cloud_time_s``) equal to JAX's.  The batcher's methods that serve
-features not ported yet raise, naming their ROADMAP item; those of draft
-verification and preemption run (``tests/test_torch_spec.py`` and
-``tests/test_torch_preemption.py`` hold them against JAX).
+``cloud_time_s``) equal to JAX's.  The batcher's methods of draft
+verification, preemption and chunked admission with prefix sharing run
+(``tests/test_torch_spec.py``, ``tests/test_torch_preemption.py`` and
+``tests/test_torch_prefix.py`` hold them against JAX), and so do
+``generate_multi``'s open-loop arrivals and SLO targets.
 """
 import dataclasses
-import re
 
 import numpy as np
 import pytest
@@ -174,27 +174,60 @@ def test_batched_equals_fifo_and_beats_it_in_virtual_time(pair, jax_runs):
                 and b_svc[2] < f_svc[2])
 
 
-UNPORTED = {"prefix_hit": "A.5", "admit_begin": "A.5", "admit_chunk": "A.5",
-            "pages_filled": "A.5"}
+@pytest.mark.parametrize("method", ["admit_begin", "admit_chunk",
+                                    "pages_filled", "prefix_hit"])
+@torch.no_grad()
+def test_batcher_prefix_methods_run(pair, method):
+    """The four batcher methods refused before chunked prefill and prefix
+    sharing were ported now run on a paged pool with the prefix cache,
+    each moving its counter: a second prompt behind the first one's full
+    pages maps them (``prefix_hit`` / ``admit_begin``), waits for them
+    (``pages_filled``) and computes only its suffix (``admit_chunk``)."""
+    tsys = ServingSystem(pair[2], CollmConfig(
+        kv_layout="paged", page_size=4, chunked_prefill=True,
+        prefix_share=True))
+    collm = tsys.collm
+    batcher = CloudBatcher(collm, tsys.cloud.cm, 2, 32)
+    prompt = np.asarray(pair[3][0])[:9]              # 2 full pages + 1
+    shared = batcher.admit_begin("edge-0", prompt, 9, 16)
+    assert shared == [] and batcher.stats.prefills == 1
+    slot0 = tsys.cloud.cm.cloud_slot("edge-0")
+    full = [int(p) for p in batcher.pool.block_table[slot0, :2]]
+    assert not batcher.pages_filled(full)            # not computed yet
+    d = collm.model.cfg.d_model
+    h1 = torch.randn(1, 4, d, generator=torch.Generator().manual_seed(0))
+    logits = batcher.admit_chunk("edge-0", h1, 0, 4)
+    assert tuple(logits.shape) == (1, collm.model.cfg.vocab_size)
+    assert batcher.stats.prefill_chunks == 1
+    assert batcher.pages_filled(full[:1]) and not batcher.pages_filled(full)
+    batcher.admit_chunk("edge-0", h1, 4, 4)
+    assert batcher.pages_filled(full)
+    other = np.concatenate([prompt[:8], [1, 2, 3]])
+    assert batcher.prefix_hit(other) == 2
+    got = batcher.admit_begin("edge-1", other, 11, 16, hit_pages=2)
+    assert got == full
+    assert batcher.stats.prefix_hit_tokens == 8
+    assert batcher.pool.stats.prefix_hit_tokens == 8
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED))
-def test_unported_batcher_methods_raise(pair, method):
-    tsys = ServingSystem(pair[2], CollmConfig(kv_layout="paged"))
-    batcher = CloudBatcher(tsys.collm, tsys.cloud.cm, 2, 32)
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"ROADMAP {UNPORTED[method]}")):
-        getattr(batcher, method)("edge-0", 0)
-
-
-@pytest.mark.parametrize("name,kw,item", [
-    ("arrivals", dict(arrivals=[0.0, 0.1]), "A.6"),
-    ("slo", dict(slo_tpot_s=0.05), "A.6")])
-def test_generate_multi_refuses_unported_options(pair, name, kw, item):
+@pytest.mark.parametrize("name", ["arrivals", "slo"])
+def test_generate_multi_fleet_options_run(pair, name):
+    """``generate_multi``'s open-loop arrivals and SLO targets, refused
+    before fleet replay was ported, now run: arrivals stretch the virtual
+    makespan without changing a token, and an impossible per-token target
+    is missed by every stream."""
     tsys = ServingSystem(pair[2], CollmConfig())
-    with pytest.raises(NotImplementedError,
-                       match=re.escape(f"{name}: ROADMAP {item}")):
-        tsys.generate_multi(pair[3][:2], 4, **kw)
+    prompts = pair[3][:2]
+    base = tsys.generate_multi(prompts, 4, tick_time_s=0.01)
+    if name == "arrivals":
+        r = tsys.generate_multi(prompts, 4, tick_time_s=0.01,
+                                arrivals=[0.0, 0.7])
+        assert r["virtual_time"] >= 0.7 > base["virtual_time"]
+    else:
+        r = tsys.generate_multi(prompts, 4, tick_time_s=0.01,
+                                slo_tpot_s=1e-9)
+        assert r["stats"].slo_total == 2 and r["stats"].slo_met == 0
+    assert r["tokens"] == base["tokens"]
 
 
 @pytest.mark.parametrize("method", ["submit_draft", "invalidate", "restore",

@@ -407,9 +407,30 @@ def test_page_pool_allocates_like_jax():
         dataclasses.asdict(pools[1].stats)
 
 
-def test_prefix_cache_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        PagePool(6, 4, 2, 8, prefix_cache=True)
+def test_prefix_cache_pool_shares_pages():
+    """The radix prefix cache, refused before prefix sharing was ported,
+    now runs: a second slot maps the first one's filled full pages of a
+    common prompt prefix, and the hit and the copy-on-write split move
+    their counters (``tests/test_torch_prefix.py`` holds the pool against
+    JAX's op for op)."""
+    pool = PagePool(6, 4, 2, 8, prefix_cache=True)
+    prompt = list(range(10))                  # 2 full pages + 2 tokens
+    for lp in range(3):
+        pool.alloc(0, lp)
+    pool.insert_prefix(0, prompt)
+    for lp in range(2):
+        pool.mark_filled(int(pool.block_table[0, lp]))
+    hit = pool.match_prefix(prompt[:8] + [42])
+    assert list(hit.pages) == list(pool.block_table[0, :2])
+    for lp, page in enumerate(hit.pages):
+        pool.share_page(1, lp, page)
+    pool.stats.prefix_hit_tokens += hit.hit_tokens
+    src, dst = pool.cow_page(1, 1)
+    assert src == pool.block_table[0, 1] and dst == pool.block_table[1, 1]
+    assert pool.stats.prefix_hit_tokens == 8 and pool.stats.cow_copies == 1
+    assert pool.reclaimable_pages == 0            # slot 0 still maps them
+    pool.free_slot(0)
+    assert pool.reclaimable_pages == 1            # only the cache holds it
 
 
 @pytest.mark.parametrize("seed", [0, 7, 123, 4242, 65535])

@@ -155,6 +155,50 @@ def test_serve_launcher_sim_channel_and_cloud_batch_run_on_cpu(capsys):
         serve.main(base + ["--cloud-batch", "--num-slots", "2"])
 
 
+def test_serve_launcher_chunked_prefix_share_runs_on_cpu(capsys):
+    """``--chunked-prefill --prefix-share`` puts the clients behind one
+    system prompt: its pages are mapped, not computed, after the first
+    client, and the streams keep the cloud baseline's agreement."""
+    from repro_torch.launch import serve
+    args = ["--smoke", "--device", "cpu", "--clients", "4", "--num-slots",
+            "2", "--prompt-len", "6", "--max-new", "5", "--kv-layout",
+            "paged", "--chunked-prefill", "--prefix-share", "--theta", "1.0"]
+    r = serve.main(args)
+    out = capsys.readouterr().out
+    assert "prefill_chunks=" in out and "cow_copies=" in out
+    assert r["stats"].prefix_hit_tokens > 0
+    assert [len(t) for t in r["tokens"]] == [5] * 4
+    assert "[1.0, 1.0, 1.0, 1.0]" in out        # theta 1: all cloud
+    with pytest.raises(SystemExit):
+        serve.main(["--smoke", "--device", "cpu", "--prefix-share",
+                    "--kv-layout", "paged"])
+
+
+def test_serve_launcher_fleet_replay_runs_on_cpu(capsys):
+    """``--arrival-rate`` with SLO targets replays the clients open-loop
+    in virtual time and prints the fleet line; ``--adaptive`` adds the
+    controller's row and keeps the streams."""
+    from repro_torch.launch import serve
+    base = ["--smoke", "--device", "cpu", "--clients", "4", "--prompt-len",
+            "6", "--max-new", "5", "--theta", "1.0", "--channel", "sim",
+            "--kv-layout", "paged", "--preemption", "swap"]
+    fleet = ["--arrival-rate", "20", "--arrival-cv2", "4", "--slo-ttft",
+             "0.5", "--slo-tpot", "0.05"]
+    r = serve.main(base + fleet)
+    out = capsys.readouterr().out
+    assert "fleet: ttft_p50=" in out
+    assert r["stats"].slo_total == 4 and len(r["stats"].ttft_s) == 4
+    a = serve.main(base + fleet + ["--adaptive"])
+    out = capsys.readouterr().out
+    assert "adaptive: {" in out and a["adaptive"] is not None
+    assert a["tokens"] == r["tokens"]
+    cpu = ["--smoke", "--device", "cpu"]
+    with pytest.raises(SystemExit):                     # needs --channel sim
+        serve.main(cpu + ["--arrival-rate", "20"])
+    with pytest.raises(SystemExit):                     # needs a paged pool
+        serve.main(cpu + ["--channel", "sim", "--adaptive"])
+
+
 def test_entry_points_never_fall_back_to_cpu():
     """No device means CUDA; without a card that raises instead of running
     on the CPU."""
