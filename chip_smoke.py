@@ -21,6 +21,14 @@ exit code and no result line:
    computes the same function, and the bound (bytes over 3.35 TB/s or
    operations over the peak rate of the type they run in, whichever is
    larger);
+   the same checks and times at gemma3-12b's shapes as phase 8 runs them
+   (H = 16 over KV = 8 heads of d = 256, 128-token pages and prefill
+   chunks: the ring kernel over a 4136-slot ring and over a wrapped
+   1024-slot window ring, both paged variants at 8 slots of 512-4096 keys
+   with and without the 1024-token window, the int8 page writes with a
+   4096-token scatter, the wire quantizer at d = 3840, both exit kernels
+   over the 262144 x 3840 unembedding); a bfloat16 attention output is
+   held to two bf16 ulps of its largest value, float32 to 2e-5;
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
    under deadline misses with the standalone fallback, as N engines
@@ -31,6 +39,9 @@ exit code and no result line:
    cloud, and through chunked prefill with prefix sharing (float32 and
    int8 pages, a second wave, swap preemption with cache eviction, behind
    the batched cloud), open-loop arrivals with SLOs and adaptive control;
+   and a reduced gemma3 (8 layers, a 32-token window) through
+   ``generate_sequential``, ``generate`` on dense, paged and int8 pages,
+   chunked prefill and the two-tier runtime on two CUDA streams;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -72,7 +83,19 @@ exit code and no result line:
    engines sharing behind one ``CloudBatcher``, (h) Poisson arrivals at 20
    a second with SLO targets on phase 5 (a)'s channel and (i) the same
    with adaptive control;
-8. the kernel table as one JSON line (launches: phases 3 to 7), the
+8. gemma3-12b at full width (48 layers, d_model 3840, a 1024-token
+   window in 40 layers, bfloat16, random weights; ee-llm-7b freed first),
+   with the launch counters set to 0 before and read after: (a)
+   ``generate_sequential`` with two 4096-token prompts in five modes
+   (chunked prefill attention in the global layers, banded in the local
+   ones), (b) one 32768-token prompt (its prefill time and peak memory),
+   (c) ``generate`` with 8 slots and 8 prompts of 512-4096 tokens on
+   dense, paged bf16 and paged int8 KV, (d) (c)'s paged run with chunked
+   prefill, (e) ``TwoTierRuntime`` with a 4096-token prompt on two CUDA
+   streams (θ = 1.1 with a float32 wire equals ``CoLLM.full_step``'s
+   greedy stream; float16 and int8 wire, the prompt upload whole or in
+   slices; the edge tick's host time against a synchronised cloud);
+9. the kernel table as one JSON line (launches: phases 3 to 8), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
@@ -86,6 +109,7 @@ fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -118,7 +142,13 @@ HBM_BYTES_PER_S = 3.35e12                       # H100 SXM
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12,       # dense tensor-core bf16
                   torch.float32: 67e12}         # float32 outside tensor cores
 SLEEP_CYCLES = 200_000_000                      # ~0.1 s of a busy card
-CFG = None      # ee-llm-7b's ModelConfig: the shapes of every phase
+CFG = None      # ee-llm-7b's ModelConfig: the shapes of phases 2-7
+GEMMA = "gemma3-12b"                            # phase 8, at full width
+G_PROMPT, G_LONG, G_LONG_NEW = 4096, 32768, 16  # phase 8 (a), (e); (b)
+G_LENS = (512, 640, 896, 1024, 1536, 2048, 3072, 4096)  # phase 8 (c)
+G_PAGE = 128                    # phase 8 (c), (d): 108 prompt chunks
+G_CHUNK = 512                   # phase 8 (e): prompt upload slices
+G_FILLS = (512, 4096)           # phase 2 at gemma3's shapes: paged fills
 
 
 def check(cond, msg: str) -> None:
@@ -158,6 +188,17 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def attn_tol(dtype, want: torch.Tensor) -> float:
+    """An attention output's tolerance against its plain version: 2e-5 in
+    float32; in bfloat16 two bf16 ulps of the largest output (2**-6 of
+    it), which scales with the fill (outputs shrink as about
+    sqrt(e / keys)) and stays below what a dropped page or key block
+    moves."""
+    if dtype == torch.float32:
+        return 2e-5
+    return 2.0 ** -6 * float(want.float().abs().max())
 
 
 def split_theta(stats) -> float:
@@ -245,7 +286,8 @@ def time_ring(b, n_sets, dev, gen) -> dict:
              ((pos >= 0) & (pos <= cur[:, None]))[:, None, None, :])
             for q, k, v, pos, cur in sets]
     lib = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
-        *sdpa[i % n_sets][:3], attn_mask=sdpa[i % n_sets][3]))
+        *sdpa[i % n_sets][:3], attn_mask=sdpa[i % n_sets][3],
+        enable_gqa=True))
     q, k, v, pos, cur = sets[0]
     n_valid = int(((pos >= 0) & (pos <= cur[:, None])).sum())
     nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4 + b * 4
@@ -270,7 +312,7 @@ def check_decode_attn(dev, gen) -> dict:
                              min_per=RING_MIN_KEYS)
     last = s - (splits - 1) * per             # keys of the last split
     err = 0.0
-    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+    for dtype in (torch.float32, torch.bfloat16):
         for b, n, window, masked in ((1, s, 0, False), (4, s, 0, True),
                                      (4, s, 128, False), (8, s, 0, True),
                                      (1, s, last, False), (2, 1, 0, False),
@@ -280,12 +322,12 @@ def check_decode_attn(dev, gen) -> dict:
             cur = cur.clamp(max=n - 1)
             got = decode_attn(q, k, v, pos, cur, window=window)
             want = decode_attn_ref(q, k, v, pos, cur, window=window)
-            e = max_err(got, want)
+            e, tol = max_err(got, want), attn_tol(dtype, want)
             if masked:
                 check(bool(torch.all(got[-1] == 0)), "masked row is not 0")
             print(f"decode_attn {str(dtype)[6:]} B={b} S={n} window={window}"
                   f"{' masked-row' if masked else ''}: max|err|={e:.3g} "
-                  f"(tol {tol})")
+                  f"(tol {tol:.3g})")
             check(e <= tol, f"decode_attn disagrees with its plain version")
             err = max(err, e)
     q, k, v, pos, cur = attn_inputs(1, s, torch.bfloat16, dev, gen)
@@ -304,9 +346,10 @@ def check_decode_attn(dev, gen) -> dict:
 
 def paged_inputs(dtype, dev, gen, *, holes=False, sets=1, b=SLOTS,
                  chunk=False):
-    """Float32 K/V pages at ee-llm-7b's head shape (H = KV = 32, d = 128,
-    16-token pages) and, for each of ``sets`` tables, (q, pos, tbl, cur)
-    of ``b`` rows with ragged fills of 128-552 keys, pages handed out in
+    """Float32 K/V pages at ``CFG``'s head shape in ``PAGE_SIZE``-token
+    pages (ee-llm-7b: H = KV = 32, d = 128, 16-token pages) and, for each
+    of ``sets`` tables, (q, pos, tbl, cur) of ``b`` rows with ragged fills
+    of ``FILLS`` keys (ee-llm-7b: 128-552), pages handed out in
     shuffled order.  ``holes`` leaves one row's second table entry
     unmapped, punches never-written positions into the pages and maps
     nothing for the last row (output 0).  ``chunk``: the ``b`` rows are one
@@ -362,9 +405,10 @@ def paged_pool(kp, vp, dtype, int8: bool) -> dict:
     return dict(kp=kq, vp=vq, k_scale=ks, v_scale=vs)
 
 
-def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
+def paged_bytes_ops(pool, q, pos, tbl, cur, window=0) -> tuple:
     """Bytes the call must move: the K/V (and int8 scales) of the keys
-    valid for some row, each once (a chunk's rows share their keys), the
+    valid for some row (inside its window), each once (a chunk's rows
+    share their keys), the
     position markers of its mapped pages, the table, cur, q and out;
     operations: 4 per (head, row, key valid for the row, element)."""
     h, d = q.shape[1], q.shape[2]
@@ -374,6 +418,8 @@ def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
     p = pos[tbl[rows[:, 0], rows[:, 1]].long()]          # (mapped, ps)
     c = cur[rows[:, 0]][:, None]
     valid = (p >= 0) & (p <= c)
+    if window:
+        valid &= c - p < window
     n_valid = int(valid.sum())
     # a key is read once however many rows attend to it
     ids = (tbl[rows[:, 0], rows[:, 1]].long()[:, None] * ps
@@ -387,18 +433,17 @@ def paged_bytes_ops(pool, q, pos, tbl, cur) -> tuple:
     return nbytes, 4 * h * n_valid * d
 
 
-PAGED_VARIANTS = (("decode_attn_paged", False, ((torch.float32, 2e-5),
-                                                 (torch.bfloat16, 2e-2))),
-                  ("decode_attn_paged_int8", True, ((torch.bfloat16, 2e-2),)))
+PAGED_VARIANTS = (("decode_attn_paged", False),
+                  ("decode_attn_paged_int8", True))
 
 
-def time_paged(b, n_sets, dev, gen, chunk=False) -> dict:
+def time_paged(b, n_sets, dev, gen, chunk=False, window=0) -> dict:
     """Device time of both paged variants at ``b`` rows, bf16 q, on
     ``n_sets`` tables over disjoint pages of one pool (more than the 50 MB
     L2 in all) called in turn, beside the plain version and paged_gather +
-    SDPA.  Both variants read the same tables and pages (int8 quantized
-    from them); bytes and operations are the mean over the tables, as the
-    times are."""
+    SDPA, under ``window``.  Both variants read the same tables and pages
+    (int8 quantized from them); bytes and operations are the mean over
+    the tables, as the times are."""
     from repro_torch.kernels.decode_attn.ops import decode_attn_paged
     from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
     from repro_torch.models.attention import paged_gather
@@ -406,16 +451,16 @@ def time_paged(b, n_sets, dev, gen, chunk=False) -> dict:
                                 chunk=chunk)
     h, d = CFG.n_heads, CFG.resolved_head_dim
     out = {}
-    for name, int8, _ in PAGED_VARIANTS:
+    for name, int8 in PAGED_VARIANTS:
         pool = paged_pool(kp, vp, torch.bfloat16, int8)
         scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
                   if int8 else {})
         calls = [(q, pool["kp"], pool["vp"], pos, tbl, cur)
                  for q, pos, tbl, cur in sets]
-        ms = device_ms(lambda i: decode_attn_paged(*calls[i % n_sets],
-                                                   **scales))
-        plain = device_ms(lambda i: decode_attn_paged_ref(*calls[i % n_sets],
-                                                          **scales))
+        ms = device_ms(lambda i: decode_attn_paged(
+            *calls[i % n_sets], window=window, **scales))
+        plain = device_ms(lambda i: decode_attn_paged_ref(
+            *calls[i % n_sets], window=window, **scales))
         cache = {"kp": pool["kp"], "vp": pool["vp"]}
         if int8:
             cache.update(ks=pool["k_scale"], vs=pool["v_scale"])
@@ -424,13 +469,15 @@ def time_paged(b, n_sets, dev, gen, chunk=False) -> dict:
             q, pos, tbl, cur = sets[i % n_sets]
             k, v, kpos = paged_gather(dict(cache, pos=pos), tbl)
             mask = (kpos >= 0) & (kpos <= cur[:, None])
+            if window:
+                mask &= cur[:, None] - kpos < window
             return torch.nn.functional.scaled_dot_product_attention(
                 q.view(b, h, 1, d), k.transpose(1, 2).to(q.dtype),
                 v.transpose(1, 2).to(q.dtype),
-                attn_mask=mask[:, None, None, :])
+                attn_mask=mask[:, None, None, :], enable_gqa=True)
 
         lib = device_ms(library)
-        counts = [paged_bytes_ops(pool, *s) for s in sets]
+        counts = [paged_bytes_ops(pool, *s, window=window) for s in sets]
         nbytes = sum(c[0] for c in counts) / n_sets
         ops = sum(c[1] for c in counts) / n_sets
         bnd, by = bound_ms(nbytes, ops, torch.bfloat16)
@@ -440,51 +487,63 @@ def time_paged(b, n_sets, dev, gen, chunk=False) -> dict:
 
 
 def check_decode_attn_paged(dev, gen) -> list:
-    """Both paged variants against their plain version: 8 slots with
-    ragged fills, with holes, gaps and a row with nothing mapped, with a
-    single mapped page a row, one row (its pages cut in splits), and a
-    16-token prefill chunk (16 rows over one table, phase 7).  Timed at 8
-    slots (the batched engine), at B=1 and as the chunk."""
+    """Both paged variants against their plain version, float32 and bf16
+    q, in ``PAGE_SIZE``-token pages: 8 slots with ragged fills, with
+    holes, gaps and a row with nothing mapped, with a single mapped page a
+    row, one row (its pages cut in splits), and a prefill chunk of
+    ``PAGE_SIZE`` tokens (as many rows over one table, phases 7 and 8);
+    each without a window and, for a model with one (gemma3's local
+    layers), under it, over fills past it.  Timed at 8 slots (the batched
+    engine), at B=1 and as the chunk, and at 8 slots under the window."""
     from repro_torch.kernels.decode_attn.ops import decode_attn_paged
     from repro_torch.kernels.decode_attn.ref import decode_attn_paged_ref
+    chunk = f" a {PAGE_SIZE}-token chunk"
+    windows = (0, CFG.sliding_window) if CFG.sliding_window else (0,)
     errs = {}
-    for name, int8, dtypes in PAGED_VARIANTS:
+    for name, int8 in PAGED_VARIANTS:
         err = 0.0
-        for dtype, tol in dtypes:
-            for label, b, holes in (("", SLOTS, False),
-                                    (" holes+gaps+empty row", SLOTS, True),
-                                    (" one page a row", SLOTS, False),
-                                    ("", 1, False),
-                                    (" a 16-token chunk", PAGE_SIZE, False)):
-                kp, vp, [(q, pos, tbl, cur)] = paged_inputs(
-                    dtype, dev, gen, holes=holes, b=b,
-                    chunk=label == " a 16-token chunk")
-                if label == " one page a row":
-                    tbl[:, 1:] = -1
-                pool = paged_pool(kp, vp, dtype, int8)
-                scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
-                          if int8 else {})
-                args = (q, pool["kp"], pool["vp"], pos, tbl, cur)
-                got = decode_attn_paged(*args, **scales)
-                want = decode_attn_paged_ref(*args, **scales)
-                e = max_err(got, want)
-                if holes:
-                    check(bool(torch.all(got[-1] == 0)),
-                          f"{name}: the unmapped row is not 0")
-                print(f"{name} {str(dtype)[6:]} B={b} fills "
-                      f"{cur.min().item() + 1}-{cur.max().item() + 1}"
-                      f"{label}: max|err|={e:.3g} (tol {tol})")
-                check(e <= tol, f"{name} disagrees with its plain version")
-                err = max(err, e)
+        for dtype in (torch.float32, torch.bfloat16):
+            for window in windows:
+                for label, b, holes in (("", SLOTS, False),
+                                        (" holes+gaps+empty row", SLOTS,
+                                         True),
+                                        (" one page a row", SLOTS, False),
+                                        ("", 1, False),
+                                        (chunk, PAGE_SIZE, False)):
+                    kp, vp, [(q, pos, tbl, cur)] = paged_inputs(
+                        dtype, dev, gen, holes=holes, b=b,
+                        chunk=label == chunk)
+                    if label == " one page a row":
+                        tbl[:, 1:] = -1
+                    pool = paged_pool(kp, vp, dtype, int8)
+                    scales = ({k: pool[k] for k in ("k_scale", "v_scale")}
+                              if int8 else {})
+                    args = (q, pool["kp"], pool["vp"], pos, tbl, cur)
+                    got = decode_attn_paged(*args, window=window, **scales)
+                    want = decode_attn_paged_ref(*args, window=window,
+                                                 **scales)
+                    e, tol = max_err(got, want), attn_tol(dtype, want)
+                    if holes:
+                        check(bool(torch.all(got[-1] == 0)),
+                              f"{name}: the unmapped row is not 0")
+                    print(f"{name} {str(dtype)[6:]} B={b} fills "
+                          f"{cur.min().item() + 1}-{cur.max().item() + 1}"
+                          f" window={window}{label}: max|err|={e:.3g} "
+                          f"(tol {tol:.3g})")
+                    check(e <= tol,
+                          f"{name} disagrees with its plain version")
+                    err = max(err, e)
         errs[name] = err
     # 8 slots: 4 tables over one pool of > 50 MB; B=1 and the chunk: 12
     t8, t1 = time_paged(SLOTS, 4, dev, gen), time_paged(1, 12, dev, gen)
     tc = time_paged(PAGE_SIZE, 12, dev, gen, chunk=True)
+    tw = (time_paged(SLOTS, 4, dev, gen, window=windows[-1])
+          if CFG.sliding_window else {})
     return [dict(name=name, source="src/repro_torch/csrc/decode_attn_paged.cu",
                  replaces="src/repro/kernels/decode_attn/kernel.py:236",
                  max_abs_err=errs[name], **t8[name], b1=t1[name],
-                 chunk=tc[name])
-            for name, _, _ in PAGED_VARIANTS]
+                 chunk=tc[name], **({"window": tw[name]} if tw else {}))
+            for name, _ in PAGED_VARIANTS]
 
 
 def exit_inputs(b, dtype, dev, gen, tie=None, hidden=None):
@@ -608,8 +667,8 @@ def check_quantize(dev, gen) -> dict:
 
 
 def kv_pool(n_pages, dev, gen) -> dict:
-    """An int8 page pool at ee-llm-7b's head shape with stale random
-    contents, so that an entry left unwritten shows."""
+    """An int8 pool of ``PAGE_SIZE``-token pages at ``CFG``'s head shape
+    with stale random contents, so that an entry left unwritten shows."""
     kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
     shape = (n_pages, PAGE_SIZE, kv)
     return {"kp": torch.randint(-127, 128, shape + (d,), generator=gen,
@@ -632,8 +691,9 @@ def pool_err(a, b) -> float:
 
 
 def write_inputs(b, dtype, dev, gen, *, masked=False):
-    """One decode step's write of ``b`` rows into a pool of 35 pages a row
-    (552 keys): pages in shuffled order, positions drawn from 0-551; row
+    """One decode step's write of ``b`` rows into a pool of pages for
+    ``FILLS[1]`` keys a row (ee-llm-7b: 35 pages, 552 keys): pages in
+    shuffled order, positions drawn from 0 to ``FILLS[1]`` - 1; row
     1's entry unmapped, row 2 past its table, row 7 at a negative
     position; with ``masked``, every third row masked out."""
     kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
@@ -655,8 +715,9 @@ def write_inputs(b, dtype, dev, gen, *, masked=False):
 
 def chunk_write_inputs(dtype, dev, gen):
     """A final prefill chunk's int8 page write as ``chunk_attention_paged``
-    issues it: one stream's 16 tokens at positions 432-447 (11 real, the 5
-    pads masked out) as 16 rows that share its table row of 35 pages."""
+    issues it: one stream's ``PAGE_SIZE`` tokens from position 432 (11
+    real, the pads masked out) as as many rows that share its table row
+    of pages for ``FILLS[1]`` keys."""
     from repro_torch.models.attention import chunk_rows
     kv, d = CFG.n_kv_heads, CFG.resolved_head_dim
     n_lp = -(-FILLS[1] // PAGE_SIZE)
@@ -741,8 +802,8 @@ def check_kv_write(dev, gen) -> dict:
     """``quantize_kv_write`` against its plain version and against PR 13's
     sequence, every pool byte outside page 0's codes and scales, at 8
     slots (with and without a mask, bf16 and f32), at B=1, and as a
-    16-token prefill chunk's write (phase 7's int8 chunks); timed at 8
-    slots, at B=1 and as the chunk (bf16)."""
+    ``PAGE_SIZE``-token prefill chunk's write (phases 7 and 8's int8
+    chunks); timed at 8 slots, at B=1 and as the chunk (bf16)."""
     from repro_torch.kernels.quantize.ops import (quantize_int8,
                                                   quantize_kv_write)
     from repro_torch.kernels.quantize.ref import quantize_kv_write_ref
@@ -759,7 +820,7 @@ def check_kv_write(dev, gen) -> dict:
         got = quantize_kv_write(pool, *args)
         e, e_old = pool_err(got, want), pool_err(old, want)
         print(f"quantize_kv_write {str(dtype)[6:]} "
-              f"{f'B={b}' if b else 'a 16-token chunk'}"
+              f"{f'B={b}' if b else f'a {PAGE_SIZE}-token chunk'}"
               f"{' masked' if masked else ''}: pool max|err|={e:.3g} vs "
               f"plain, PR-13 sequence {e_old:.3g} (exact)")
         check(e == 0 and e_old == 0,
@@ -775,7 +836,8 @@ def check_kv_write(dev, gen) -> dict:
         nbytes = (nelem * 2 + 8 * rows + nelem + 2 * rows * kv * 4
                   + 4 * rows)
         out[b] = time_page_write(
-            f"quantize_kv_write ({f'B={b}' if b else 'a 16-token chunk'})",
+            f"quantize_kv_write "
+            f"({f'B={b}' if b else f'a {PAGE_SIZE}-token chunk'})",
             quantize_kv_write, quantize_kv_write_ref, pool, args, nbytes,
             nelem)
     return dict(name="quantize_kv_write",
@@ -784,26 +846,27 @@ def check_kv_write(dev, gen) -> dict:
                 max_abs_err=err, **out[SLOTS], b1=out[1], chunk=out[0])
 
 
-def check_kv_scatter(dev, gen) -> dict:
+def check_kv_scatter(dev, gen, length=512) -> dict:
     """``quantize_kv_scatter`` against its plain version and PR 13's
-    sequence: a 512-token prefill over 32 pages, and a 500-slot ring over
-    34 pages (fills past it, the last two pages unmapped); timed at 512
-    tokens (bf16)."""
+    sequence, in ``PAGE_SIZE``-token pages: a ``length``-token prefill
+    (the last 12 slots padding) over its pages in reverse order, and a
+    500-slot ring over its pages and two more (fills past it, the last two
+    pages unmapped); timed at ``length`` tokens (bf16)."""
     from repro_torch.kernels.quantize.ops import (quantize_int8,
                                                   quantize_kv_scatter)
     from repro_torch.kernels.quantize.ref import quantize_kv_scatter_ref
-    main = (512, 500, list(range(32, 0, -1)))
+    main = (length, length - 12, list(range(length // PAGE_SIZE, 0, -1)))
+    ring = list(range(1, -(-500 // PAGE_SIZE) + 1)) + [-1, -1]
     err = 0.0
-    for (length, n_real, pages), dtype in (
-            (main, torch.bfloat16),
-            ((500, 480, list(range(1, 33)) + [-1, -1]), torch.float32)):
-        pool, args = scatter_inputs(length, n_real, pages, dtype, dev, gen)
+    for (n_slots, n_real, pages), dtype in (
+            (main, torch.bfloat16), ((500, 480, ring), torch.float32)):
+        pool, args = scatter_inputs(n_slots, n_real, pages, dtype, dev, gen)
         want = quantize_kv_scatter_ref(clone_pool(pool), *args)
         old = quantize_kv_scatter_ref(clone_pool(pool), *args,
                                       quantize=quantize_int8)
         got = quantize_kv_scatter(pool, *args)
         e, e_old = pool_err(got, want), pool_err(old, want)
-        print(f"quantize_kv_scatter {str(dtype)[6:]} ring {length} over "
+        print(f"quantize_kv_scatter {str(dtype)[6:]} ring {n_slots} over "
               f"{len(pages)} pages: pool max|err|={e:.3g} vs plain, PR-13 "
               f"sequence {e_old:.3g} (exact)")
         check(e == 0 and e_old == 0,
@@ -815,7 +878,7 @@ def check_kv_scatter(dev, gen) -> dict:
     nelem = 2 * n_tok * kv * d
     nbytes = (nelem * 2 + 4 * n_tok + 4 * len(main[2]) + nelem
               + 2 * n_tok * kv * 4 + 4 * n_tok)
-    r = time_page_write("quantize_kv_scatter (512 tokens)",
+    r = time_page_write(f"quantize_kv_scatter ({main[0]} tokens)",
                         quantize_kv_scatter, quantize_kv_scatter_ref, pool,
                         args, nbytes, nelem)
     return dict(name="quantize_kv_scatter",
@@ -1165,6 +1228,182 @@ def print_time(label, r) -> None:
           f"{'-' if lib is None else '%.2f us' % (lib * 1e3)})")
 
 
+@contextlib.contextmanager
+def shapes_of(cfg, fills, max_seq, page_size):
+    """Run phase 2's checks at another model's shapes: ``CFG``, the paged
+    fills, the ring length they read and the page size (a prefill chunk's
+    length too), swapped for the block."""
+    global CFG, FILLS, MAX_SEQ, PAGE_SIZE
+    saved = CFG, FILLS, MAX_SEQ, PAGE_SIZE
+    CFG, FILLS, MAX_SEQ, PAGE_SIZE = cfg, fills, max_seq, page_size
+    try:
+        yield
+    finally:
+        CFG, FILLS, MAX_SEQ, PAGE_SIZE = saved
+
+
+def wrapped_rings(b, dtype, dev, gen, size, lag=0):
+    """(q, k, v, pos, cur) of gemma3's local layers: a ``size``-slot ring
+    (the window) that has wrapped, position p in slot p % size, each row
+    at its own position past the window.  ``lag``: each row's query sits
+    that many positions past its newest key, so that a window of ``size``
+    drops the ``lag`` oldest keys (at ``lag`` 0 every key is inside)."""
+    h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
+    q = torch.randn((b, h, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, size, kv, d), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, size, kv, d), generator=gen, device=dev).to(dtype)
+    cur = torch.randint(size, 4 * size, (b,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    p = (cur[:, None] - size + 1
+         + torch.arange(size, dtype=torch.int32, device=dev))
+    pos = torch.empty_like(p).scatter_(1, (p % size).long(), p)
+    return q, k, v, pos, cur + lag
+
+
+def check_window_ring(dev, gen) -> dict:
+    """The ring kernel over gemma3's local layers: a wrapped 1024-slot
+    ring under its 1024-token window, against its plain version (float32
+    and bf16, B = 1, 2 and 8), with the query at the newest key (every key
+    inside the window, as a decode step reads it) and 100 positions past
+    it (the window drops the 100 oldest keys); timed at B = 1 on 12 rings
+    in turn (100 MB) beside its plain version and SDPA with the same
+    mask."""
+    from repro_torch.kernels.decode_attn.ops import decode_attn
+    from repro_torch.kernels.decode_attn.ref import decode_attn_ref
+    w = CFG.sliding_window
+    err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for b, lag in ((1, 0), (2, 0), (SLOTS, 0), (2, 100), (SLOTS, 100)):
+            args = wrapped_rings(b, dtype, dev, gen, w, lag=lag)
+            want = decode_attn_ref(*args, window=w)
+            e = max_err(decode_attn(*args, window=w), want)
+            tol = attn_tol(dtype, want)
+            print(f"decode_attn {str(dtype)[6:]} B={b} wrapped ring of {w} "
+                  f"window={w} query {lag} past the newest key: "
+                  f"max|err|={e:.3g} (tol {tol:.3g})")
+            check(e <= tol, "decode_attn disagrees with its plain version "
+                  "over a wrapped window ring")
+            err = max(err, e)
+    sets = [wrapped_rings(1, torch.bfloat16, dev, gen, w) for _ in range(12)]
+    ms = device_ms(lambda i: decode_attn(*sets[i % 12], window=w))
+    plain = device_ms(lambda i: decode_attn_ref(*sets[i % 12], window=w))
+    h, kv, d = CFG.n_heads, CFG.n_kv_heads, CFG.resolved_head_dim
+    sdpa = [(q.view(1, h, 1, d), k.transpose(1, 2).contiguous(),
+             v.transpose(1, 2).contiguous(),
+             ((pos >= 0) & (pos <= cur[:, None])
+              & (cur[:, None] - pos < w))[:, None, None, :])
+            for q, k, v, pos, cur in sets]
+    lib = device_ms(lambda i: torch.nn.functional.scaled_dot_product_attention(
+        *sdpa[i % 12][:3], attn_mask=sdpa[i % 12][3], enable_gqa=True))
+    q, k, _, pos, cur = sets[0]
+    n_valid = int(((pos >= 0) & (pos <= cur[:, None])
+                   & (cur[:, None] - pos < w)).sum())
+    nbytes = (2 * q.numel() * q.element_size() + pos.numel() * 4 + 4
+              + 2 * n_valid * kv * d * k.element_size())
+    bnd, by = bound_ms(nbytes, 4 * h * n_valid * d, torch.bfloat16)
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                bound_by=by, bytes=nbytes, max_abs_err=err)
+
+
+def check_gemma_kernels(dev, gen, rows) -> None:
+    """Phase 2 again at gemma3-12b's shapes as phase 8 serves them (H = 16
+    over KV = 8 heads of d = 256, d_model 3840, V = 262144, 128-token
+    pages and prefill chunks): the ring kernel over a global layer's
+    4136-slot ring and a local layer's wrapped window ring, both paged
+    variants at 8 slots with fills of 512-4096 keys, without a window (the
+    global layers) and under the 1024-token one (the local layers; d = 256
+    is new to the paged kernel), the int8 page writes at KV = 8, d = 256
+    with a 4096-token scatter, the wire quantizer at d = 3840, both exit kernels
+    over the 262144 x 3840 tied unembedding.  Each result is kept beside
+    the ee-llm-7b row of its kernel under "gemma"."""
+    from repro_torch.configs.registry import get_config
+    gcfg = get_config(GEMMA)
+    with shapes_of(gcfg, G_FILLS, G_PROMPT + MAX_NEW + 8, G_PAGE):
+        cases = exit_cases(dev, gen)
+        grows = [check_decode_attn(dev, gen),
+                 *check_decode_attn_paged(dev, gen),
+                 check_exit_head(dev, gen, cases), check_quantize(dev, gen),
+                 check_kv_write(dev, gen),
+                 check_kv_scatter(dev, gen, length=G_PROMPT),
+                 check_exit_quant(dev, gen, cases)]
+        del cases
+        window = check_window_ring(dev, gen)
+    for r, g in zip(rows, grows):
+        check(r["name"] == g["name"], "phase 2 rows out of order")
+        r["gemma"] = g
+    rows[0]["gemma"]["window"] = window
+    torch.cuda.empty_cache()
+
+
+def gemma_small(dev):
+    """A reduced gemma3 (8 layers, exits after 3 and 6, a 32-token window
+    over 5 of every 6 layers, d = 64 heads) in float32 from one seed, on
+    the card and on the CPU, and prompts longer than the window."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduced(get_config(GEMMA), n_layers=8),
+                              exit_layers=(3, 6)).validate()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(30 + i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((41, 80, 57, 100))]
+    return cpu, gpu, prompts
+
+
+def check_small_gemma(dev) -> None:
+    """Phase 8's paths on a reduced gemma3: banded prefill in the local
+    layers and the windowed ring and paged kernels, through
+    ``generate_sequential`` (collm at a split θ), ``generate`` on dense,
+    paged float32 and int8 pages, chunked prefill, and the two-tier
+    runtime on two streams of the card (θ = 1.1 float32, and the split θ
+    with float16 and a sliced prompt upload, int8).  The card's streams
+    (and counters, wire bytes) equal the CPU's."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.disagg import TwoTierRuntime
+    from repro_torch.serving.engine import ServingSystem
+    cpu, gpu, prompts = gemma_small(dev)
+    full = ServingSystem(cpu, CollmConfig(theta=1.0)).generate_sequential(
+        prompts, 16)
+    theta = split_theta(full["stats"])
+    fields = ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes")
+    for label, kw in (("sequential", {}), ("dense", dict(kv_layout="dense")),
+                      ("paged", dict(kv_layout="paged")),
+                      ("paged int8", dict(kv_layout="paged",
+                                          kv_dtype="int8")),
+                      ("chunked", dict(kv_layout="paged",
+                                       chunked_prefill=True))):
+        ccfg = CollmConfig(theta=theta, **kw)
+        want, got = (ServingSystem(m, ccfg).generate_sequential(prompts, 16)
+                     if label == "sequential" else
+                     ServingSystem(m, ccfg).generate(prompts, 16, num_slots=3)
+                     for m in (cpu, gpu))
+        same = got["tokens"] == want["tokens"] and all(
+            getattr(got["stats"], f) == getattr(want["stats"], f)
+            for f in fields)
+        print(f"small gemma3 {label}: card == CPU: {same} (exits "
+              f"{got['stats'].exits_l1}/{got['stats'].exits_l2}, cloud "
+              f"{got['stats'].cloud_requests})")
+        check(same, f"small gemma3 {label}: the card's run differs from the "
+              "CPU's")
+    for th, wire, chunk in ((1.1, "float32", 0), (theta, "float16", 16),
+                            (theta, "int8", 0)):
+        runs = []
+        for m in (cpu, gpu):
+            rt = TwoTierRuntime(m, CollmConfig(theta=th, wire_format=wire),
+                                m.device, m.device)
+            rt.build()
+            runs.append(rt.decode(prompts[1], 16, max_seq=128,
+                                  upload_chunk=chunk))
+        same = (runs[1][0] == runs[0][0]
+                and runs[1][1]["wire_bytes"] == runs[0][1]["wire_bytes"])
+        print(f"small gemma3 two-tier theta={th:.6g} {wire} upload_chunk="
+              f"{chunk}: card == CPU: {same} (wire {runs[1][1]['wire_bytes']}"
+              f" B)")
+        check(same, "small gemma3 two-tier: the card differs from the CPU")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: ee-llm-7b through the serving loop
 # ---------------------------------------------------------------------------
@@ -1187,7 +1426,8 @@ def kernel_ops() -> dict:
             "exit_quant": exit_quant}
 
 
-def serve(model, prompts, mode, theta, wire, backfill=False):
+def serve(model, prompts, mode, theta, wire, backfill=False,
+          max_new=MAX_NEW):
     from repro_torch.core.collm import CollmConfig
     from repro_torch.serving.engine import ServingSystem
     system = ServingSystem(model, CollmConfig(theta=theta, wire_format=wire,
@@ -1196,13 +1436,13 @@ def serve(model, prompts, mode, theta, wire, backfill=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = system.generate_sequential(prompts, MAX_NEW, mode=mode)
+    r = system.generate_sequential(prompts, max_new, mode=mode)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = {n: op.launches - before[n] for n, op in kernel_ops().items()}
     st = r["stats"]
     toks = np.asarray(r["tokens"])
-    check(toks.shape == (len(prompts), MAX_NEW) and toks.min() >= 0
+    check(toks.shape == (len(prompts), max_new) and toks.min() >= 0
           and toks.max() < model.cfg.vocab_size, f"{mode}: bad tokens")
     print(f"serve {mode:10s} theta={theta:.6g} wire={wire:7s} "
           f"backfill={backfill!s:5s} tokens={st.tokens} "
@@ -1211,6 +1451,7 @@ def serve(model, prompts, mode, theta, wire, backfill=False):
           f"cloud_requests={st.cloud_requests} upload_bytes={st.upload_bytes} "
           f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
           f"launches={launched}")
+    r["wall_s"], r["peak_bytes"] = dt, torch.cuda.max_memory_allocated()
     return r
 
 
@@ -1244,12 +1485,13 @@ def check_fused_upload(model, prompts, theta) -> None:
 # phase 4: ee-llm-7b through the batched engine
 # ---------------------------------------------------------------------------
 def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
-                  kv_dtype="float32", backfill=False):
+                  kv_dtype="float32", backfill=False, page_size=PAGE_SIZE,
+                  chunked=False):
     from repro_torch.core.collm import CollmConfig
     from repro_torch.serving.engine import ServingSystem
     system = ServingSystem(model, CollmConfig(
         theta=theta, wire_format=wire, backfill=backfill, kv_layout=layout,
-        page_size=PAGE_SIZE, kv_dtype=kv_dtype))
+        page_size=page_size, kv_dtype=kv_dtype, chunked_prefill=chunked))
     before = {n: op.launches for n, op in kernel_ops().items()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1272,7 +1514,9 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
           f"cloud_requests={st.cloud_requests} upload_bytes={st.upload_bytes}"
           f" kv_cache_bytes={sched.kv_cache_bytes()} peak_mem="
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
-          f"pool={r['pool_stats']} launches={r['launched']}")
+          f"pool={r['pool_stats']} chunks={st.prefill_chunks} "
+          f"launches={r['launched']}")
+    r["wall_s"] = dt
     return r
 
 
@@ -1849,6 +2093,180 @@ def serve_phase7(model, theta, max_new=MAX_NEW, slots=SLOTS,
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 8: gemma3-12b at full width
+# ---------------------------------------------------------------------------
+def gemma_prompts(lens, seed) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 262144, int(n)) for n in lens]
+
+
+def full_greedy(model, prompt, n: int) -> list:
+    """The undivided model's greedy stream (``CoLLM.full_step``), as
+    ``tests/test_disagg.py`` builds its reference."""
+    from repro_torch.core.collm import CoLLM, CollmConfig
+    co = CoLLM(model, CollmConfig())
+    caches = model.init_cache(1, len(prompt) + n + 8)
+    tokens = torch.as_tensor(prompt[None], device=model.device)
+    x, _, caches, _ = model.prefill({"tokens": tokens}, caches)
+    tok = model.logits(x[:, -1:])[:, 0].argmax(-1)
+    out = [int(tok[0])]
+    for t in range(n - 1):
+        tok, _, caches = co.full_step(tok[:, None], caches, len(prompt) + t)
+        out.append(int(tok[0]))
+    return out
+
+
+def two_tier_run(model, prompt, theta, wire, chunk, sync=False):
+    """``TwoTierRuntime.decode`` of one prompt: the edge and the cloud on
+    two streams of the card; ``sync`` swaps in a channel that synchronises
+    the cloud stream on the host after every transfer and cloud step (the
+    blocking baseline)."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.disagg import DeviceTransferChannel, TwoTierRuntime
+
+    class SyncedChannel(DeviceTransferChannel):
+        def put(self, packet):
+            out = super().put(packet)
+            self.cloud_stream.synchronize()
+            return out
+
+        def submit_packet(self, packet, pos, **kw):
+            handle = super().submit_packet(packet, pos, **kw)
+            self.cloud_stream.synchronize()
+            return handle
+
+    rt = TwoTierRuntime(model, CollmConfig(theta=theta, wire_format=wire),
+                        model.device, model.device)
+    rt.build()
+    if sync:
+        rt.channel = SyncedChannel(
+            lambda pkt, caches, pos: rt.collm.cloud_step(pkt, caches, pos),
+            rt.cloud_device, edge_stream=rt.edge_stream,
+            cloud_stream=rt.cloud_stream)
+    ops = kernel_ops()
+    before = {n: op.launches for n, op in ops.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, info = rt.decode(prompt, MAX_NEW, max_seq=len(prompt) + MAX_NEW + 8,
+                           upload_chunk=chunk)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    ticks = np.asarray(info["tick_s"]) * 1e3
+    info.update(wall_s=dt, tick_ms=float(ticks.mean()),
+                launched={n: op.launches - before[n] for n, op in ops.items()})
+    print(f"two-tier theta={theta:.6g} wire={wire:7s} upload_chunk={chunk:3d}"
+          f"{' cloud synced' if sync else ''}: wall={dt:.2f}s wire_bytes="
+          f"{info['wire_bytes']} channel={info['channel']} edge tick host "
+          f"mean={ticks.mean():.3f} ms median={np.median(ticks):.3f} ms "
+          f"launches={info['launched']}")
+    check(len(toks) == MAX_NEW and 0 <= min(toks) and max(toks) < 262144,
+          "two-tier: bad tokens")
+    return toks, info
+
+
+def serve_phase8(model) -> dict:
+    """gemma3-12b at full width (48 layers, d_model 3840, bf16, random
+    weights): (a) ``generate_sequential`` with two 4096-token prompts in
+    the cloud, collm θ = 1 float32 (equal to cloud; its confidences give
+    the split θ), split-θ float16, θ = 0 int8 and standalone modes; (b)
+    one 32768-token prompt at the split θ, its prefill (to the first
+    token) timed alone, then 16 new tokens; (c) ``generate``, 8 slots, 8
+    prompts of 512-4096 tokens, on dense, paged bf16 and paged int8 KV
+    (128-token pages); (d) (c)'s paged bf16 run with chunked prefill,
+    against its monolithic run; (e) ``TwoTierRuntime`` with a 4096-token
+    prompt: θ = 1.1 float32 wire (must equal ``CoLLM.full_step``'s greedy
+    stream), the split θ with float16 and int8 wire and the prompt upload
+    whole or in 512-token slices, and float16 against runs that
+    synchronise the cloud stream after every transfer, in turns.  Random weights
+    flip near-tied bf16 argmaxes: streams other than (e)'s θ = 1.1 are
+    reported by agreement."""
+    out = {}
+    prompts = gemma_prompts((G_PROMPT, G_PROMPT), SEED + 3)
+    cloud = serve(model, prompts, "cloud", 1.0, "float32")
+    full = serve(model, prompts, "collm", 1.0, "float32")
+    check(full["tokens"] == cloud["tokens"], "phase 8 (a): collm at "
+          "theta=1 with a float32 wire differs from cloud")
+    print("phase 8 (a) collm theta=1 float32 == cloud: True")
+    theta = split_theta(full["stats"])
+    mix = serve(model, prompts, "collm", theta, "float16")
+    r0 = serve(model, prompts, "collm", 0.0, "int8")
+    check(r0["stats"].exits_l1 == len(prompts) * (MAX_NEW - 1),
+          "phase 8 (a) theta=0: not every token exited at l_ee1")
+    alone = serve(model, prompts, "standalone", theta, "float16")
+    for name, r in (("split theta", mix), ("theta=0 int8", r0),
+                    ("standalone", alone)):
+        print(f"phase 8 (a) {name} vs cloud: "
+              f"{agreement(r['tokens'], cloud['tokens'])}")
+    torch.cuda.empty_cache()
+
+    long = gemma_prompts((G_LONG,), SEED + 4)
+    first = serve(model, long, "collm", theta, "float16", max_new=1)
+    r_long = serve(model, long, "collm", theta, "float16",
+                   max_new=G_LONG_NEW)
+    out["long"] = dict(prefill_s=first["wall_s"],
+                       prefill_peak=first["peak_bytes"],
+                       wall_s=r_long["wall_s"], peak=r_long["peak_bytes"])
+    print(f"phase 8 (b) {G_LONG}-token prompt: prefill to the first token "
+          f"{first['wall_s']:.3f} s, peak {first['peak_bytes'] / 2**30:.2f} "
+          f"GiB; with {G_LONG_NEW} new tokens {r_long['wall_s']:.3f} s, peak "
+          f"{r_long['peak_bytes'] / 2**30:.2f} GiB; first token == the "
+          f"run's: {first['tokens'][0][0] == r_long['tokens'][0][0]}")
+    torch.cuda.empty_cache()
+
+    batch = gemma_prompts(G_LENS, SEED + 5)
+    runs = {name: serve_batched(model, batch, name, "collm", theta,
+                                "float16", layout=layout, kv_dtype=kv,
+                                page_size=G_PAGE, chunked=chunked)
+            for name, layout, kv, chunked in (
+                ("dense", "dense", "float32", False),
+                ("paged", "paged", "float32", False),
+                ("paged-int8", "paged", "int8", False),
+                ("paged chunked", "paged", "float32", True))}
+    for name in ("paged", "paged-int8"):
+        print(f"phase 8 (c) {name} vs dense: "
+              f"{agreement(runs[name]['tokens'], runs['dense']['tokens'])}")
+    print(f"phase 8 (d) chunked vs monolithic paged: "
+          f"{agreement(runs['paged chunked']['tokens'], runs['paged']['tokens'])}")
+    launched = runs["paged-int8"]["launched"]
+    check(runs["dense"]["launched"]["decode_attn"] > 0
+          and runs["paged"]["launched"]["decode_attn_paged"] > 0
+          and launched["decode_attn_paged_int8"] > 0
+          and launched["quantize_kv_write"] == launched[
+              "decode_attn_paged_int8"]
+          and launched["quantize_kv_scatter"] > 0
+          and runs["paged chunked"]["stats"].prefill_chunks > 0,
+          "phase 8 (c), (d): a layout did not run its kernels")
+    out["batched"] = runs
+    torch.cuda.empty_cache()
+
+    one = batch[-1]
+    ref = full_greedy(model, one, MAX_NEW)
+    exact, _ = two_tier_run(model, one, 1.1, "float32", 0)
+    print(f"phase 8 (e) two-tier theta=1.1 float32 == full_step greedy: "
+          f"{exact == ref}")
+    check(exact == ref, "phase 8 (e): the two-tier stream at theta=1.1 with "
+          "a float32 wire differs from the full model's greedy stream")
+    tiers = {}
+    for wire in ("float16", "int8"):
+        for chunk in (0, G_CHUNK):
+            tiers[wire, chunk] = two_tier_run(model, one, theta, wire, chunk)
+            print(f"phase 8 (e) {wire} upload_chunk={chunk} vs theta=1.1: "
+                  f"{agreement([tiers[wire, chunk][0]], [exact])}")
+    # the overlap, in turns: in flight, synced, synced, in flight
+    turns = [two_tier_run(model, one, theta, "float16", 0, sync=sync)
+             for sync in (False, True, True, False)]
+    lapped = [turns[i][1]["tick_ms"] for i in (0, 3)]
+    synced = [turns[i][1]["tick_ms"] for i in (1, 2)]
+    print(f"phase 8 (e) edge tick host time (mean of the run's ticks), "
+          f"cloud in flight {lapped[0]:.3f} / {lapped[1]:.3f} ms vs cloud "
+          f"synced after every transfer {synced[0]:.3f} / {synced[1]:.3f} "
+          f"ms; streams equal: "
+          f"{all(t[0] == tiers['float16', 0][0] for t in turns)}")
+    out["tiers"] = tiers
+    return out
+
+
 def profile_window(label, fn) -> None:
     """Device time by kernel, the card's busy share and the host's
     costliest operators over one call of ``fn``."""
@@ -1919,12 +2337,20 @@ def main(argv=None) -> None:
             check_kv_write(dev, gen), check_kv_scatter(dev, gen),
             check_exit_quant(dev, gen, cases)]
     del cases
+    check_gemma_kernels(dev, gen, rows)
     for r in rows:
         print_time(r["name"], r)
         for shape in ("b8", "b1", "chunk"):
             if shape in r:
                 print_time(f"{r['name']} ({shape.upper()})", r[shape])
+        g = r["gemma"]
+        print_time(f"{r['name']} ({GEMMA})", g)
+        for shape in ("b8", "b1", "chunk", "window"):
+            if shape in g:
+                print_time(f"{r['name']} ({GEMMA}, {shape.upper()})",
+                           g[shape])
     check_small_model(dev)
+    check_small_gemma(dev)
     torch.cuda.empty_cache()
 
     cfg = CFG
@@ -2002,12 +2428,36 @@ def main(argv=None) -> None:
     for name in ("decode_attn_paged", "decode_attn_paged_int8", "exit_head",
                  "quantize_kv_write"):
         check(shared[name] > 0, f"{name} was not launched in phase 7")
-    launches = {name: n + batched[name] + adaptive[name] + spec[name]
-                + shared[name] for name, n in launches.items()}
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
     if args.profile:
         profile_runs(model, prompts, theta)
+    del model
+    torch.cuda.empty_cache()
+
+    gcfg = get_config(GEMMA)
+    t0 = time.perf_counter()
+    gmodel = build_model(gcfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in gmodel.parameters())
+    print(f"model: {gcfg.name} {gcfg.n_layers} layers d={gcfg.d_model} "
+          f"V={gcfg.vocab_size} window {gcfg.sliding_window} in "
+          f"{sum(w > 0 for w in gcfg.layer_windows())} layers, "
+          f"{n_params / 1e9:.3f} B parameters in bf16, initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for op in ops.values():
+        op.launches = 0
+    t8 = time.perf_counter()
+    serve_phase8(gmodel)
+    gemma = {name: op.launches for name, op in ops.items()}
+    print(f"phase 8 ({GEMMA} at full width) launches: {gemma} in "
+          f"{time.perf_counter() - t8:.1f} s")
+    for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
+                 "exit_head", "quantize", "quantize_kv_write",
+                 "quantize_kv_scatter"):
+        check(gemma[name] > 0, f"{name} was not launched in phase 8")
+    launches = {name: n + batched[name] + adaptive[name] + spec[name]
+                + shared[name] + gemma[name] for name, n in launches.items()}
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched on the main path")
 
     for r in rows:
         r["route"] = "cuda"

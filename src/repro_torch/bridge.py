@@ -42,7 +42,7 @@ def params_from_jax(np_params: Dict[str, Any],
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"parts of the model not ported yet "
-                                  f"(ROADMAP A.9)")
+                                  f"(ROADMAP A.9b-d)")
     state = {"embed": _tensor(np_params["embed"]),
              "final_norm": _tensor(np_params["final_norm"])}
     if "lm_head" in np_params:

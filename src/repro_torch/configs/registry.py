@@ -1,16 +1,21 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port serves the dense early-exit decoder; the JAX package's other ten
-architectures are still to be ported (ROADMAP A.9).
+The port serves the dense early-exit decoders: the paper's ee-llm-7b and
+the JAX package's four dense architectures.  The other six (MoE,
+recurrent and hybrid, encoder-decoder and VLM) are still to be ported
+(ROADMAP A.9b-d).
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import ee_llm_7b
+from repro_torch.configs import (command_r_35b, ee_llm_7b, gemma3_12b,
+                                 qwen1_5_110b, stablelm_12b)
 from repro_torch.configs.base import ModelConfig, reduced
 
-ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (ee_llm_7b,)}
+_MODULES = (qwen1_5_110b, gemma3_12b, command_r_35b, stablelm_12b, ee_llm_7b)
+
+ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -267,7 +267,7 @@ class CoLLM:
         last position.  Returns (decisions, l_ee1 hidden sequence,
         caches)."""
         _, exit_h, caches, _ = self.model.prefill({"tokens": tokens}, caches,
-                                                  self.edge_segs)
+                                                  self.edge_segs, true_len)
         decisions = {l: self.exit_decision(l, h[:, true_len - 1],
                                            with_logits)
                      for l, h in exit_h.items()}
@@ -279,7 +279,8 @@ class CoLLM:
         """Cloud prefill over a right-padded prompt upload; logits (1,1,V)
         at the true last position, pad cache slots invalidated."""
         ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
-                                              device=h1_seq.device))
+                                              device=h1_seq.device),
+                       valid_len=true_len)
         x, _, caches = self.model.run_segments(h1_seq, ctx, self.cloud_segs,
                                                caches=caches,
                                                collect_exits=False)
@@ -290,7 +291,8 @@ class CoLLM:
                             caches: Caches):
         """Undivided-model prefill over a right-padded prompt (cloud
         baseline rows of the batch scheduler)."""
-        x, _, caches, _ = self.model.prefill({"tokens": tokens}, caches)
+        x, _, caches, _ = self.model.prefill({"tokens": tokens}, caches,
+                                             valid_len=true_len)
         logits = self.model.logits(x[:, true_len - 1:true_len])
         return logits, self.model.invalidate_cache_after(caches, true_len)
 

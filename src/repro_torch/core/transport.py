@@ -7,7 +7,7 @@ is the beyond-paper format, quantized by the ``quantize`` kernel
 (``repro_torch.kernels.quantize``).  Wire sizes are computed from shapes.
 The recurrent-state packets (``quantize_tree``, ``make_packet``,
 ``open_packet``) serve the non-dense architectures and are not ported yet
-(ROADMAP A.9).
+(ROADMAP A.9c).
 
 ``CloudChannel`` is the request path of both serving engines, in virtual
 time:
@@ -130,7 +130,7 @@ def packet_breakdown(packet: Pytree) -> Dict[str, int]:
 class StatePacket:
     """What crosses the edge->cloud boundary for one upload (paper fig 3
     step 3): the quantized l_ee1 token activation, and (SSM/hybrid
-    architectures, not ported yet: ROADMAP A.9) boundary recurrent-state
+    architectures, not ported yet: ROADMAP A.9c) boundary recurrent-state
     snapshots."""
     hidden: Dict[str, torch.Tensor]                # quantized (B,1,d)
     states: Optional[Pytree] = None                # quantized recurrent states

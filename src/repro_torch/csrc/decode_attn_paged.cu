@@ -117,6 +117,7 @@ cudaError_t launch_d(int D, int G, const Args& a, cudaStream_t st) {
   switch (D) {
     case 64: return launch_g<T, P, 64>(G, a, st);
     case 128: return launch_g<T, P, 128>(G, a, st);
+    case 256: return launch_g<T, P, 256>(G, a, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -133,8 +134,10 @@ cudaError_t launch_t(int quantized, int D, int G, const Args& a,
 // q (B, H, D) in float32 (dtype 0), bfloat16 (1) or float16 (2); kp, vp
 // (P, ps, KV, D) in q's dtype, or int8 with quantized = 1 and ks, vs
 // (P, ps, KV) float32 scales; pos (P, ps) int32; tbl (B, n_lp) int32, -1 =
-// unmapped; cur (B,) int32; out (B, H, D) in q's dtype.  D in {64, 128},
-// H / KV in {1, 2, 4, 8}.  Split s covers logical pages [s * per,
+// unmapped; cur (B,) int32; out (B, H, D) in q's dtype.  D in {64, 128,
+// 256}, H / KV in {1, 2, 4, 8}.  Layouts above 48 KB of shared memory
+// (float32 pages at D = 256: 98,496 bytes at G = 1 or 2) are raised to it
+// in da::launch_split.  Split s covers logical pages [s * per,
 // min(n_lp, (s + 1) * per)), 1 <= splits <= 8.
 extern "C" int decode_attn_paged_launch(
     int device, int dtype, int quantized, const void* q, const void* kp,

@@ -7,7 +7,10 @@ Corpora are generated from a seed, not downloaded:
   * ``markov`` — an order-2 Markov chain over the vocabulary with a skewed
     transition table.  Gives early exits a confidence gradient: frequent
     bigrams become predictable at shallow layers first (mirrors the paper's
-    Table 1 phenomenon).
+    Table 1 phenomenon).  The dense table has one row and one column a
+    state; past ``MAX_STATES`` ids (it would take V*V*8 bytes: 550 GB at
+    gemma3's 262144) the chain runs over ``MAX_STATES`` states, token ids
+    ``stride`` apart.
   * ``copy``   — induction-style [BOS a1..ak SEP a1..ak] sequences; the copy
     tail is predictable with near-1.0 confidence once learned.
 """
@@ -17,6 +20,8 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+
+MAX_STATES = 32768          # a dense table of 8 GiB (float64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,7 +37,8 @@ class SyntheticCorpus:
     def __init__(self, cfg: DataConfig):
         self.cfg = cfg
         self.rng = np.random.default_rng(cfg.seed)
-        v = cfg.vocab_size
+        v = min(cfg.vocab_size, MAX_STATES)
+        self.stride = cfg.vocab_size // v     # state s is token s * stride
         r = np.random.default_rng(cfg.seed + 1)
         # skewed order-1 table with strong modes (rows sum to 1)
         logits = r.gumbel(size=(v, v)) * 2.0
@@ -42,12 +48,12 @@ class SyntheticCorpus:
         self.table /= self.table.sum(1, keepdims=True)
 
     def _markov_seq(self, n: int) -> np.ndarray:
-        v = self.cfg.vocab_size
+        v = self.table.shape[0]
         seq = np.empty(n, np.int32)
         seq[0] = self.rng.integers(0, v)
         for i in range(1, n):
             seq[i] = self.rng.choice(v, p=self.table[seq[i - 1]])
-        return seq
+        return seq * self.stride
 
     def _copy_seq(self, n: int) -> np.ndarray:
         v = self.cfg.vocab_size

@@ -95,7 +95,7 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attn.launches = 0
 
 
-PAGED_HEAD_DIMS = (64, 128)
+PAGED_HEAD_DIMS = (64, 128, 256)
 _PAGED_CODES = {**_build.DTYPE_CODES, torch.float16: 2}
 _PAGED_ARGTYPES = [c_int] * 3 + [c_void_p] * 9 + [c_int] * 9 + [c_void_p]
 

@@ -8,6 +8,15 @@ synthetic prompts through the continuous-batching engine
 
 Runs on ``--device cuda`` (the default; it fails when no card is present)
 or ``--device cpu``.  Weights are random, initialised from ``--seed``.
+``--arch`` is one of the dense decoders: ee-llm-7b, gemma3-12b (a
+1024-token sliding window in 40 of its 48 layers; prompts past 2048
+tokens take the chunked prefill path), command-r-35b, qwen1.5-110b or
+stablelm-12b; ``--smoke`` cuts any of them to 2 layers at d_model 256.
+gemma3-12b fits one H100 in bfloat16:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
+        --dtype bfloat16 --prompt-len 4096 --clients 8 --num-slots 8 \
+        --kv-layout paged --page-size 64
 ``--kv-layout paged`` shares a block-paged KV pool across the slots
 (``--page-size`` tokens a page, ``--num-pages`` pages; the default pool
 equals the dense rings); ``--kv-dtype int8`` stores the pages quantized.
@@ -63,7 +72,8 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import get_config, get_smoke_config
+from repro_torch.configs.registry import (ARCHS, get_config,
+                                          get_smoke_config)
 from repro_torch.core.collm import CollmConfig
 from repro_torch.core.netsim import NetworkParams
 from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
@@ -78,7 +88,7 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="ee-llm-7b")
+    ap.add_argument("--arch", default="ee-llm-7b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--mode", default="collm",
                     choices=["collm", "standalone", "cloud"])

@@ -1,8 +1,9 @@
 """Multi-head attention: GQA, optional bias, RoPE, sliding-window masks,
-the direct full-sequence path (training / prefill), single-token decode
-over a dense ring KV cache or a block-paged KV pool (float or int8 pages),
-and the page-sized chunk decode of chunked prefill over the paged pool
-(its tokens as rows of the paged kernels).
+the full-sequence paths of training and prefill (direct, chunked
+flash-style for long sequences, banded for sliding windows),
+single-token decode over a dense ring KV cache or a block-paged KV pool
+(float or int8 pages), and the page-sized chunk decode of chunked
+prefill over the paged pool (its tokens as rows of the paged kernels).
 
 Port of ``repro.models.attention``.  Decode attention goes through the
 ``decode_attn`` / ``decode_attn_paged`` kernels
@@ -15,7 +16,12 @@ arrays: the cache passed in is the cache returned.  So a row excluded by a
 decode ``write_mask`` is never written (dense: its old entry is written
 back; paged: the write goes to the trash page with ``pos = -1``), where
 the JAX package computes every row and merges the old rows back.  The
-chunked and banded long-sequence paths (ROADMAP A.8) are not ported yet.
+chunked and banded prefill paths are XLA in the JAX package and stay
+torch operations here; a pass of either batches whole query chunks up to
+``_TILE_ELEMS`` float32 logits (every query sees the same keys in the
+same order as in the JAX package's scans).  A right-padded prefill
+(``valid_len``) keeps its real tokens in a ring narrower than the padded
+sequence, where the JAX package keeps the pads (ROADMAP §C).
 """
 from __future__ import annotations
 
@@ -36,7 +42,10 @@ from repro_torch.models.common import apply_rope, dense_init_
 
 Cache = Dict[str, torch.Tensor]
 
-_DIRECT_LIMIT = 1 << 22   # Sq*Sk above this -> chunked path (not ported)
+_DIRECT_LIMIT = 1 << 22   # Sq*Sk above this -> chunked path
+_Q_CHUNK = 512
+_KV_CHUNK = 1024
+_TILE_ELEMS = 1 << 27     # float32 logits of one chunked / banded pass
 
 
 class Attention(nn.Module):
@@ -119,6 +128,117 @@ def _direct_attention(q, k, v, qpos, kpos, *, causal, window, prefix_len,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _hidden_blocks(qpos: torch.Tensor, kpos: torch.Tensor, q_rows: int,
+                   kv_chunk: int, *, causal: bool, window: int,
+                   prefix_len: int) -> list:
+    """``hidden[i][j]``: the mask hides kv chunk ``j`` from every query of
+    pass ``i`` (``q_rows`` queries a pass), read once on the host."""
+    qp = qpos.reshape(-1, q_rows)
+    kp = kpos.reshape(-1, kv_chunk)
+    qlo, qhi, klo, khi = (t.tolist() for t in (qp.amin(1), qp.amax(1),
+                                               kp.amin(1), kp.amax(1)))
+    return [[(causal and k0 > q1 and not (prefix_len and k0 < prefix_len))
+             or (window and q0 - k1 >= window)
+             for k0, k1 in zip(klo, khi)] for q0, q1 in zip(qlo, qhi)]
+
+
+def _chunked_attention(q, k, v, qpos, kpos, *, causal, window, prefix_len,
+                       scale, q_chunk=_Q_CHUNK, kv_chunk=_KV_CHUNK,
+                       tile=_TILE_ELEMS) -> torch.Tensor:
+    """Two-level online-softmax scan; memory O(rows * kv_chunk) a step.
+
+    The JAX package scans the q chunks and, inside each, the kv chunks in
+    order.  Here one pass takes as many whole q chunks as ``tile`` float32
+    logits allow and runs the kv scan for all of them at once, so each
+    query still sees the kv chunks in the same order.  A kv chunk that
+    the mask hides from every query of the pass is skipped: its update
+    would leave (acc, m, l) as they are (its weights are 0 and the
+    correction is exp(0) = 1, or 0 while nothing was seen).  Products in
+    float32 (JAX's ``preferred_element_type``); the probabilities round to
+    v's dtype before the value product, as in JAX."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    q_chunk = math.gcd(sq, q_chunk)
+    kv_chunk = math.gcd(sk, kv_chunk)
+    rows = min(sq, max(1, tile // (b * h * q_chunk * kv_chunk)) * q_chunk)
+    while sq % rows:                                # whole passes
+        rows -= q_chunk
+    hidden = _hidden_blocks(qpos, kpos, rows, kv_chunk, causal=causal,
+                            window=window, prefix_len=prefix_len)
+    qg = q.reshape(b, sq, kvh, g, d)
+    out = torch.empty((b, sq, kvh, g, d), dtype=q.dtype, device=q.device)
+    for i, r0 in enumerate(range(0, sq, rows)):
+        qblk = qg[:, r0:r0 + rows].float()
+        qp = qpos[r0:r0 + rows]
+        acc = torch.zeros((b, kvh, g, rows, d), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, kvh, g, rows), float("-inf"), device=q.device)
+        l = torch.zeros((b, kvh, g, rows), device=q.device)
+        for j in range(sk // kv_chunk):
+            if hidden[i][j]:
+                continue
+            ks = slice(j * kv_chunk, (j + 1) * kv_chunk)
+            logits = torch.einsum("bqkgd,bskd->bkgqs", qblk,
+                                  k[:, ks].float()) * scale
+            logits = _mask_logits(logits, qp, kpos[ks], causal, window,
+                                  prefix_len)
+            m_new = torch.maximum(m, logits.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            # in place: exp(-inf) is already the 0 JAX selects for masked
+            p = logits.sub_(m_safe[..., None]).exp_()
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v[:, ks].float())
+            l = l * corr + p.sum(-1)
+            m = m_new
+        acc = acc / torch.clamp(l[..., None], min=1e-30)
+        out[:, r0:r0 + rows] = acc.permute(0, 3, 1, 2, 4).to(q.dtype)
+    return out.reshape(b, sq, h, d)
+
+
+def _banded_attention(q, k, v, qpos, kpos, *, window, scale,
+                      q_chunk=_Q_CHUNK, tile=_TILE_ELEMS) -> torch.Tensor:
+    """Sliding-window causal attention with exact O(S*window) cost: each
+    query chunk attends only to the kv band [chunk_start - window,
+    chunk_end) (left-padded with never-valid keys), with a plain softmax
+    over the band, as the JAX package's scan does.  One pass takes as
+    many chunks as ``tile`` float32 logits allow; their bands are
+    overlapping views of the padded keys (``unfold``)."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    q_chunk = math.gcd(sq, q_chunk)
+    nq = sq // q_chunk
+    band = window + q_chunk
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, band, 0))
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, band, 0))
+    kpos_p = torch.nn.functional.pad(kpos, (band, 0), value=-10 ** 9)
+    # window w starts at padded key w * q_chunk; chunk i's band is w = i + 1
+    kb_all = kp.unfold(1, band, q_chunk)              # (b, nq+1, kvh, d, band)
+    vb_all = vp.unfold(1, band, q_chunk)
+    kpb_all = kpos_p.unfold(0, band, q_chunk)         # (nq+1, band)
+    qg = q.reshape(b, nq, q_chunk, kvh, g, d)
+    qpos_c = qpos.reshape(nq, q_chunk)
+    per = max(1, tile // (b * h * q_chunk * band))
+    out = torch.empty((b, nq, q_chunk, kvh, g, d), dtype=q.dtype,
+                      device=q.device)
+    for c0 in range(0, nq, per):
+        c1 = min(nq, c0 + per)
+        qp, kpb = qpos_c[c0:c1], kpb_all[c0 + 1:c1 + 1]
+        logits = torch.einsum("bnqkgd,bnkds->bnkgqs", qg[:, c0:c1].float(),
+                              kb_all[:, c0 + 1:c1 + 1].float()) * scale
+        ok = ((kpb[:, None, :] <= qp[:, :, None])
+              & (qp[:, :, None] - kpb[:, None, :] < window))
+        logits.masked_fill_(~ok[None, :, None, None], float("-inf"))
+        w = torch.softmax(logits, dim=-1)
+        w = torch.where(torch.isnan(w), 0.0, w)
+        out[:, c0:c1] = torch.einsum(
+            "bnkgqs,bnkds->bnqkgd", w.to(v.dtype).float(),
+            vb_all[:, c0 + 1:c1 + 1].float()).to(q.dtype)
+    return out.reshape(b, sq, h, d)
+
+
 # ---------------------------------------------------------------------------
 # Caches
 # ---------------------------------------------------------------------------
@@ -136,13 +256,20 @@ def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
 
 def _cache_write(cache: Cache, k: torch.Tensor, v: torch.Tensor,
-                 positions: torch.Tensor) -> Cache:
+                 positions: torch.Tensor,
+                 valid_len: Optional[int] = None) -> Cache:
     """Write S new kv entries at ring slots ``positions % size``, in place
-    (only the last ``size`` entries survive when S exceeds the ring)."""
+    (only the last ``size`` entries survive when S exceeds the ring).
+    ``valid_len``: entries from ``valid_len`` on are right padding; when
+    the ring cannot hold all S, it keeps the last ``size`` REAL entries
+    (the JAX package keeps the last ``size`` entries, pads included, so a
+    windowed ring loses the prompt's tail: ROADMAP §C)."""
     size = cache["k"].shape[1]
     s = k.shape[1]
     if s > size:
-        k, v, positions = k[:, s - size:], v[:, s - size:], positions[s - size:]
+        end = s if valid_len is None else min(s, valid_len)
+        start = max(0, end - size)
+        k, v, positions = k[:, start:end], v[:, start:end], positions[start:end]
     idx = (positions % size).long()
     cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
     cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
@@ -258,12 +385,20 @@ def paged_gather(cache: Cache, block_tbl: torch.Tensor
 # ---------------------------------------------------------------------------
 def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                       positions: Optional[torch.Tensor] = None,
+                      enc_out: Optional[torch.Tensor] = None,
                       causal: bool = True, window: int = 0,
                       prefix_len: int = 0, use_rope: bool = True,
-                      cache: Optional[Cache] = None
+                      cache: Optional[Cache] = None,
+                      valid_len: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence self-attention (training / prefill).  Returns
+    """Full-sequence self-attention (training / prefill), dispatched as in
+    the JAX package: banded when a window is shorter than S, direct while
+    S*S <= ``_DIRECT_LIMIT``, chunked beyond.  ``valid_len``: the real
+    length of a right-padded prefill (see ``_cache_write``).  Returns
     (output, the cache written in place, or None)."""
+    if enc_out is not None:
+        raise NotImplementedError("cross-attention is not ported yet "
+                                  "(ROADMAP A.9d)")
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, x)
     if positions is None:
@@ -272,15 +407,16 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    if (window and s > window) or s * s > _DIRECT_LIMIT:
-        raise NotImplementedError(
-            "banded / chunked long-sequence attention is not ported yet "
-            "(ROADMAP A.8); the direct path covers S*S <= 2**22 without a "
-            "window shorter than S")
-    out = _direct_attention(q, k, v, positions, positions, causal=causal,
-                            window=window, prefix_len=prefix_len, scale=scale)
+    if window and s > window:
+        out = _banded_attention(q, k, v, positions, positions,
+                                window=window, scale=scale)
+    else:
+        out = (_direct_attention if s * s <= _DIRECT_LIMIT else
+               _chunked_attention)(q, k, v, positions, positions,
+                                   causal=causal, window=window,
+                                   prefix_len=prefix_len, scale=scale)
     if cache is not None:
-        cache = _cache_write(cache, k, v, positions)
+        cache = _cache_write(cache, k, v, positions, valid_len)
     y = out.reshape(b, s, -1) @ p.wo.to(x.dtype)
     return y, cache
 

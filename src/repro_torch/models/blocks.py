@@ -9,7 +9,7 @@
 
 Caches are updated in place (see ``repro_torch.models.attention``).  Other
 block kinds (MoE, mamba2, xLSTM, shared attention, cross-attention) and
-layer norms are not ported yet (ROADMAP A.9) and raise.
+layer norms are not ported yet (ROADMAP A.9b-d) and raise.
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, ModelConfig
 from repro_torch.models.attention import (Attention, attention_forward,
                                           chunk_attention_paged,
                                           decode_attention,
@@ -41,6 +41,7 @@ class BlockCtx:
     block_tbl: Optional[torch.Tensor] = None   # (B, max_logical) paged table
     # rows (B,) or chunk tokens (B,C) allowed to write KV
     write_mask: Optional[torch.Tensor] = None
+    valid_len: Optional[int] = None            # real length of a padded prefill
 
 
 class MLP(nn.Module):
@@ -67,8 +68,9 @@ class DecoderBlock(nn.Module):
                  dtype):
         super().__init__()
         if kind != DENSE:
-            raise NotImplementedError(f"block kind {kind!r} is not ported "
-                                      f"yet (ROADMAP A.9)")
+            raise NotImplementedError(
+                f"block kind {kind!r} is not ported yet (ROADMAP "
+                f"{'A.9b' if kind == MOE else 'A.9c'})")
         kw = dict(device=device, dtype=dtype)
         self.attn = Attention(cfg, **kw)
         self.mlp = MLP(cfg, **kw)
@@ -130,7 +132,8 @@ def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
     att, _ = attention_forward(
         block.attn, cfg, h, positions=ctx.positions, causal=ctx.causal,
         window=ctx.window, use_rope=cfg.use_rope,
-        cache=cache["self"] if cache is not None else None)
+        cache=cache["self"] if cache is not None else None,
+        valid_len=ctx.valid_len)
     x = x + att
     h2 = _norm(x, block, cfg, "ln2")
     return x + _mlp(block.mlp, cfg, h2), cache

@@ -16,7 +16,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, SHARED_ATTN, ModelConfig
 from repro_torch.models.blocks import (BlockCtx, DecoderBlock, block_decode,
                                        block_forward, init_block,
                                        init_block_cache,
@@ -62,6 +62,22 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
     return tuple(segs)
 
 
+def unported_item(cfg: ModelConfig) -> str:
+    """The ROADMAP item that ports ``cfg``'s kind of model, or "" for the
+    dense decoders the port serves: MoE blocks (A.9b), recurrent and
+    hybrid blocks (A.9c), encoder-decoder, vision prefix, absolute
+    positions or layer norms (A.9d)."""
+    kinds = set(cfg.block_kinds())
+    if MOE in kinds:
+        return "A.9b"
+    if kinds - {DENSE}:
+        return "A.9c"
+    if (cfg.is_encdec or cfg.vision_tokens or not cfg.use_rope
+            or cfg.norm_type != "rms"):
+        return "A.9d"
+    return ""
+
+
 class Model(nn.Module):
     """Dense early-exit decoder.  Parameter names follow the JAX package's
     pytree: ``embed``, ``layers.<i>.*``, ``final_norm``, ``lm_head``
@@ -70,12 +86,11 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg.validate()
-        if (any(k != DENSE for k in cfg.block_kinds()) or cfg.is_encdec
-                or cfg.vision_tokens or not cfg.use_rope
-                or cfg.norm_type != "rms"):
+        item = unported_item(cfg)
+        if item:
             raise NotImplementedError(
                 f"{cfg.name}: only the dense rotary rms-norm decoder is "
-                f"ported yet (ROADMAP A.9)")
+                f"ported yet (ROADMAP {item})")
         self.segments = build_segments(cfg)
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
@@ -239,14 +254,18 @@ class Model(nn.Module):
                      if s.start >= l_ee1)
 
     def prefill(self, batch: Dict[str, torch.Tensor], caches: Caches,
-                seg_indices: Optional[Sequence[int]] = None):
+                seg_indices: Optional[Sequence[int]] = None,
+                valid_len: Optional[int] = None):
         """Full-sequence pass that fills caches.  batch["tokens"]: (B, S)
-        int64.  Returns (hidden (B,S,d), exit_hiddens, caches, ctx)."""
+        int64; ``valid_len``: the real length of a right-padded prompt
+        (a windowed ring keeps real tokens, not pads).  Returns (hidden
+        (B,S,d), exit_hiddens, caches, ctx)."""
         seg_indices = seg_indices or self.all_segments()
         tokens = batch["tokens"]
         x = self.embed_tokens(tokens)
         ctx = BlockCtx(positions=torch.arange(tokens.shape[1],
-                                              device=self.device))
+                                              device=self.device),
+                       valid_len=valid_len)
         x, exit_hiddens, caches = self.run_segments(x, ctx, seg_indices,
                                                     caches=caches)
         return x, exit_hiddens, caches, ctx

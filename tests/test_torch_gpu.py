@@ -16,7 +16,12 @@ Chunked prefill too: a chunk's int8 page write (one ``quantize_kv_write``
 launch for its tokens) against the plain version byte for byte, chunk
 attention on the card against the CPU, a copy-on-write page copy of an
 int8 pool (byte-exact), and prefix sharing with cache eviction behind the
-``CloudBatcher`` (the card equals the CPU).
+``CloudBatcher`` (the card equals the CPU).  And gemma3-12b's shapes:
+the ring kernel at d = 256, G = 2 over a wrapped 1024-slot window ring,
+the paged kernel at d = 256 (float and int8 pages), the int8 page writes
+at d = 256, both exit kernels at V = 262144, d = 3840; a reduced gemma3
+(a 32-token window) through both engines, chunked prefill and the
+two-tier runtime on two CUDA streams, equal to the CPU.
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -83,6 +88,7 @@ def _t(a, dev, dtype=None):
     (4, 32, 32, 128, 552, 0),        # ee-llm-7b decode, ragged S
     (3, 8, 2, 64, 300, 48),          # GQA with a window
     (2, 16, 2, 128, 97, 0),          # group of 8
+    (2, 16, 8, 256, 1100, 1024),     # gemma3-12b: d = 256, G = 2, window
 ])
 def test_decode_attn_kernel(cuda, dtype, atol, b, h, kv, d, s, window):
     rng = np.random.default_rng(s)
@@ -137,6 +143,30 @@ def test_decode_attn_kernel_splits(cuda, dtype, atol, b, s, window):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_decode_attn_kernel_wrapped_window_ring(cuda, dtype, atol, b):
+    """gemma3-12b's local layers: a 1024-slot ring that has wrapped
+    (position p in slot p % 1024, rows at different positions) under its
+    1024-token window, H = 16 over KV = 8 heads of d = 256."""
+    h, kv, d, size = 16, 8, 256, 1024
+    rng = np.random.default_rng(b)
+    cur = rng.integers(size, 5000, b).astype(np.int32)
+    pos = np.zeros((b, size), np.int32)
+    for i, c in enumerate(cur):
+        p = np.arange(c - size + 1, c + 1)
+        pos[i, p % size] = p
+    q = _t(rng.normal(size=(b, h, d)).astype(np.float32), cuda, dtype)
+    k = _t(rng.normal(size=(b, size, kv, d)).astype(np.float32), cuda, dtype)
+    v = _t(rng.normal(size=(b, size, kv, d)).astype(np.float32), cuda, dtype)
+    pos, cur = _t(pos, cuda), _t(cur, cuda)
+    got = decode_attn(q, k, v, pos, cur, window=size)
+    torch.cuda.synchronize()
+    want = decode_attn_ref(q, k, v, pos, cur, window=size)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
 def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
     """A page pool with ragged per-row fills through a scattered block
     table (pages handed out in shuffled order, a hole in one row's table,
@@ -174,6 +204,7 @@ def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
     (3, 8, 2, 64, 16, 9, 48, True),       # GQA 4 with a window, gaps
     (2, 16, 2, 128, 8, 12, 0, True),      # group of 8, 8-token pages
     (3, 4, 2, 64, 32, 4, 0, False),       # group of 2, 32-token pages
+    (4, 16, 8, 256, 16, 80, 1024, True),  # gemma3-12b, window, gaps
 ])
 def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
                                   n_lp, window, gaps):
@@ -206,6 +237,7 @@ def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
     (8, 32, 32, 128, 35, True),    # 8 slots, a single mapped page a row
     (2, 8, 2, 64, 40, False),      # 4 (row, kv head) pairs: pages split
     (1, 32, 32, 128, 35, False),   # ee-llm-7b at one row: pages split
+    (1, 16, 8, 256, 40, False),    # gemma3-12b at one row: pages split
 ])
 def test_decode_attn_paged_kernel_splits(cuda, dtype, int8, atol, b, h, kv,
                                          d, n_lp, one_page):
@@ -400,7 +432,8 @@ def _check_exit(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d,v,tie", [(1, 4096, 32000, (100, 20000)),
                                        (8, 4096, 32000, None),
-                                       (3, 256, 300, (5, 299))])
+                                       (3, 256, 300, (5, 299)),
+                                       (1, 3840, 262144, (100, 200000))])
 def test_exit_head_and_exit_quant_kernels(cuda, dtype, b, d, v, tie):
     h, w, ns = _exit_inputs(b, d, v, cuda, dtype, tie, seed=b + v)
     got = exit_head(h, w, ns)
@@ -484,7 +517,7 @@ def _same_kv_pool(got, want):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("b", [1, 8])
 def test_quantize_kv_write_kernel(cuda, b, d, dtype, masked):
     """A decode step's int8 page write in one launch against its plain
@@ -518,7 +551,7 @@ def test_quantize_kv_write_kernel(cuda, b, d, dtype, masked):
 
 @pytest.mark.parametrize("case", ["short", "long", "first"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_quantize_kv_scatter_kernel(cuda, d, dtype, case):
     """A prefilled row's int8 scatter in one launch against its plain
     version: a ring shorter than its pages (fills past it), longer
@@ -755,7 +788,7 @@ def test_int8_swap_roundtrip_on_the_card_is_byte_exact(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_quantize_kv_chunk_write_kernel(cuda, d, dtype):
     """A chunk's int8 page write in one launch against its plain version,
     byte for byte: stream 0's final chunk (11 of 16 tokens, the pads
@@ -893,3 +926,78 @@ def test_prefix_share_with_eviction_behind_the_batcher_on_the_card(
             assert [x for x in g if isinstance(x, int)] == \
                 [x for x in c if isinstance(x, int)]
     assert bp_g["prefix_evictions"] >= 1 and b_g["prefix_hit_tokens"] > 0
+
+
+def _gemma_pair(cuda):
+    """A reduced gemma3 (8 layers, exits 3 and 6, a 32-token window over
+    5 of every 6 layers, d = 64 heads), float32, on the CPU and the card
+    from one seed, and prompts longer than the window."""
+    import dataclasses
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(reduced(get_config("gemma3-12b"), n_layers=8),
+                              exit_layers=(3, 6)).validate()
+    cpu = build_model(cfg, device="cpu", seed=19)
+    gpu = build_model(cfg, device=cuda, seed=19)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((41, 80, 57))]
+    return cpu, gpu, prompts
+
+
+@pytest.mark.parametrize("layout", ["sequential", "dense", "paged",
+                                    "paged-int8", "chunked"])
+def test_gemma3_small_on_the_card_matches_cpu(cuda, layout):
+    """Banded prefill in the local layers, the windowed ring and paged
+    kernels: the card's streams and counters equal the CPU's in every
+    engine and layout."""
+    cpu, gpu, prompts = _gemma_pair(cuda)
+    theta = _split_theta(cpu, prompts)
+    kw = {"sequential": {}, "dense": dict(kv_layout="dense"),
+          "paged": dict(kv_layout="paged"),
+          "paged-int8": dict(kv_layout="paged", kv_dtype="int8"),
+          "chunked": dict(kv_layout="paged", chunked_prefill=True)}[layout]
+    ccfg = CollmConfig(theta=theta, **kw)
+    runs = [ServingSystem(m, ccfg).generate_sequential(prompts, 12)
+            if layout == "sequential" else
+            ServingSystem(m, ccfg).generate(prompts, 12, num_slots=2)
+            for m in (cpu, gpu)]
+    assert runs[1]["tokens"] == runs[0]["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
+        assert (getattr(runs[1]["stats"], name)
+                == getattr(runs[0]["stats"], name))
+
+
+@pytest.mark.parametrize("theta,wire,chunk", [(1.1, "float32", 0),
+                                              (None, "float16", 16),
+                                              (None, "int8", 0)])
+def test_two_tier_runtime_on_the_card_matches_cpu(cuda, theta, wire, chunk):
+    """The two tiers on two streams of one card equal both tiers on the
+    CPU: streams and wire bytes; at θ = 1.1 with a float32 wire, the
+    full-model greedy stream."""
+    from repro_torch.core.collm import CoLLM
+    from repro_torch.core.disagg import TwoTierRuntime
+    cpu, gpu, prompts = _gemma_pair(cuda)
+    theta = _split_theta(cpu, prompts) if theta is None else theta
+    ccfg = CollmConfig(theta=theta, wire_format=wire)
+    runs = []
+    for m in (cpu, gpu):
+        rt = TwoTierRuntime(m, ccfg, m.device, m.device)
+        rt.build()
+        runs.append(rt.decode(prompts[1], 16, max_seq=128,
+                              upload_chunk=chunk))
+    assert runs[1][0] == runs[0][0]
+    assert runs[1][1]["wire_bytes"] == runs[0][1]["wire_bytes"]
+    if theta > 1:
+        co = CoLLM(gpu, CollmConfig())
+        caches = gpu.init_cache(1, 128)
+        with torch.no_grad():
+            x, _, caches, _ = gpu.prefill(
+                {"tokens": _t(prompts[1][None], cuda)}, caches)
+            tok = gpu.logits(x[:, -1:])[:, 0].argmax(-1)
+            ref = [int(tok[0])]
+            for t in range(15):
+                tok, _, caches = co.full_step(tok[:, None], caches, 80 + t)
+                ref.append(int(tok[0]))
+        assert runs[1][0] == ref
