@@ -15,7 +15,9 @@ exit code and no result line:
    chunk, float32, bfloat16 and int8 pages; the wire quantizer at 1 and 8 rows; the int8 page writes, a
    decode step at 8 slots and at B=1, a 16-token prefill chunk and a
    512-token prefill scatter, every pool byte, beside the torch sequence
-   the write kernels replaced), with its
+   the write kernels replaced; ``exit_heads``, both exits in one launch,
+   at B = 1 and 8 slots with the int8 packet, ties across two blocks' V
+   ranges and inside one), with its
    device time (CUDA
    events), the plain version's, one PyTorch library call's where one
    computes the same function, and the bound (bytes over 3.35 TB/s or
@@ -26,8 +28,8 @@ exit code and no result line:
    chunks: the ring kernel over a 4136-slot ring and over a wrapped
    1024-slot window ring, both paged variants at 8 slots of 512-4096 keys
    with and without the 1024-token window, the int8 page writes with a
-   4096-token scatter, the wire quantizer at d = 3840, both exit kernels
-   over the 262144 x 3840 unembedding); a bfloat16 attention output is
+   4096-token scatter, the wire quantizer at d = 3840, the three exit
+   kernels over the 262144 x 3840 unembedding); a bfloat16 attention output is
    held to two bf16 ulps of its largest value, float32 to 2e-5;
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
@@ -45,7 +47,9 @@ exit code and no result line:
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
-   launch counter set to 0 before and read after;
+   launch counter set to 0 before and read after; every serving run prints
+   its exit-kernel launches per edge tick (one ``exit_heads`` launch for
+   both exits of a tick, and the int8 wire packet with it);
 4. the same model through the batched engine, ``ServingSystem.generate``
    with 8 slots and 12 prompts of 128-512 tokens, on dense and paged KV
    (bfloat16 and int8 pages) in the collm, cloud and standalone modes, with
@@ -584,9 +588,11 @@ def compare_exit(label, got, want, tie) -> float:
     return max(e_conf, e_lse)
 
 
-def exit_bound(b, w, with_packet: bool):
+def exit_bound(b, w, with_packet: bool, exits: int = 1):
+    """b rows over ``exits`` exits: W, the rows and the norm scales read
+    once, (conf, tok, lse) written once (and the int8 packet)."""
     d = w.shape[1]
-    nbytes = (w.numel() + b * d + d) * w.element_size() + b * 12
+    nbytes = (w.numel() + b * d + exits * d) * w.element_size() + b * 12
     if with_packet:
         nbytes += b * d + b * 4
     return bound_ms(nbytes, 2 * b * w.numel(), w.dtype)
@@ -912,6 +918,80 @@ def check_exit_quant(dev, gen, cases) -> dict:
                 replaces="src/repro/kernels/exit_quant/kernel.py:98",
                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bnd,
                 bound_by=by, library_ms=None)
+
+
+def heads_inputs(e, b, dtype, dev, gen, ties):
+    """(E, B, d) hiddens, the unembedding and (E, d) norm scales; row 0 of
+    exit i tops out on the two equal one-hot read-out rows ``ties[i]``, on
+    its largest normalized element, a column that row 0 of every other
+    exit holds at 0 (so no exit's tie reaches another's top)."""
+    d, v = CFG.d_model, CFG.vocab_size
+    h = torch.randn((e, b, d), generator=gen, device=dev) * 3
+    w = torch.randn((v, d), generator=gen, device=dev) * 0.02
+    ns = torch.randn((e, d), generator=gen, device=dev) * 0.1
+    for i, tie in enumerate(ties):
+        hn0 = h[i, 0] * (1 + ns[i])
+        j = int(hn0.abs().argmax())
+        h[[k for k in range(e) if k != i], 0, j] = 0.0
+        w[list(tie)] = 0.0
+        w[list(tie), j] = 4.0 * torch.sign(hn0[j])
+    return h.to(dtype), w.to(dtype), ns.to(dtype)
+
+
+def heads_library(h, w, ns):
+    """One torch.matmul of the stacked normed rows against W^T, then
+    logsumexp and argmax: the library's version of ``exit_heads``."""
+    hf = h.float()
+    hn = (hf * torch.rsqrt(hf.square().mean(-1, keepdim=True) + 1e-5)
+          * (1 + ns.float()[:, None])).to(h.dtype).reshape(-1, h.shape[-1])
+
+    def library(i):
+        logits = torch.matmul(hn, w.T).float()
+        return logits.logsumexp(-1), logits.argmax(-1)
+    return library
+
+
+def check_exit_heads(dev, gen) -> dict:
+    """``exit_heads``: both exits of a tick in one launch, at B = 1 (R = 2)
+    and at 8 slots (R = 16), bf16 and float32, with the int8 packet of
+    exit 0; against ``exit_heads_ref``.  Exit 0's row 0 ties across two
+    blocks' V ranges, exit 1's row 0 inside one block's range.  Timed at
+    R = 2 (the row's time) and R = 16, bf16."""
+    from repro_torch.kernels.exit_head.ops import exit_heads
+    from repro_torch.kernels.exit_head.ref import exit_heads_ref
+    from repro_torch.kernels.quantize.ref import quantize_int8_ref
+    v = CFG.vocab_size
+    ties = ((100, v * 5 // 8), (150, 200))
+    print(f"exit_heads (d={CFG.d_model}, V={v}):")
+    err, timed = 0.0, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, SLOTS):
+            h, w, ns = heads_inputs(2, b, dtype, dev, gen, ties)
+            label = f"{str(dtype)[6:]} E=2 B={b} ties"
+            got = exit_heads(h, w, ns, quant_exit=0)
+            want = exit_heads_ref(h, w, ns, quant_exit=0)
+            torch.cuda.synchronize()
+            err = max(err, compare_exit(label, [x.reshape(-1) for x in got[:3]],
+                                        [x.reshape(-1) for x in want[:3]],
+                                        None))
+            check(int(got[1][0, 0]) == ties[0][0]
+                  and int(got[1][1, 0]) == ties[1][0],
+                  f"{label}: a tie did not go to the lowest index")
+            q, s = quantize_int8_ref(h[0])
+            check(torch.equal(got[3], q) and torch.equal(got[4], s)
+                  and torch.equal(got[3], want[3]),
+                  f"{label}: int8 packet disagrees with its plain version")
+            if dtype == torch.bfloat16:
+                bnd, by = exit_bound(2 * b, w, with_packet=False, exits=2)
+                timed[b] = dict(
+                    ms=device_ms(lambda i: exit_heads(h, w, ns)),
+                    plain_ms=device_ms(lambda i: exit_heads_ref(h, w, ns)),
+                    library_ms=device_ms(heads_library(h, w, ns)),
+                    bound_ms=bnd, bound_by=by)
+            del h, w, ns
+    return dict(name="exit_heads", source="src/repro_torch/csrc/exit_head.cu",
+                replaces="src/repro/kernels/exit_head/kernel.py:85",
+                max_abs_err=err, **timed[1], r16=timed[SLOTS])
 
 
 def check_small_model(dev) -> None:
@@ -1325,7 +1405,8 @@ def check_gemma_kernels(dev, gen, rows) -> None:
                  check_exit_head(dev, gen, cases), check_quantize(dev, gen),
                  check_kv_write(dev, gen),
                  check_kv_scatter(dev, gen, length=G_PROMPT),
-                 check_exit_quant(dev, gen, cases)]
+                 check_exit_quant(dev, gen, cases),
+                 check_exit_heads(dev, gen)]
         del cases
         window = check_window_ring(dev, gen)
     for r, g in zip(rows, grows):
@@ -1412,7 +1493,7 @@ def kernel_ops() -> dict:
     from repro_torch.kernels.decode_attn.ops import (decode_attn,
                                                      decode_attn_paged,
                                                      decode_attn_paged_int8)
-    from repro_torch.kernels.exit_head.ops import exit_head
+    from repro_torch.kernels.exit_head.ops import exit_head, exit_heads
     from repro_torch.kernels.exit_quant.ops import exit_quant
     from repro_torch.kernels.quantize.ops import (quantize_int8,
                                                   quantize_kv_scatter,
@@ -1423,7 +1504,42 @@ def kernel_ops() -> dict:
             "exit_head": exit_head, "quantize": quantize_int8,
             "quantize_kv_write": quantize_kv_write,
             "quantize_kv_scatter": quantize_kv_scatter,
-            "exit_quant": exit_quant}
+            "exit_quant": exit_quant, "exit_heads": exit_heads}
+
+
+EXIT_KERNELS = ("exit_head", "exit_heads", "exit_quant")
+EDGE_TICKS = ("edge_step", "edge_step_masked", "standalone_step",
+              "edge_prefill", "edge_prefill_padded", "edge_prefill_chunk")
+
+
+@contextlib.contextmanager
+def edge_ticks():
+    """Counts the edge ticks (``CoLLM``'s edge decode steps and prefills,
+    each of which decides its exits) made while open: yields a one-element
+    list that holds the count."""
+    from repro_torch.core.collm import CoLLM
+    n = [0]
+    saved = {name: getattr(CoLLM, name) for name in EDGE_TICKS}
+
+    def counted(fn):
+        def wrapped(self, *a, **kw):
+            n[0] += 1
+            return fn(self, *a, **kw)
+        return wrapped
+
+    for name, fn in saved.items():
+        setattr(CoLLM, name, counted(fn))
+    try:
+        yield n
+    finally:
+        for name, fn in saved.items():
+            setattr(CoLLM, name, fn)
+
+
+def exits_per_tick(launched: dict, ticks: int) -> str:
+    """Exit-kernel launches per edge tick of a run ('-' without ticks)."""
+    n = sum(launched[k] for k in EXIT_KERNELS)
+    return f"{n / ticks:.2f}" if ticks else "-"
 
 
 def serve(model, prompts, mode, theta, wire, backfill=False,
@@ -1436,8 +1552,9 @@ def serve(model, prompts, mode, theta, wire, backfill=False,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = system.generate_sequential(prompts, max_new, mode=mode)
-    torch.cuda.synchronize()
+    with edge_ticks() as ticks:
+        r = system.generate_sequential(prompts, max_new, mode=mode)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launched = {n: op.launches - before[n] for n, op in kernel_ops().items()}
     st = r["stats"]
@@ -1450,15 +1567,20 @@ def serve(model, prompts, mode, theta, wire, backfill=False,
           f"exits_l1={st.exits_l1} exits_l2={st.exits_l2} "
           f"cloud_requests={st.cloud_requests} upload_bytes={st.upload_bytes} "
           f"peak_mem={torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
-          f"launches={launched}")
+          f"edge_ticks={ticks[0]} exit_launches/tick="
+          f"{exits_per_tick(launched, ticks[0])} launches={launched}")
     r["wall_s"], r["peak_bytes"] = dt, torch.cuda.max_memory_allocated()
     return r
 
 
 def check_fused_upload(model, prompts, theta) -> None:
     """fused_exit_upload (one exit_quant launch) on the l_ee1 hidden of a
-    real decode tick equals edge_step's l_ee1 decision and int8 packet."""
+    real decode tick equals edge_step's l_ee1 decision and int8 packet;
+    that packet (from edge_step's exit_heads launch) equals
+    ``transport.quantize``; each exit alone through ``exit_decision`` (one
+    exit_head launch) equals edge_step's decision, bit for bit."""
     from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.transport import quantize
     from repro_torch.serving.engine import ServingSystem
     collm = ServingSystem(model, CollmConfig(theta=theta,
                                              wire_format="int8")).collm
@@ -1479,6 +1601,19 @@ def check_fused_upload(model, prompts, theta) -> None:
     print(f"fused_exit_upload == edge_step (token, int8 packet): {same}; "
           f"max|conf err|={e:.3g} (tol 1e-6)")
     check(same and e <= 1e-6, "fused_exit_upload differs from edge_step")
+    # edge_step's packet comes from its exit_heads launch: the wire's bytes
+    wire = quantize(exit_h[collm.l_ee1], "int8")
+    same = all(torch.equal(wire[k], out.upload[k]) for k in wire)
+    print(f"edge_step int8 packet (exit_heads) == transport.quantize: {same}")
+    check(same, "edge_step's int8 packet differs from transport.quantize")
+    # each exit alone (one exit_head launch) == its share of the launch
+    alone = {l: collm.exit_decision(l, h) for l, h in exit_h.items()}
+    same = all(torch.equal(d.confidence, out.decisions[l].confidence)
+               and torch.equal(d.token, out.decisions[l].token)
+               for l, d in alone.items())
+    print(f"exit_decision (exit_head) == edge_step's exit_heads decisions: "
+          f"{same}")
+    check(same, "exit_head's decision differs from exit_heads'")
 
 
 # ---------------------------------------------------------------------------
@@ -1496,8 +1631,9 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    r = system.generate(prompts, MAX_NEW, mode=mode, num_slots=SLOTS)
-    torch.cuda.synchronize()
+    with edge_ticks() as ticks:
+        r = system.generate(prompts, MAX_NEW, mode=mode, num_slots=SLOTS)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     r["launched"] = {n: op.launches - before[n]
                      for n, op in kernel_ops().items()}
@@ -1515,6 +1651,8 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
           f" kv_cache_bytes={sched.kv_cache_bytes()} peak_mem="
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f}GiB "
           f"pool={r['pool_stats']} chunks={st.prefill_chunks} "
+          f"edge_ticks={ticks[0]} exit_launches/tick="
+          f"{exits_per_tick(r['launched'], ticks[0])} "
           f"launches={r['launched']}")
     r["wall_s"] = dt
     return r
@@ -1920,8 +2058,9 @@ def serve_phase6(model, theta, paged, async_a) -> None:
     check(f["launched"]["decode_attn_paged"] > 0 and f["swap_out"] >= 1,
           "phase 6 (f): no paged attention launch, or nothing swapped")
     check(runs["c"]["launched"]["decode_attn"] > 0
-          and runs["c"]["launched"]["quantize"] > 0,
-          "phase 6 (c): no ring attention or wire quantizer launch")
+          and runs["c"]["launched"]["exit_heads"] > 0,
+          "phase 6 (c): no ring attention or exit launch (whose int8 wire "
+          "packet the edge uploads)")
     check(runs["g"]["batcher"]["swaps"] >= 1,
           "phase 6 (g): the batcher swapped nothing")
 
@@ -2148,9 +2287,11 @@ def two_tier_run(model, prompt, theta, wire, chunk, sync=False):
     before = {n: op.launches for n, op in ops.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, info = rt.decode(prompt, MAX_NEW, max_seq=len(prompt) + MAX_NEW + 8,
-                           upload_chunk=chunk)
-    torch.cuda.synchronize()
+    with edge_ticks() as edge:
+        toks, info = rt.decode(prompt, MAX_NEW,
+                               max_seq=len(prompt) + MAX_NEW + 8,
+                               upload_chunk=chunk)
+        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     ticks = np.asarray(info["tick_s"]) * 1e3
     info.update(wall_s=dt, tick_ms=float(ticks.mean()),
@@ -2159,6 +2300,8 @@ def two_tier_run(model, prompt, theta, wire, chunk, sync=False):
           f"{' cloud synced' if sync else ''}: wall={dt:.2f}s wire_bytes="
           f"{info['wire_bytes']} channel={info['channel']} edge tick host "
           f"mean={ticks.mean():.3f} ms median={np.median(ticks):.3f} ms "
+          f"edge_ticks={edge[0]} exit_launches/tick="
+          f"{exits_per_tick(info['launched'], edge[0])} "
           f"launches={info['launched']}")
     check(len(toks) == MAX_NEW and 0 <= min(toks) and max(toks) < 262144,
           "two-tier: bad tokens")
@@ -2335,17 +2478,17 @@ def main(argv=None) -> None:
     rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
             check_exit_head(dev, gen, cases), check_quantize(dev, gen),
             check_kv_write(dev, gen), check_kv_scatter(dev, gen),
-            check_exit_quant(dev, gen, cases)]
+            check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)]
     del cases
     check_gemma_kernels(dev, gen, rows)
     for r in rows:
         print_time(r["name"], r)
-        for shape in ("b8", "b1", "chunk"):
+        for shape in ("b8", "b1", "chunk", "r16"):
             if shape in r:
                 print_time(f"{r['name']} ({shape.upper()})", r[shape])
         g = r["gemma"]
         print_time(f"{r['name']} ({GEMMA})", g)
-        for shape in ("b8", "b1", "chunk", "window"):
+        for shape in ("b8", "b1", "chunk", "window", "r16"):
             if shape in g:
                 print_time(f"{r['name']} ({GEMMA}, {shape.upper()})",
                            g[shape])
@@ -2401,7 +2544,7 @@ def main(argv=None) -> None:
     async_a = serve_phase5(model, theta, phase4["paged"])
     adaptive = {name: op.launches for name, op in ops.items()}
     print(f"phase 5 (adaptive serving) launches: {adaptive}")
-    for name in ("decode_attn", "decode_attn_paged", "exit_head", "quantize"):
+    for name in ("decode_attn", "decode_attn_paged", "exit_heads"):
         check(adaptive[name] > 0, f"{name} was not launched in phase 5")
     torch.cuda.empty_cache()
 
@@ -2413,8 +2556,7 @@ def main(argv=None) -> None:
     print(f"phase 6 (drafting and preemption) launches: {spec} in "
           f"{time.perf_counter() - t6:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
-                 "exit_head", "quantize", "quantize_kv_write",
-                 "quantize_kv_scatter"):
+                 "exit_heads", "quantize_kv_write", "quantize_kv_scatter"):
         check(spec[name] > 0, f"{name} was not launched in phase 6")
     torch.cuda.empty_cache()
 
@@ -2425,7 +2567,7 @@ def main(argv=None) -> None:
     shared = {name: op.launches for name, op in ops.items()}
     print(f"phase 7 (chunked prefill, prefix sharing, fleet replay) "
           f"launches: {shared} in {time.perf_counter() - t7:.1f} s")
-    for name in ("decode_attn_paged", "decode_attn_paged_int8", "exit_head",
+    for name in ("decode_attn_paged", "decode_attn_paged_int8", "exit_heads",
                  "quantize_kv_write"):
         check(shared[name] > 0, f"{name} was not launched in phase 7")
     if args.profile:
@@ -2451,7 +2593,7 @@ def main(argv=None) -> None:
     print(f"phase 8 ({GEMMA} at full width) launches: {gemma} in "
           f"{time.perf_counter() - t8:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
-                 "exit_head", "quantize", "quantize_kv_write",
+                 "exit_heads", "quantize", "quantize_kv_write",
                  "quantize_kv_scatter"):
         check(gemma[name] > 0, f"{name} was not launched in phase 8")
     launches = {name: n + batched[name] + adaptive[name] + spec[name]

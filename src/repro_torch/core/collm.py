@@ -4,7 +4,9 @@ Port of ``repro.core.collm`` for the sequential loop and the batched
 engine, on dense ring KV or a block-paged pool (float or int8 pages):
 
   * ``edge_step``        — edge partition (layers 1..l_ee2) with exits at
-                           l_ee1/l_ee2; emits the quantized l_ee1 upload.
+                           l_ee1/l_ee2 (one ``exit_heads`` launch,
+                           ``exit_decisions``); emits the quantized l_ee1
+                           upload (an int8 packet from the same launch).
   * ``fused_exit_upload``— the l_ee1 exit decision and its int8 upload in
                            one ``exit_quant`` kernel launch.
   * ``cloud_step``       — cloud partition (layers l_ee1+1..L) continuing
@@ -27,9 +29,12 @@ engine, on dense ring KV or a block-paged pool (float or int8 pages):
                            upload rings (``fused_edge_phase`` +
                            ``fused_cloud_phase``); only tests call it.
 
-Exit decisions go through the ``exit_head`` kernel and the int8 wire format
-through the ``quantize`` kernel; a sampler other than greedy asks for the
-exit logits too (``with_logits=True``), which the kernel never writes.  KV
+The edge steps and edge prefills evaluate all their exits in one
+``exit_heads`` launch (``exit_decisions``), which with an int8 wire also
+writes the l_ee1 packet; a single exit (``exit_decision``, the standalone
+step) goes through ``exit_head``, and the float wire formats are cast in
+PyTorch.  A sampler other than greedy asks for the exit logits too
+(``with_logits=True``), which the kernels never write.  KV
 caches are updated in place, so a masked step never writes a masked-out row
 (the JAX package computes every row and merges the old ones back).
 ``CoLLM`` raises for any ``CollmConfig`` field that selects a feature not
@@ -43,7 +48,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core.exits import (ExitDecision, evaluate_exit,
-                                    first_confident_exit)
+                                    evaluate_exits, first_confident_exit)
 from repro_torch.core.transport import FORMATS, dequantize, quantize
 from repro_torch.kernels.exit_quant.ops import exit_quant
 from repro_torch.models.blocks import BlockCtx
@@ -232,6 +237,48 @@ class CoLLM:
             d = d._replace(logits=m.exit_logits(layer, h2))
         return d
 
+    def exit_decisions(self, exit_h: Dict[int, torch.Tensor],
+                       with_logits: bool = False
+                       ) -> Dict[int, ExitDecision]:
+        """Every exit of ``exit_h`` ({layer: (B, d) or (B, 1, d) hidden})
+        in ONE ``exit_heads`` launch, ordered by layer; ``with_logits``
+        adds each exit's (B, V) logits (plain PyTorch)."""
+        return self._exit_pass(exit_h, with_logits)[0]
+
+    def _exit_pass(self, exit_h: Dict[int, torch.Tensor], with_logits: bool,
+                   quant_layer: Optional[int] = None):
+        """(decisions by layer, the int8 packet of ``quant_layer``'s hidden
+        in ``transport.quantize``'s layout or None) from one launch."""
+        m = self.model
+        layers = tuple(sorted(exit_h))
+        decs, packet = evaluate_exits(
+            [exit_h[l] for l in layers], m.unembed_weight(),
+            torch.stack([m.exit_norms[str(l)] for l in layers]),
+            m.cfg.norm_eps,
+            None if quant_layer is None else layers.index(quant_layer))
+        decisions = {}
+        for l, d in zip(layers, decs):
+            if with_logits:
+                h = exit_h[l]
+                d = d._replace(logits=m.exit_logits(
+                    l, h.reshape(h.shape[0], h.shape[-1])))
+            decisions[l] = d
+        if packet is not None:
+            shape = exit_h[quant_layer].shape
+            packet = {"data": packet[0].reshape(shape),
+                      "scale": packet[1].reshape(*shape[:-1], 1)}
+        return decisions, packet
+
+    def _edge_exits(self, exit_h: Dict[int, torch.Tensor],
+                    with_logits: bool):
+        """An edge tick's exit decisions and its l_ee1 upload: with an int8
+        wire the packet comes from the exits' launch (bit-equal to
+        ``transport.quantize(h, "int8")``), else a cast."""
+        if self.ccfg.wire_format == "int8":
+            return self._exit_pass(exit_h, with_logits, self.l_ee1)
+        return (self._exit_pass(exit_h, with_logits)[0],
+                quantize(exit_h[self.l_ee1], self.ccfg.wire_format))
+
     # ------------------------------------------------------------------
     # prefill (prompt processing)
     # ------------------------------------------------------------------
@@ -240,8 +287,8 @@ class CoLLM:
         position, l_ee1 hidden sequence for upload, caches)."""
         _, exit_h, caches, _ = self.model.prefill(batch, caches,
                                                   self.edge_segs)
-        decisions = {l: self.exit_decision(l, h[:, -1])
-                     for l, h in exit_h.items()}
+        decisions = self.exit_decisions({l: h[:, -1]
+                                         for l, h in exit_h.items()})
         return decisions, exit_h[self.l_ee1], caches
 
     def cloud_prefill(self, h1_seq: torch.Tensor, caches: Caches):
@@ -268,9 +315,8 @@ class CoLLM:
         caches)."""
         _, exit_h, caches, _ = self.model.prefill({"tokens": tokens}, caches,
                                                   self.edge_segs, true_len)
-        decisions = {l: self.exit_decision(l, h[:, true_len - 1],
-                                           with_logits)
-                     for l, h in exit_h.items()}
+        decisions = self.exit_decisions(
+            {l: h[:, true_len - 1] for l, h in exit_h.items()}, with_logits)
         caches = self.model.invalidate_cache_after(caches, true_len)
         return decisions, exit_h[self.l_ee1], caches
 
@@ -320,9 +366,8 @@ class CoLLM:
         _, exit_h, caches = self.model.decode_step(
             tokens, caches, pos0, self.edge_segs, block_tbl=block_tbl,
             write_mask=wm)
-        decisions = {l: self.exit_decision(l, h[:, chunk_len - 1],
-                                           with_logits)
-                     for l, h in exit_h.items()}
+        decisions = self.exit_decisions(
+            {l: h[:, chunk_len - 1] for l, h in exit_h.items()}, with_logits)
         return decisions, exit_h[self.l_ee1], caches
 
     def cloud_prefill_chunk(self, h1: torch.Tensor, pos0: int,
@@ -348,10 +393,8 @@ class CoLLM:
         _, exit_h, caches = self.model.decode_step(token, caches, pos,
                                                    self.edge_segs,
                                                    block_tbl=block_tbl)
-        decisions = {l: self.exit_decision(l, h, with_logits)
-                     for l, h in exit_h.items()}
+        decisions, upload = self._edge_exits(exit_h, with_logits)
         tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
-        upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
         return EdgeStepOut(decisions, tok, exited, upload, caches)
 
     def edge_step_masked(self, token: torch.Tensor, caches: Caches, pos,
@@ -367,15 +410,14 @@ class CoLLM:
                                                    self.edge_segs,
                                                    block_tbl=block_tbl,
                                                    write_mask=run_mask)
-        decisions = {l: self.exit_decision(l, h, with_logits)
-                     for l, h in exit_h.items()}
+        decisions, upload = self._edge_exits(exit_h, with_logits)
         tok, exited, _ = first_confident_exit(decisions, self.ccfg.theta)
-        upload = quantize(exit_h[self.l_ee1], self.ccfg.wire_format)
         return EdgeStepOut(decisions, tok, exited, upload, caches)
 
     def fused_exit_upload(self, hidden: torch.Tensor):
-        """The l_ee1 exit + int8 upload in ONE ``exit_quant`` launch over
-        the hidden, in place of ``edge_step``'s exit_head + quantize pair.
+        """The l_ee1 exit alone + its int8 upload in ONE ``exit_quant``
+        launch over the hidden (``edge_step`` with an int8 wire gets the
+        same packet from its launch over all exits).
 
         ``hidden``: (B, 1, d) or (B, d).  Returns (confidence (B,),
         token (B,), packet) where ``packet`` has exactly the layout of

@@ -8,14 +8,16 @@ Port of ``repro.core.exits``.  ``evaluate_exit`` takes the exit's hidden
 state and head weights and goes through the ``exit_head`` kernel, which
 never writes the (B, V) logits: its decisions carry ``logits=None``, and
 greedy decoding needs only the token and the confidence.
+``evaluate_exits`` does the same for every exit of a tick in one
+``exit_heads`` launch, which reads the unembedding once for all of them.
 """
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.kernels.exit_head.ops import exit_head
+from repro_torch.kernels.exit_head.ops import exit_head, exit_heads
 
 
 class ExitDecision(NamedTuple):
@@ -31,6 +33,21 @@ def evaluate_exit(hidden: torch.Tensor, weight: torch.Tensor,
     h = hidden.reshape(hidden.shape[0], hidden.shape[-1]).contiguous()
     conf, tok, _ = exit_head(h, weight, norm_scale, eps=eps)
     return ExitDecision(token=tok, confidence=conf)
+
+
+def evaluate_exits(hiddens: Sequence[torch.Tensor], weight: torch.Tensor,
+                   norm_scales: torch.Tensor, eps: float,
+                   quant_exit: Optional[int] = None
+                   ) -> Tuple[List[ExitDecision], Optional[tuple]]:
+    """The E exits of one tick in one ``exit_heads`` launch: ``hiddens``
+    E hiddens of (B, d) (or (B, 1, d)), ``norm_scales`` (E, d) ->
+    (one ExitDecision an exit, in order; the int8 packet (q (B, d),
+    scale (B, 1)) of exit ``quant_exit``'s raw rows, or None)."""
+    h = torch.stack([x.reshape(x.shape[0], x.shape[-1]) for x in hiddens])
+    out = exit_heads(h, weight, norm_scales, eps, quant_exit)
+    decisions = [ExitDecision(token=tok, confidence=conf)
+                 for conf, tok in zip(out[0], out[1])]
+    return decisions, (None if quant_exit is None else out[3:])
 
 
 def select_exit_logits(decisions: Dict[int, ExitDecision], theta: float

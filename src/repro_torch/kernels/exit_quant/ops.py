@@ -11,31 +11,36 @@ from ctypes import c_float, c_int, c_void_p
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.exit_head.ops import exit_operands
+from repro_torch.kernels.exit_head.ops import (WS_BLOCKS, exit_operands,
+                                               workspace)
 from repro_torch.kernels.exit_quant.ref import exit_quant_ref
 
-_ARGTYPES = ([c_int, c_int] + [c_void_p] * 3 + [c_float, c_int, c_int, c_int]
-             + [c_void_p] * 9)
+_ARGTYPES = ([c_int, c_int] + [c_void_p] * 3 + [c_float] + [c_int] * 3
+             + [c_void_p] * 3 + [c_int] + [c_void_p] * 4)
 
 
 def exit_quant(hidden: torch.Tensor, weight: torch.Tensor,
                norm_scale: torch.Tensor, *, eps: float = 1e-5):
     """(B,d) hidden + (V,d) unembedding + (d,) exit-norm scale ->
     (confidence, token, logsumexp, q int8 (B,d), scale f32 (B,1)) in one
-    launch: the exit decision and the int8 wire packet of the raw hidden."""
+    launch: the exit decision and the int8 wire packet of the raw hidden.
+    B up to ``exit_head.ops.MAX_ROWS``."""
     if hidden.device.type == "cpu":
         return exit_quant_ref(hidden, weight, norm_scale, eps)
-    scratch, outs = exit_operands("exit_quant", hidden, weight, norm_scale)
+    ns = norm_scale.reshape(1, -1)
+    exit_operands("exit_quant", hidden, weight, ns, 1)
     b, d = hidden.shape
     q = torch.empty((b, d), device=hidden.device, dtype=torch.int8)
     scale = torch.empty((b, 1), device=hidden.device, dtype=torch.float32)
+    out = torch.empty((3, b), device=hidden.device, dtype=torch.int32)
+    outs = (out[0].view(torch.float32), out[1], out[2].view(torch.float32))
     fn = _build.function("exit_quant", "exit_quant_launch", _ARGTYPES)
     _build.check("exit_quant", fn(
         hidden.device.index, _build.DTYPE_CODES[hidden.dtype],
-        _build.ptr(hidden), _build.ptr(weight), _build.ptr(norm_scale),
-        float(eps), b, weight.shape[0], d,
-        *map(_build.ptr, scratch), *map(_build.ptr, outs),
-        _build.ptr(q), _build.ptr(scale), _build.stream(hidden)))
+        _build.ptr(hidden), _build.ptr(weight), _build.ptr(ns),
+        float(eps), b, weight.shape[0], d, _build.ptr(q), _build.ptr(scale),
+        _build.ptr(workspace(hidden.device)), WS_BLOCKS,
+        *map(_build.ptr, outs), _build.stream(hidden)))
     exit_quant.launches += 1
     return (*outs, q, scale)
 

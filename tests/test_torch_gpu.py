@@ -19,7 +19,8 @@ int8 pool (byte-exact), and prefix sharing with cache eviction behind the
 ``CloudBatcher`` (the card equals the CPU).  And gemma3-12b's shapes:
 the ring kernel at d = 256, G = 2 over a wrapped 1024-slot window ring,
 the paged kernel at d = 256 (float and int8 pages), the int8 page writes
-at d = 256, both exit kernels at V = 262144, d = 3840; a reduced gemma3
+at d = 256, the exit kernels at V = 262144, d = 3840 (``exit_heads``
+with two exits of 1 and 8 slots too); a reduced gemma3
 (a 32-token window) through both engines, chunked prefill and the
 two-tier runtime on two CUDA streams, equal to the CPU.
 
@@ -49,8 +50,9 @@ from repro_torch.kernels.decode_attn.ops import (  # noqa: E402
     decode_attn_paged, decode_attn_paged_int8, split_plan)
 from repro_torch.kernels.decode_attn.ref import (  # noqa: E402
     decode_attn_paged_ref, decode_attn_ref)
-from repro_torch.kernels.exit_head.ops import exit_head  # noqa: E402
-from repro_torch.kernels.exit_head.ref import exit_head_ref  # noqa: E402
+from repro_torch.kernels.exit_head.ops import exit_head, exit_heads  # noqa: E402
+from repro_torch.kernels.exit_head.ref import (exit_head_ref,  # noqa: E402
+                                               exit_heads_ref)
 from repro_torch.kernels.exit_quant.ops import exit_quant  # noqa: E402
 from repro_torch.kernels.exit_quant.ref import exit_quant_ref  # noqa: E402
 from repro_torch.kernels.quantize.ops import (  # noqa: E402
@@ -448,6 +450,47 @@ def test_exit_head_and_exit_quant_kernels(cuda, dtype, b, d, v, tie):
     q, s = quantize_int8_ref(h)
     assert torch.equal(fused[3], q) and torch.equal(fused[4], s)
     _check_exit(fused[:3], exit_quant_ref(h, w, ns)[:3])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,v", [(1, 4096, 32000), (8, 4096, 32000),
+                                   (1, 3840, 262144), (8, 3840, 262144),
+                                   (12, 256, 300)])
+def test_exit_heads_kernel(cuda, dtype, b, d, v):
+    """Two exits of B slots in one launch (R = 2 and 16; B = 12 takes two
+    launches of 8 slots): each exit equal to the plain version, and bit for
+    bit to ``exit_head`` on its own rows where both run on the CUDA cores;
+    the int8 packet of exit 1 equal to ``quantize_int8_ref``.  Exit 0's
+    row 0 ties across two blocks' V ranges, exit 1's inside one block's
+    range."""
+    rng = np.random.default_rng(b + v)
+    h = (rng.normal(size=(2, b, d)) * 3).astype(np.float32)
+    w = (rng.normal(size=(v, d)) * 0.02).astype(np.float32)
+    ns = (rng.normal(size=(2, d)) * 0.1).astype(np.float32)
+    ties = ((100, v * 5 // 8), (150, 200))
+    for i, tie in enumerate(ties):
+        hn0 = h[i, 0] * (1 + ns[i])
+        j = int(np.abs(hn0).argmax())
+        h[1 - i, 0, j] = 0.0              # no exit reaches the other's tie
+        w[list(tie)] = 0.0
+        w[list(tie), j] = 4.0 * np.sign(hn0[j])
+    ht, wt, nst = _t(h, cuda, dtype), _t(w, cuda, dtype), _t(ns, cuda, dtype)
+    before = exit_heads.launches
+    got = exit_heads(ht, wt, nst, quant_exit=1)
+    torch.cuda.synchronize()
+    assert exit_heads.launches - before == (2 if b > 8 else 1)
+    want = exit_heads_ref(ht, wt, nst, quant_exit=1)
+    for i in range(2):
+        _check_exit([x[i] for x in got[:3]], [x[i] for x in want[:3]])
+        assert int(got[1][i, 0]) == ties[i][0]
+        if dtype == torch.float32 and b <= 8 or 2 * b <= 8:
+            # one launch on the CUDA cores both ways: the same arithmetic
+            # (bf16 above 8 rows runs on the tensor cores instead)
+            one = exit_head(ht[i], wt, nst[i])
+            for a, e in zip(one, got[:3]):
+                assert torch.equal(a, e[i])
+    q, s = quantize_int8_ref(ht[1])
+    assert torch.equal(got[3], q) and torch.equal(got[4], s)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
