@@ -29,7 +29,14 @@ exit code and no result line:
    1024-slot window ring, both paged variants at 8 slots of 512-4096 keys
    with and without the 1024-token window, the int8 page writes with a
    4096-token scatter, the wire quantizer at d = 3840, the three exit
-   kernels over the 262144 x 3840 unembedding); a bfloat16 attention output is
+   kernels over the 262144 x 3840 unembedding); the same at the shapes of
+   phases 9 and 10 and of the main path's tiny-ee: stablelm-12b's d = 160,
+   G = 4 (both attention kernels, float and int8 pages, the int8 page
+   writes with a 2048-token scatter), granite-moe-3b-a800m's G = 3 (both
+   attention kernels) and its 49155 x 1536 unembedding, olmoe-1b-7b's
+   50304 x 2048 one (``exit_heads`` and ``exit_quant``, and
+   ``exit_quant`` at B = 24 and 40: two and three launches), and the
+   paged kernel at tiny-ee's d = 32, G = 2; a bfloat16 attention output is
    held to two bf16 ulps of its largest value, float32 to 2e-5;
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
@@ -41,9 +48,12 @@ exit code and no result line:
    cloud, and through chunked prefill with prefix sharing (float32 and
    int8 pages, a second wave, swap preemption with cache eviction, behind
    the batched cloud), open-loop arrivals with SLOs and adaptive control;
-   and a reduced gemma3 (8 layers, a 32-token window) through
-   ``generate_sequential``, ``generate`` on dense, paged and int8 pages,
-   chunked prefill and the two-tier runtime on two CUDA streams;
+   tiny-ee on paged float32 and int8 pages; a reduced gemma3 (8 layers, a
+   32-token window) through ``generate_sequential``, ``generate`` on
+   dense, paged and int8 pages, chunked prefill and the two-tier runtime
+   on two CUDA streams; and reduced olmoe and granite (4 experts top-2,
+   granite with 6 heads over 2) through ``generate_sequential`` and
+   ``generate`` on dense, paged and int8 pages and chunked prefill;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -99,7 +109,20 @@ exit code and no result line:
    streams (θ = 1.1 with a float32 wire equals ``CoLLM.full_step``'s
    greedy stream; float16 and int8 wire, the prompt upload whole or in
    slices; the edge tick's host time against a synchronised cloud);
-9. the kernel table as one JSON line (launches: phases 3 to 8), the
+9. olmoe-1b-7b (16 layers, d_model 2048, 64 experts top-8) and then
+   granite-moe-3b-a800m (32 layers, d_model 1536, 24 heads over 8, 40
+   experts top-8, tied) at full width (bfloat16, random weights, float32
+   routers; gemma3-12b freed first, each model freed before the next),
+   with the launch counters set to 0 before and read after: (a)
+   ``generate_sequential`` with two 512-token prompts in five modes
+   (collm θ = 1 float32 equals cloud), (b) ``generate`` with 8 slots and
+   8 prompts of 256-2048 tokens on dense, paged bf16 and paged int8 KV
+   (128-token pages), (c) (b)'s paged run with chunked prefill;
+10. stablelm-12b at full width (40 layers, d_model 5120, 32 heads over 8
+   of d = 160, bfloat16): ``generate`` with 8 slots and 8 prompts of
+   512-2048 tokens, 16 new tokens, on dense, paged bf16 and paged int8
+   KV, with the launch counters set to 0 before and read after;
+11. the kernel table as one JSON line (launches: phases 3 to 10), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
@@ -153,6 +176,12 @@ G_LENS = (512, 640, 896, 1024, 1536, 2048, 3072, 4096)  # phase 8 (c)
 G_PAGE = 128                    # phase 8 (c), (d): 108 prompt chunks
 G_CHUNK = 512                   # phase 8 (e): prompt upload slices
 G_FILLS = (512, 4096)           # phase 2 at gemma3's shapes: paged fills
+STABLELM = "stablelm-12b"                       # phase 10, at full width
+OLMOE, GRANITE = "olmoe-1b-7b", "granite-moe-3b-a800m"  # phase 9
+M_LENS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)  # phase 9 (b), (c)
+S_LENS = (512, 768, 1024, 1280, 1536, 1792, 2048, 2048)  # phase 10
+S_NEW = 16                      # phase 10: new tokens a prompt
+N_FILLS = (512, 2048)           # phase 2 at phases 9 and 10's shapes
 
 
 def check(cond, msg: str) -> None:
@@ -543,7 +572,7 @@ def check_decode_attn_paged(dev, gen) -> list:
     tc = time_paged(PAGE_SIZE, 12, dev, gen, chunk=True)
     tw = (time_paged(SLOTS, 4, dev, gen, window=windows[-1])
           if CFG.sliding_window else {})
-    return [dict(name=name, source="src/repro_torch/csrc/decode_attn_paged.cu",
+    return [dict(name=name, source=f"src/repro_torch/csrc/{name}.cu",
                  replaces="src/repro/kernels/decode_attn/kernel.py:236",
                  max_abs_err=errs[name], **t8[name], b1=t1[name],
                  chunk=tc[name], **({"window": tw[name]} if tw else {}))
@@ -1047,9 +1076,188 @@ def check_small_model(dev) -> None:
         check(same, f"small model batched {mode}: the paged stream differs")
         check(same8, f"small model batched {mode}: the int8-page stream on "
               f"the card differs from the CPU's")
+    check_small_tiny_ee(dev)
     check_small_adaptive(cpu, gpu, prompts, theta)
     check_small_spec_preempt(cpu, gpu, prompts, theta)
     check_small_prefix_fleet(cpu, gpu, theta)
+
+
+def tiny_ee_config():
+    """The main path's test model (``tests/conftest.py``): 4 layers,
+    d_model 128, 4 heads over 2 of d = 32, V = 256, tied, exits 1 and 2."""
+    from repro_torch.configs.base import ModelConfig
+    return ModelConfig(name="tiny-ee", arch_type="dense", n_layers=4,
+                       d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
+                       vocab_size=256, tie_embeddings=True,
+                       exit_layers=(1, 2)).validate()
+
+
+def same_counts(got, want) -> bool:
+    fields = ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes")
+    return got["tokens"] == want["tokens"] and all(
+        getattr(got["stats"], f) == getattr(want["stats"], f)
+        for f in fields)
+
+
+def check_small_tiny_ee(dev) -> None:
+    """tiny-ee (float32, one seed) through ``generate`` on paged float32
+    and int8 pages (the paged kernel at d = 32): the card's streams and
+    counters equal the CPU's."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingSystem
+    cfg = tiny_ee_config()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(40 + i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((24, 9, 40, 17, 33))]
+    theta = split_theta(ServingSystem(cpu, CollmConfig(theta=1.0)).generate(
+        prompts, 16)["stats"])
+    ops = kernel_ops()
+    for kv_dtype in ("float32", "int8"):
+        ccfg = CollmConfig(theta=theta, kv_layout="paged", kv_dtype=kv_dtype)
+        want = ServingSystem(cpu, ccfg).generate(prompts, 16, num_slots=3)
+        name = ("decode_attn_paged_int8" if kv_dtype == "int8"
+                else "decode_attn_paged")
+        before = ops[name].launches
+        got = ServingSystem(gpu, ccfg).generate(prompts, 16, num_slots=3)
+        same = same_counts(got, want)
+        print(f"tiny-ee paged {kv_dtype}: card == CPU: {same} (exits "
+              f"{got['stats'].exits_l1}/{got['stats'].exits_l2}, cloud "
+              f"{got['stats'].cloud_requests}, {name} "
+              f"{ops[name].launches - before} launches)")
+        check(same and ops[name].launches > before, f"tiny-ee paged "
+              f"{kv_dtype}: the card's run differs from the CPU's")
+
+
+def moe_small(dev, arch):
+    """A reduced MoE model in float32 from one seed, on the card and on
+    the CPU: 4 layers, exits 1 and 2, 4 experts top-2; olmoe with 4 heads
+    over 4 of d = 64, granite with its group of 3 (6 heads over 2 of
+    d = 64, d_model 384)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    shape = {} if arch == OLMOE else dict(n_heads=6, d_model=384)
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=4, **shape),
+                              exit_layers=(1, 2))
+    if arch == GRANITE:
+        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    cfg = cfg.validate()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(50 + i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((41, 80, 57, 100))]
+    return cpu, gpu, prompts
+
+
+def check_small_moe(dev) -> None:
+    """Phase 9's paths on reduced olmoe and granite: the MoE block (the
+    capacity form in prefill, the decode form in steps and chunks) and,
+    for granite, both attention kernels at G = 3, through
+    ``generate_sequential`` (collm at a split θ), ``generate`` on dense,
+    paged float32 and int8 pages, and chunked prefill.  The card's
+    streams and counters equal the CPU's."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    for arch in (OLMOE, GRANITE):
+        cpu, gpu, prompts = moe_small(dev, arch)
+        theta = split_theta(ServingSystem(cpu, CollmConfig(
+            theta=1.0)).generate_sequential(prompts, 16)["stats"])
+        for label, kw in (("sequential", {}),
+                          ("dense", dict(kv_layout="dense")),
+                          ("paged", dict(kv_layout="paged")),
+                          ("paged int8", dict(kv_layout="paged",
+                                              kv_dtype="int8")),
+                          ("chunked", dict(kv_layout="paged",
+                                           chunked_prefill=True))):
+            ccfg = CollmConfig(theta=theta, **kw)
+            want, got = (
+                ServingSystem(m, ccfg).generate_sequential(prompts, 16)
+                if label == "sequential" else
+                ServingSystem(m, ccfg).generate(prompts, 16, num_slots=3)
+                for m in (cpu, gpu))
+            same = same_counts(got, want)
+            print(f"small {arch} {label}: card == CPU: {same} (exits "
+                  f"{got['stats'].exits_l1}/{got['stats'].exits_l2}, cloud "
+                  f"{got['stats'].cloud_requests})")
+            check(same, f"small {arch} {label}: the card's run differs "
+                  "from the CPU's")
+
+
+def check_exit_quant_rows(dev, gen, b) -> dict:
+    """``exit_quant`` over ``b`` > 16 rows at ``CFG``'s unembedding (one
+    launch per 16 rows), bf16 and float32, against its plain version;
+    timed in bf16.  The bound reads W once for all ``b`` rows."""
+    from repro_torch.kernels.exit_quant.ops import exit_quant
+    from repro_torch.kernels.exit_quant.ref import exit_quant_ref
+    print(f"exit_quant B={b} (d={CFG.d_model}, V={CFG.vocab_size}):")
+    err = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        h, w, ns = exit_inputs(b, dtype, dev, gen)
+        label = f"{str(dtype)[6:]} B={b}"
+        before = exit_quant.launches
+        got, want = exit_quant(h, w, ns), exit_quant_ref(h, w, ns)
+        check(exit_quant.launches - before == -(-b // 16),
+              f"exit_quant {label}: not one launch per 16 rows")
+        err = max(err, compare_exit(label, got[:3], want[:3], None))
+        check(torch.equal(got[3], want[3]) and torch.equal(got[4], want[4]),
+              f"{label}: int8 packet disagrees with its plain version")
+        if dtype == torch.bfloat16:
+            timed = dict(ms=device_ms(lambda i: exit_quant(h, w, ns)),
+                         plain_ms=device_ms(lambda i: exit_quant_ref(h, w,
+                                                                    ns)))
+        del h, w, ns
+    bnd, by = exit_bound(b, torch.empty((CFG.vocab_size, CFG.d_model),
+                                        dtype=torch.bfloat16, device="meta"),
+                         with_packet=True)
+    return dict(name="exit_quant", max_abs_err=err, **timed, bound_ms=bnd,
+                bound_by=by, library_ms=None)
+
+
+def check_new_kernel_shapes(dev, gen, rows) -> None:
+    """Phase 2 again at the shapes of phases 9 and 10 and of the main
+    path's tiny-ee: stablelm-12b's (H = 32 over KV = 8 heads of d = 160:
+    both attention kernels, float and int8 pages, 128-token pages with
+    fills of 512-2048 keys, and the int8 page writes with a 2048-token
+    scatter), granite-moe-3b-a800m's (24 heads over 8 of d = 64, G = 3:
+    both attention kernels; the exit kernels over its 49155 x 1536 tied
+    unembedding, a 3-row tail past the last 512-row box; ``exit_quant``
+    at B = 40, three launches), olmoe-1b-7b's (the exit kernels over 50304
+    x 2048; ``exit_quant`` at B = 24, two launches) and tiny-ee's (the
+    paged kernel at d = 32, G = 2, 16-token pages).  Each result is kept
+    beside the ee-llm-7b row of its kernel under "shapes", by label."""
+    from repro_torch.configs.registry import get_config
+    by_name = {r["name"]: r for r in rows}
+
+    def keep(label, results):
+        for g in results:
+            by_name[g["name"]].setdefault("shapes", {})[label] = g
+
+    n_seq = N_FILLS[1] + MAX_NEW + 8
+    with shapes_of(get_config(STABLELM), N_FILLS, n_seq, G_PAGE):
+        keep(f"{STABLELM}, d=160 G=4",
+             [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
+              check_kv_write(dev, gen),
+              check_kv_scatter(dev, gen, length=N_FILLS[1])])
+    with shapes_of(get_config(GRANITE), N_FILLS, n_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep(f"{GRANITE}, d=64 G=3, V=49155",
+             [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
+              check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)])
+        del cases
+        keep(f"{GRANITE}, V=49155 B=40", [check_exit_quant_rows(dev, gen, 40)])
+    with shapes_of(get_config(OLMOE), N_FILLS, n_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep(f"{OLMOE}, V=50304",
+             [check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)])
+        del cases
+        keep(f"{OLMOE}, V=50304 B=24", [check_exit_quant_rows(dev, gen, 24)])
+    with shapes_of(tiny_ee_config(), (40, 200), 256, PAGE_SIZE):
+        keep("tiny-ee, d=32 G=2", check_decode_attn_paged(dev, gen))
+    torch.cuda.empty_cache()
 
 
 def same_run(a, b) -> bool:
@@ -1448,7 +1656,6 @@ def check_small_gemma(dev) -> None:
     full = ServingSystem(cpu, CollmConfig(theta=1.0)).generate_sequential(
         prompts, 16)
     theta = split_theta(full["stats"])
-    fields = ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes")
     for label, kw in (("sequential", {}), ("dense", dict(kv_layout="dense")),
                       ("paged", dict(kv_layout="paged")),
                       ("paged int8", dict(kv_layout="paged",
@@ -1460,9 +1667,7 @@ def check_small_gemma(dev) -> None:
                      if label == "sequential" else
                      ServingSystem(m, ccfg).generate(prompts, 16, num_slots=3)
                      for m in (cpu, gpu))
-        same = got["tokens"] == want["tokens"] and all(
-            getattr(got["stats"], f) == getattr(want["stats"], f)
-            for f in fields)
+        same = same_counts(got, want)
         print(f"small gemma3 {label}: card == CPU: {same} (exits "
               f"{got['stats'].exits_l1}/{got['stats'].exits_l2}, cloud "
               f"{got['stats'].cloud_requests})")
@@ -1601,6 +1806,23 @@ def check_fused_upload(model, prompts, theta) -> None:
     print(f"fused_exit_upload == edge_step (token, int8 packet): {same}; "
           f"max|conf err|={e:.3g} (tol 1e-6)")
     check(same and e <= 1e-6, "fused_exit_upload differs from edge_step")
+    # 24 rows around the real hidden: two exit_quant launches, equal to
+    # exit_decision's two exit_head launches and transport.quantize
+    h1 = exit_h[collm.l_ee1]
+    g24 = torch.Generator(device=dev)
+    g24.manual_seed(SEED)
+    h24 = (h1.float() + 0.1 * torch.randn((24,) + h1.shape[1:],
+                                          generator=g24, device=dev)
+           ).to(h1.dtype)
+    conf24, tok24, pkt24 = collm.fused_exit_upload(h24)
+    ref24 = collm.exit_decision(collm.l_ee1, h24[:, 0])
+    wire24 = quantize(h24, "int8")
+    same = (torch.equal(conf24, ref24.confidence)
+            and torch.equal(tok24, ref24.token)
+            and all(torch.equal(pkt24[k], wire24[k]) for k in wire24))
+    print(f"fused_exit_upload at B=24 == exit_decision + "
+          f"transport.quantize: {same}")
+    check(same, "fused_exit_upload at B=24 differs")
     # edge_step's packet comes from its exit_heads launch: the wire's bytes
     wire = quantize(exit_h[collm.l_ee1], "int8")
     same = all(torch.equal(wire[k], out.upload[k]) for k in wire)
@@ -1621,7 +1843,7 @@ def check_fused_upload(model, prompts, theta) -> None:
 # ---------------------------------------------------------------------------
 def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
                   kv_dtype="float32", backfill=False, page_size=PAGE_SIZE,
-                  chunked=False):
+                  chunked=False, max_new=MAX_NEW):
     from repro_torch.core.collm import CollmConfig
     from repro_torch.serving.engine import ServingSystem
     system = ServingSystem(model, CollmConfig(
@@ -1632,7 +1854,7 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with edge_ticks() as ticks:
-        r = system.generate(prompts, MAX_NEW, mode=mode, num_slots=SLOTS)
+        r = system.generate(prompts, max_new, mode=mode, num_slots=SLOTS)
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     r["launched"] = {n: op.launches - before[n]
@@ -1641,7 +1863,7 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
     r["paged_layers"] = sum("kp" in c["self"] for tree in sched._trees()
                             for layers in tree.values() for c in layers)
     st = r["stats"]
-    check(all(len(t) == MAX_NEW and min(t) >= 0
+    check(all(len(t) == max_new and min(t) >= 0
               and max(t) < model.cfg.vocab_size for t in r["tokens"]),
           f"{label}: bad tokens")
     print(f"batched {label:18s} mode={mode:10s} theta={theta:.6g} "
@@ -2410,6 +2632,135 @@ def serve_phase8(model) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: the MoE decoders and stablelm-12b at full width
+# ---------------------------------------------------------------------------
+def vocab_prompts(lens, vocab, seed) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, int(n)) for n in lens]
+
+
+def build_full(name, dev):
+    """``name`` at full width in bf16, random weights from ``SEED``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
+           f"d_ff {cfg.moe.expert_d_ff}" if cfg.moe else "")
+    print(f"model: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of d={cfg.resolved_head_dim}"
+          f"{moe} V={cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, "
+          f"{n_bytes / 1e9:.2f} GB (bf16, float32 routers), initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def serve_full(model, phase, lens, max_new, *, sequential, chunked) -> dict:
+    """A model at full width (bf16, random weights): with ``sequential``,
+    ``generate_sequential`` with two 512-token prompts in the cloud,
+    collm θ = 1 float32 (must equal cloud; its confidences give the split
+    θ), split-θ float16, θ = 0 int8 and standalone modes; then
+    ``generate`` with 8 slots and prompts of ``lens`` tokens on dense,
+    paged bf16 and paged int8 KV (128-token pages), and with ``chunked``
+    the paged bf16 run again with chunked prefill.  Streams of random bf16
+    weights other than collm θ = 1's are reported by agreement."""
+    cfg = model.cfg
+    out = {}
+    theta = None
+    if sequential:
+        prompts = vocab_prompts((PROMPT_LEN, PROMPT_LEN), cfg.vocab_size,
+                                SEED + 6)
+        cloud = serve(model, prompts, "cloud", 1.0, "float32")
+        full = serve(model, prompts, "collm", 1.0, "float32")
+        check(full["tokens"] == cloud["tokens"], f"phase {phase} (a) "
+              f"{cfg.name}: collm at theta=1 with a float32 wire differs "
+              "from cloud")
+        print(f"phase {phase} (a) {cfg.name} collm theta=1 float32 == "
+              f"cloud: True")
+        theta = split_theta(full["stats"])
+        mix = serve(model, prompts, "collm", theta, "float16")
+        r0 = serve(model, prompts, "collm", 0.0, "int8")
+        check(r0["stats"].exits_l1 == len(prompts) * (MAX_NEW - 1),
+              f"phase {phase} (a) theta=0: not every token exited at l_ee1")
+        alone = serve(model, prompts, "standalone", theta, "float16")
+        for name, r in (("split theta", mix), ("theta=0 int8", r0),
+                        ("standalone", alone)):
+            print(f"phase {phase} (a) {cfg.name} {name} vs cloud: "
+                  f"{agreement(r['tokens'], cloud['tokens'])}")
+        out["sequential"] = dict(cloud=cloud, full=full, mix=mix, r0=r0,
+                                 alone=alone)
+        torch.cuda.empty_cache()
+    if theta is None:
+        # the split θ of a θ = 1 batched run's confidences
+        probe = serve_batched(model, vocab_prompts(lens[:2], cfg.vocab_size,
+                                                   SEED + 8),
+                              "theta probe", "collm", 1.0, "float32",
+                              layout="dense", max_new=max_new)
+        theta = split_theta(probe["stats"])
+    batch = vocab_prompts(lens, cfg.vocab_size, SEED + 7)
+    layouts = [("dense", "dense", "float32", False),
+               ("paged", "paged", "float32", False),
+               ("paged-int8", "paged", "int8", False)]
+    if chunked:
+        layouts.append(("paged chunked", "paged", "float32", True))
+    runs = {name: serve_batched(model, batch, f"{cfg.name} {name}", "collm",
+                                theta, "float16", layout=layout, kv_dtype=kv,
+                                page_size=G_PAGE, chunked=ch,
+                                max_new=max_new)
+            for name, layout, kv, ch in layouts}
+    for name in ("paged", "paged-int8"):
+        print(f"phase {phase} (b) {cfg.name} {name} vs dense: "
+              f"{agreement(runs[name]['tokens'], runs['dense']['tokens'])}")
+    if chunked:
+        print(f"phase {phase} (c) {cfg.name} chunked vs monolithic paged: "
+              f"{agreement(runs['paged chunked']['tokens'], runs['paged']['tokens'])}")
+    launched = runs["paged-int8"]["launched"]
+    check(runs["dense"]["launched"]["decode_attn"] > 0
+          and runs["paged"]["launched"]["decode_attn_paged"] > 0
+          and launched["decode_attn_paged_int8"] > 0
+          and launched["quantize_kv_write"] == launched[
+              "decode_attn_paged_int8"]
+          and launched["quantize_kv_scatter"] > 0
+          and (not chunked or runs["paged chunked"]["stats"].prefill_chunks
+               > 0),
+          f"phase {phase} {cfg.name}: a layout did not run its kernels")
+    out["batched"] = runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_phase(phase, names, dev, ops, **kw) -> dict:
+    """Each model of ``names`` built, served (``serve_full``) with the
+    launch counters set to 0 before and read after, and freed; returns the
+    launches of all of them."""
+    total = {name: 0 for name in ops}
+    t0 = time.perf_counter()
+    for arch in names:
+        model = build_full(arch, dev)
+        for op in ops.values():
+            op.launches = 0
+        ta = time.perf_counter()
+        serve_full(model, phase, **kw)
+        launched = {name: op.launches for name, op in ops.items()}
+        print(f"phase {phase} ({arch} at full width) launches: {launched} in "
+              f"{time.perf_counter() - ta:.1f} s")
+        for name in ("decode_attn", "decode_attn_paged",
+                     "decode_attn_paged_int8", "exit_heads",
+                     "quantize_kv_write", "quantize_kv_scatter"):
+            check(launched[name] > 0,
+                  f"{name} was not launched in phase {phase} ({arch})")
+        total = {name: n + launched[name] for name, n in total.items()}
+        del model
+        torch.cuda.empty_cache()
+    print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return total
+
+
 def profile_window(label, fn) -> None:
     """Device time by kernel, the card's busy share and the host's
     costliest operators over one call of ``fn``."""
@@ -2481,6 +2832,7 @@ def main(argv=None) -> None:
             check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)]
     del cases
     check_gemma_kernels(dev, gen, rows)
+    check_new_kernel_shapes(dev, gen, rows)
     for r in rows:
         print_time(r["name"], r)
         for shape in ("b8", "b1", "chunk", "r16"):
@@ -2492,8 +2844,15 @@ def main(argv=None) -> None:
             if shape in g:
                 print_time(f"{r['name']} ({GEMMA}, {shape.upper()})",
                            g[shape])
+        for label, g in r.get("shapes", {}).items():
+            print_time(f"{r['name']} ({label})", g)
+            for shape in ("b8", "b1", "chunk", "r16"):
+                if shape in g:
+                    print_time(f"{r['name']} ({label}, {shape.upper()})",
+                               g[shape])
     check_small_model(dev)
     check_small_gemma(dev)
+    check_small_moe(dev)
     torch.cuda.empty_cache()
 
     cfg = CFG
@@ -2596,8 +2955,16 @@ def main(argv=None) -> None:
                  "exit_heads", "quantize", "quantize_kv_write",
                  "quantize_kv_scatter"):
         check(gemma[name] > 0, f"{name} was not launched in phase 8")
+    del gmodel
+    torch.cuda.empty_cache()
+
+    moe = serve_phase(9, (OLMOE, GRANITE), dev, ops, lens=M_LENS,
+                      max_new=MAX_NEW, sequential=True, chunked=True)
+    dense = serve_phase(10, (STABLELM,), dev, ops, lens=S_LENS,
+                        max_new=S_NEW, sequential=False, chunked=False)
     launches = {name: n + batched[name] + adaptive[name] + spec[name]
-                + shared[name] + gemma[name] for name, n in launches.items()}
+                + shared[name] + gemma[name] + moe[name] + dense[name]
+                for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 

@@ -5,7 +5,10 @@ The caller converts the pytree to numpy first (for example
 result is a state dict for ``repro_torch.models.transformer.Model``: each
 segment's stacked leading layer axis is unstacked into ``layers.<i>``,
 projection weights keep their ``x @ W`` layout, and ``exit_norms`` stay
-keyed by the exit layer's number as a string.
+keyed by the exit layer's number as a string.  A MoE block's leaves
+(``moe.router``, ``moe.w_gate``, ``moe.w_up``, ``moe.w_down``) carry
+across like the others; the router stays float32 in a model of any dtype,
+as the port's ``MoE`` module holds it.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ def params_from_jax(np_params: Dict[str, Any],
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"parts of the model not ported yet "
-                                  f"(ROADMAP A.9b-d)")
+                                  f"(ROADMAP A.9c-d)")
     state = {"embed": _tensor(np_params["embed"]),
              "final_norm": _tensor(np_params["final_norm"])}
     if "lm_head" in np_params:

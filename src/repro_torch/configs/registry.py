@@ -1,19 +1,21 @@
 """Architecture registry: ``--arch <id>`` resolution.
 
-The port serves the dense early-exit decoders: the paper's ee-llm-7b and
-the JAX package's four dense architectures.  The other six (MoE,
-recurrent and hybrid, encoder-decoder and VLM) are still to be ported
-(ROADMAP A.9b-d).
+The port serves the paper's ee-llm-7b, the JAX package's four dense
+decoders and its two mixture-of-experts decoders (olmoe-1b-7b,
+granite-moe-3b-a800m).  The other four (recurrent and hybrid,
+encoder-decoder and VLM) are still to be ported (ROADMAP A.9c-d).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs import (command_r_35b, ee_llm_7b, gemma3_12b,
+                                 granite_moe_3b_a800m, olmoe_1b_7b,
                                  qwen1_5_110b, stablelm_12b)
 from repro_torch.configs.base import ModelConfig, reduced
 
-_MODULES = (qwen1_5_110b, gemma3_12b, command_r_35b, stablelm_12b, ee_llm_7b)
+_MODULES = (qwen1_5_110b, gemma3_12b, command_r_35b, stablelm_12b,
+            olmoe_1b_7b, granite_moe_3b_a800m, ee_llm_7b)
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 

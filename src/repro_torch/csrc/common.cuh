@@ -34,12 +34,18 @@ template <> struct Raw<4> { using type = unsigned int; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<16> { using type = uint4; };
 
-// Load N consecutive elements of T (address aligned to N * sizeof(T), or
-// to 16 bytes when that is larger) as floats, in loads of up to 16 bytes.
+// The widest access (at most 16 bytes, a power of two) that divides
+// ``bytes``: N consecutive elements move in accesses of this size.
+__host__ __device__ constexpr int chunk_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : bytes % 4 == 0 ? 4
+         : bytes % 2 == 0 ? 2 : 1;
+}
+
+// Load N consecutive elements of T (address aligned to the access size of
+// chunk_bytes(N * sizeof(T))) as floats.
 template <typename T, int N>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
-  constexpr int kBytes = N * (int)sizeof(T);
-  constexpr int kChunk = kBytes >= 16 ? 16 : kBytes;
+  constexpr int kChunk = chunk_bytes(N * (int)sizeof(T));
   constexpr int kPer = kChunk / (int)sizeof(T);
   using R = typename Raw<kChunk>::type;
 #pragma unroll
@@ -76,19 +82,24 @@ __device__ __forceinline__ int8_t int8_code(float x, float scale) {
   return (int8_t)fminf(fmaxf(rintf(x / scale), -127.0f), 127.0f);
 }
 
-// The int8 codes of N consecutive floats under one scale, written in one
-// store of N bytes (dst aligned to N).
+// The int8 codes of N consecutive floats under one scale, written in
+// stores of chunk_bytes(N) bytes (dst aligned to that).
 template <int N>
 __device__ __forceinline__ void store_codes(int8_t* __restrict__ dst,
                                             const float* x, float scale) {
-  using R = typename Raw<N>::type;
-  union {
-    R raw;
-    int8_t code[N];
-  } u;
+  constexpr int kChunk = chunk_bytes(N);
+  using R = typename Raw<kChunk>::type;
 #pragma unroll
-  for (int i = 0; i < N; ++i) u.code[i] = int8_code(x[i], scale);
-  *reinterpret_cast<R*>(dst) = u.raw;
+  for (int c = 0; c < N / kChunk; ++c) {
+    union {
+      R raw;
+      int8_t code[kChunk];
+    } u;
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i)
+      u.code[i] = int8_code(x[c * kChunk + i], scale);
+    reinterpret_cast<R*>(dst)[c] = u.raw;
+  }
 }
 
 }  // namespace rt

@@ -83,6 +83,7 @@ cudaError_t launch_g(int G, const Args& a, cudaStream_t st) {
   switch (G) {
     case 1: return launch<T, D, 1>(a, st);
     case 2: return launch<T, D, 2>(a, st);
+    case 3: return launch<T, D, 3>(a, st);
     case 4: return launch<T, D, 4>(a, st);
     case 8: return launch<T, D, 8>(a, st);
   }
@@ -95,6 +96,7 @@ cudaError_t launch_t(int D, int G, const Args& a, cudaStream_t st) {
     case 32: return launch_g<T, 32>(G, a, st);
     case 64: return launch_g<T, 64>(G, a, st);
     case 128: return launch_g<T, 128>(G, a, st);
+    case 160: return launch_g<T, 160>(G, a, st);
     case 256: return launch_g<T, 256>(G, a, st);
   }
   return cudaErrorInvalidValue;
@@ -103,8 +105,8 @@ cudaError_t launch_t(int D, int G, const Args& a, cudaStream_t st) {
 }  // namespace
 
 // q (B, H, D); k, v (B, S, KV, D); pos (B, S) int32; cur (B,) int32;
-// out (B, H, D) in q's dtype.  D in {32, 64, 128, 256}, H / KV in
-// {1, 2, 4, 8}.  Split s covers keys [s * per, min(S, (s + 1) * per)),
+// out (B, H, D) in q's dtype.  D in {32, 64, 128, 160, 256}, H / KV in
+// {1, 2, 3, 4, 8}.  Split s covers keys [s * per, min(S, (s + 1) * per)),
 // 1 <= splits <= 8.
 extern "C" int decode_attn_launch(int device, int dtype, const void* q,
                                   const void* k, const void* v,

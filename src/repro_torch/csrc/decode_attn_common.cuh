@@ -10,11 +10,14 @@
 // in flight while the current one computes; a paged source reads the next
 // table entry one tile ahead in a register.
 //
-// Lane layout: kLanes = D / kEpl lanes share one key, each holding kEpl
-// of its elements (32, or 16 / 8 where G query heads need the registers)
-// in pieces of 16 bytes (8 for the narrowest int8 rows); piece c of lane
-// l holds columns (c * kLanes + l) * kPE .. + kPE, so that every copy
-// instruction reads kLanes * 16 contiguous bytes of each key.  A warp
+// Lane layout: kLanes = D / kEpl lanes share one key (a power of two that
+// divides D), each holding kEpl of its elements: the fewest that are at
+// least the register budget (32, or 16 / 8 where G query heads need the
+// registers) and a whole number of 4-byte words (D = 160: 40, 20 or 10
+// elements over 4, 8 or 16 lanes), in pieces of the widest of 16, 8 or 4
+// bytes that divides a lane's share; piece c of lane l holds columns
+// (c * kLanes + l) * kPE .. + kPE, so that every copy instruction reads
+// kLanes * kPB contiguous bytes of each key.  A warp
 // covers 32 / kLanes keys a step and U steps a tile (~4 KB of K and V).
 // Each lane copies and later reads its own pieces; the first lane of each
 // key copies the key's marker (and scales), read by the group after a
@@ -63,6 +66,7 @@ __device__ __forceinline__ void store(__half* p, float x) {
 }
 
 template <int BYTES> struct Raw;
+template <> struct Raw<4> { using type = unsigned; };
 template <> struct Raw<8> { using type = uint2; };
 template <> struct Raw<16> { using type = uint4; };
 
@@ -134,16 +138,32 @@ struct Tile {
   int n;
 };
 
+// Lanes that share one key: the most (a power of two up to 32 dividing
+// D) whose share of the key is at least the register budget of a lane
+// (or all of D) and a whole number of 4-byte words of P.
+template <typename P, int D, int G>
+__host__ __device__ constexpr int lanes_for() {
+  const int budget = G <= 2 ? 32 : G <= 4 ? 16 : 8;  // elements a lane
+  const int least = budget < D ? budget : D;
+  int lanes = 1;
+  for (int l = 2; l <= 32 && D % l == 0 && D / l >= least; l *= 2)
+    if (D / l * (int)sizeof(P) % 4 == 0) lanes = l;
+  return lanes;
+}
+
+// The widest of 16, 8 or 4 bytes that divides a lane's share of a key.
+__host__ __device__ constexpr int piece_bytes(int bytes) {
+  return bytes % 16 == 0 ? 16 : bytes % 8 == 0 ? 8 : 4;
+}
+
 // Compile-time shape of the body for one (q type, page type, D, G).
 template <typename T, typename P, int D, int G>
 struct Layout {
   static constexpr bool kQuant = std::is_same<P, int8_t>::value;
-  static constexpr int kEpl0 = G <= 2 ? 32 : 64 / G;
-  static constexpr int kEpl = kEpl0 < D ? kEpl0 : D;  // elements a lane holds
-  static constexpr int kLanes = D / kEpl;             // lanes that share a key
+  static constexpr int kLanes = lanes_for<P, D, G>();  // lanes sharing a key
+  static constexpr int kEpl = D / kLanes;             // elements a lane holds
   static constexpr int kKeys = 32 / kLanes;           // keys of a warp step
-  static constexpr int kPB =                          // bytes of a piece
-      kEpl * (int)sizeof(P) < 16 ? kEpl * (int)sizeof(P) : 16;
+  static constexpr int kPB = piece_bytes(kEpl * (int)sizeof(P));  // a piece
   static constexpr int kPE = kPB / (int)sizeof(P);    // elements of a piece
   static constexpr int kPieces = kEpl / kPE;          // pieces a lane holds
   static constexpr int kKV = 32 * kEpl * (int)sizeof(P);  // K bytes a step
@@ -158,6 +178,10 @@ struct Layout {
   static constexpr int kMerge = (kWarps + 1) * G * (D + 2) * 4;
   static constexpr int kSmem =
       kWarps * kWarpBytes > kMerge ? kWarps * kWarpBytes : kMerge;
+  static_assert(32 % kLanes == 0 && kLanes * kEpl == D, "lanes of a key");
+  static_assert(kPieces * kPE == kEpl && kEpl * (int)sizeof(P) % 4 == 0,
+                "a lane's share is whole pieces");
+  static_assert(kSmem <= 227 * 1024, "shared memory of a block");
 };
 
 // Attend the G query heads at qrow (G * D elements) over the tiles

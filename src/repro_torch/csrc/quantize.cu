@@ -30,7 +30,8 @@
 //    16 bytes, so every row starts aligned.
 //  - quantize_kv_write_launch / quantize_kv_scatter_launch: one warp per
 //    (token, kv head, K or V), d / 32 elements a lane (4 at d = 128: one
-//    8-byte load of bf16, one 4-byte store of codes), 5 shuffles.
+//    8-byte load of bf16, one 4-byte store of codes; 5 at d = 160, in
+//    element-wide accesses), 5 shuffles.
 #include "common.cuh"
 
 namespace {
@@ -241,17 +242,20 @@ using ScatterFn = void (*)(const void*, const void*, const void*,
                            const void*, void*, void*, void*, void*, void*, int,
                            int, int, int, cudaStream_t);
 
-// [dtype code][D = 32, 64, 128, 256]
-constexpr WriteFn kWrite[2][4] = {
+// [dtype code][D = 32, 64, 128, 160, 256]
+constexpr WriteFn kWrite[2][5] = {
     {launch_write<float, 1>, launch_write<float, 2>, launch_write<float, 4>,
-     launch_write<float, 8>},
+     launch_write<float, 5>, launch_write<float, 8>},
     {launch_write<__nv_bfloat16, 1>, launch_write<__nv_bfloat16, 2>,
-     launch_write<__nv_bfloat16, 4>, launch_write<__nv_bfloat16, 8>}};
-constexpr ScatterFn kScatter[2][4] = {
+     launch_write<__nv_bfloat16, 4>, launch_write<__nv_bfloat16, 5>,
+     launch_write<__nv_bfloat16, 8>}};
+constexpr ScatterFn kScatter[2][5] = {
     {launch_scatter<float, 1>, launch_scatter<float, 2>,
-     launch_scatter<float, 4>, launch_scatter<float, 8>},
+     launch_scatter<float, 4>, launch_scatter<float, 5>,
+     launch_scatter<float, 8>},
     {launch_scatter<__nv_bfloat16, 1>, launch_scatter<__nv_bfloat16, 2>,
-     launch_scatter<__nv_bfloat16, 4>, launch_scatter<__nv_bfloat16, 8>}};
+     launch_scatter<__nv_bfloat16, 4>, launch_scatter<__nv_bfloat16, 5>,
+     launch_scatter<__nv_bfloat16, 8>}};
 
 // The column of D in kWrite / kScatter, or -1.
 int head_dim_index(int D) {
@@ -259,7 +263,8 @@ int head_dim_index(int D) {
     case 32: return 0;
     case 64: return 1;
     case 128: return 2;
-    case 256: return 3;
+    case 160: return 3;
+    case 256: return 4;
     default: return -1;
   }
 }

@@ -28,8 +28,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("decode_attn", "decode_attn_paged", "exit_head", "quantize",
-           "exit_quant")
+KERNELS = ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
+           "exit_head", "quantize", "exit_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,6 +1,6 @@
 """Public wrappers of the GQA flash-decode attention kernels: the ring
 cache (``csrc/decode_attn.cu``) and the block-paged pool with float or int8
-pages (``csrc/decode_attn_paged.cu``).
+pages (``csrc/decode_attn_paged.cu`` and ``decode_attn_paged_int8.cu``).
 
 A CUDA tensor goes through the hand-written kernel (or the wrapper raises);
 a CPU tensor goes through the plain version in ``ref.py``.  Where the (row,
@@ -20,8 +20,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn.ref import (decode_attn_paged_ref,
                                                  decode_attn_ref)
 
-HEAD_DIMS = (32, 64, 128, 256)
-GROUPS = (1, 2, 4, 8)
+HEAD_DIMS = (32, 64, 128, 160, 256)
+GROUPS = (1, 2, 3, 4, 8)
 _ARGTYPES = [c_int, c_int] + [c_void_p] * 6 + [c_int] * 8 + [c_void_p]
 
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -95,7 +95,6 @@ def decode_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 decode_attn.launches = 0
 
 
-PAGED_HEAD_DIMS = (64, 128, 256)
 _PAGED_CODES = {**_build.DTYPE_CODES, torch.float16: 2}
 _PAGED_ARGTYPES = [c_int] * 3 + [c_void_p] * 9 + [c_int] * 9 + [c_void_p]
 
@@ -111,7 +110,7 @@ def decode_attn_paged(q: torch.Tensor, kp: torch.Tensor, vp: torch.Tensor,
     int32 physical page ids (-1 = unallocated); cur_pos: (B,) int32 ->
     (B,H,d) in q's dtype.  int8 pools pass their (P,ps,KV) float32
     ``k_scale``/``v_scale`` and go through ``decode_attn_paged_int8``.
-    On CUDA: q in float32/bfloat16/float16, d in ``PAGED_HEAD_DIMS``, H/KV
+    On CUDA: q in float32/bfloat16/float16, d in ``HEAD_DIMS``, H/KV
     in ``GROUPS``."""
     if k_scale is not None or v_scale is not None:
         return decode_attn_paged_int8(q, kp, vp, k_scale, v_scale, pos_pages,
@@ -143,6 +142,14 @@ def decode_attn_paged_int8(q: torch.Tensor, kp: torch.Tensor,
     return out
 
 
+def paged_entry(quantized: bool):
+    """(library, C entry) of the paged kernel for float pages or, with
+    ``quantized``, int8 pages: two libraries of one header
+    (``csrc/decode_attn_paged.cuh``) that build in parallel."""
+    lib = "decode_attn_paged_int8" if quantized else "decode_attn_paged"
+    return lib, _build.function(lib, f"{lib}_launch", _PAGED_ARGTYPES)
+
+
 def _paged_launch(q, kp, vp, k_scale, v_scale, pos_pages, block_tbl,
                   cur_pos, window: int) -> torch.Tensor:
     op = "decode_attn_paged"
@@ -166,16 +173,15 @@ def _paged_launch(q, kp, vp, k_scale, v_scale, pos_pages, block_tbl,
                    dtypes=(torch.int32,))
     _build.require(op, "cur_pos", cur_pos, device=dev, shape=(b,),
                    dtypes=(torch.int32,))
-    if d not in PAGED_HEAD_DIMS or h % kvh or h // kvh not in GROUPS:
+    if d not in HEAD_DIMS or h % kvh or h // kvh not in GROUPS:
         raise ValueError(f"{op}: head_dim {d} / group {h}/{kvh} not "
-                         f"supported (head_dim in {PAGED_HEAD_DIMS}, H/KV "
+                         f"supported (head_dim in {HEAD_DIMS}, H/KV "
                          f"in {GROUPS})")
     splits, per = split_plan(n_lp, b * kvh, min_per=PAGED_MIN_PAGES)
     out = torch.empty_like(q)
     null = c_void_p(None)
-    fn = _build.function("decode_attn_paged", "decode_attn_paged_launch",
-                         _PAGED_ARGTYPES)
-    _build.check("decode_attn_paged", fn(
+    lib, fn = paged_entry(quantized)
+    _build.check(lib, fn(
         dev.index, _PAGED_CODES[q.dtype], int(quantized), _build.ptr(q),
         _build.ptr(kp), _build.ptr(vp),
         _build.ptr(k_scale) if quantized else null,

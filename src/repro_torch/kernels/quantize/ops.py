@@ -19,7 +19,7 @@ from repro_torch.kernels.quantize.ref import (Cache, quantize_int8_ref,
                                               quantize_kv_write_ref)
 
 MAX_ROW = 32768                 # elements of a wire row, at most, on CUDA
-KV_HEAD_DIMS = (32, 64, 128, 256)
+KV_HEAD_DIMS = (32, 64, 128, 160, 256)
 _ARGTYPES = [c_int, c_int] + [c_void_p] * 3 + [c_int, c_int, c_void_p]
 _WRITE_ARGTYPES = [c_int, c_int] + [c_void_p] * 10 + [c_int] * 5 + [c_void_p]
 _SCATTER_ARGTYPES = [c_int, c_int] + [c_void_p] * 9 + [c_int] * 5 + [c_void_p]

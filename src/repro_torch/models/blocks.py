@@ -1,15 +1,19 @@
-"""Per-layer decoder blocks (port of the DENSE path of
+"""Per-layer decoder blocks (port of the dense and MoE paths of
 ``repro.models.blocks``).
 
-    DecoderBlock(cfg)                              -> parameters of ONE layer
+    DecoderBlock(cfg, kind)                        -> parameters of ONE layer
     block_forward(block, cfg, x, ctx, cache)       -> (x, cache)
     block_decode(block, cfg, x, cache, ctx)        -> (x, cache)
     init_block_cache(cfg, batch, max_seq, window)  -> cache for ONE layer
     init_block_cache_paged(cfg, num_pages, page_size) -> paged cache, ditto
 
-Caches are updated in place (see ``repro_torch.models.attention``).  Other
-block kinds (MoE, mamba2, xLSTM, shared attention, cross-attention) and
-layer norms are not ported yet (ROADMAP A.9b-d) and raise.
+A block is attention and then an MLP (kind ``dense``) or a routed-expert
+FFN (kind ``moe``: ``moe_forward_local`` in the full-sequence forward,
+``moe_forward_decode`` in decode steps and prefill chunks, as the JAX
+package runs them).  Caches are updated in place (see
+``repro_torch.models.attention``).  Other block kinds (mamba2, xLSTM,
+shared attention, cross-attention) and layer norms are not ported yet
+(ROADMAP A.9c-d) and raise.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from repro_torch.models.attention import (Attention, attention_forward,
                                           init_attention, init_attn_cache,
                                           init_paged_attn_cache)
 from repro_torch.models.common import dense_init_, rms_norm
+from repro_torch.models.moe import (MoE, init_moe, moe_forward_decode,
+                                    moe_forward_local)
 
 Cache = Dict[str, Any]
 
@@ -61,19 +67,23 @@ class MLP(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Attention + MLP with pre-norms; parameter names follow the JAX
-    package's pytree (``attn.wq``, ``mlp.w_gate``, ``ln1_scale``, ...)."""
+    """Attention + MLP (or routed experts) with pre-norms; parameter names
+    follow the JAX package's pytree (``attn.wq``, ``mlp.w_gate``,
+    ``moe.router``, ``ln1_scale``, ...)."""
 
     def __init__(self, cfg: ModelConfig, kind: str = DENSE, *, device,
                  dtype):
         super().__init__()
-        if kind != DENSE:
+        if kind not in (DENSE, MOE):
             raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP "
-                f"{'A.9b' if kind == MOE else 'A.9c'})")
+                f"block kind {kind!r} is not ported yet (ROADMAP A.9c)")
         kw = dict(device=device, dtype=dtype)
+        self.kind = kind
         self.attn = Attention(cfg, **kw)
-        self.mlp = MLP(cfg, **kw)
+        if kind == MOE:
+            self.moe = MoE(cfg, **kw)
+        else:
+            self.mlp = MLP(cfg, **kw)
         self.ln1_scale = nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.ln2_scale = nn.Parameter(torch.empty(cfg.d_model, **kw))
 
@@ -83,11 +93,14 @@ def init_block(block: DecoderBlock, cfg: ModelConfig,
                gen: torch.Generator) -> None:
     """Fill one block with the JAX package's distributions."""
     init_attention(block.attn, gen)
-    for name, w in block.mlp.named_parameters():
-        if name.startswith("b"):
-            w.zero_()
-        else:
-            dense_init_(w, gen)
+    if block.kind == MOE:
+        init_moe(block.moe, gen)
+    else:
+        for name, w in block.mlp.named_parameters():
+            if name.startswith("b"):
+                w.zero_()
+            else:
+                dense_init_(w, gen)
     block.ln1_scale.zero_()           # rms gains are (1 + scale)
     block.ln2_scale.zero_()
 
@@ -136,7 +149,11 @@ def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
         valid_len=ctx.valid_len)
     x = x + att
     h2 = _norm(x, block, cfg, "ln2")
-    return x + _mlp(block.mlp, cfg, h2), cache
+    if block.kind == MOE:
+        y, _ = moe_forward_local(block.moe, cfg, h2)
+    else:
+        y = _mlp(block.mlp, cfg, h2)
+    return x + y, cache
 
 
 def block_decode(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
@@ -164,4 +181,6 @@ def block_decode(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
                                   write_mask=ctx.write_mask)
     x = x + att
     h2 = _norm(x, block, cfg, "ln2")
+    if block.kind == MOE:
+        return x + moe_forward_decode(block.moe, cfg, h2), cache
     return x + _mlp(block.mlp, cfg, h2), cache

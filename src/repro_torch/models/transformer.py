@@ -64,13 +64,11 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
 
 def unported_item(cfg: ModelConfig) -> str:
     """The ROADMAP item that ports ``cfg``'s kind of model, or "" for the
-    dense decoders the port serves: MoE blocks (A.9b), recurrent and
-    hybrid blocks (A.9c), encoder-decoder, vision prefix, absolute
-    positions or layer norms (A.9d)."""
+    dense and MoE decoders the port serves: recurrent and hybrid blocks
+    (A.9c), encoder-decoder, vision prefix, absolute positions or layer
+    norms (A.9d)."""
     kinds = set(cfg.block_kinds())
-    if MOE in kinds:
-        return "A.9b"
-    if kinds - {DENSE}:
+    if kinds - {DENSE, MOE}:
         return "A.9c"
     if (cfg.is_encdec or cfg.vision_tokens or not cfg.use_rope
             or cfg.norm_type != "rms"):
@@ -79,9 +77,10 @@ def unported_item(cfg: ModelConfig) -> str:
 
 
 class Model(nn.Module):
-    """Dense early-exit decoder.  Parameter names follow the JAX package's
-    pytree: ``embed``, ``layers.<i>.*``, ``final_norm``, ``lm_head``
-    (untied only) and ``exit_norms.<layer>``."""
+    """Early-exit decoder of dense or MoE blocks.  Parameter names follow
+    the JAX package's pytree: ``embed``, ``layers.<i>.*``, ``final_norm``,
+    ``lm_head`` (untied only) and ``exit_norms.<layer>``.  Every parameter
+    is in ``dtype`` except the MoE routers, which stay float32."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32):
         super().__init__()
@@ -89,16 +88,16 @@ class Model(nn.Module):
         item = unported_item(cfg)
         if item:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense rotary rms-norm decoder is "
-                f"ported yet (ROADMAP {item})")
+                f"{cfg.name}: only the dense and MoE rotary rms-norm "
+                f"decoders are ported yet (ROADMAP {item})")
         self.segments = build_segments(cfg)
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty(v, d, **kw))
-        self.layers = nn.ModuleList(DecoderBlock(cfg, device=device,
+        self.layers = nn.ModuleList(DecoderBlock(cfg, kind, device=device,
                                                  dtype=dtype)
-                                    for _ in range(cfg.n_layers))
+                                    for kind in cfg.block_kinds())
         self.final_norm = nn.Parameter(torch.empty(d, **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(v, d, **kw))

@@ -61,14 +61,47 @@ LAYOUTS = {"dense": dict(kv_layout="dense"),
 
 
 def test_registry_serves_the_dense_decoders():
-    assert sorted(ARCHS) == sorted(["ee-llm-7b", *SHAPES])
+    assert sorted(ARCHS) == sorted(["ee-llm-7b", *SHAPES, "olmoe-1b-7b",
+                                    "granite-moe-3b-a800m"])
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_config(name)), name
 
 
+@pytest.mark.parametrize("name", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_parameters_match_the_jax_pytree(name):
+    """At full size, without allocating (JAX's ``eval_shape``, the port on
+    the meta device): each leaf of a MoE model's JAX pytree, unstacked
+    per layer as the bridge does, is a parameter of the port's bfloat16
+    model of the same shape, and the port has no other; the routers stay
+    float32."""
+    from repro.models.transformer import build_segments as jsegments
+    cfg = jget_config(name)
+    jm = jbuild(cfg)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
+    want = {"embed": shapes["embed"].shape,
+            "final_norm": shapes["final_norm"].shape}
+    if "lm_head" in shapes:
+        want["lm_head"] = shapes["lm_head"].shape
+    want.update({f"exit_norms.{l}": w.shape
+                 for l, w in shapes["exit_norms"].items()})
+    for seg, tree in zip(jsegments(cfg), shapes["segments"]):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            key = ".".join(str(k.key) for k in path)
+            for j in range(seg.length):
+                want[f"layers.{seg.start + j}.{key}"] = leaf.shape[1:]
+    from repro_torch.configs.base import MoEConfig
+    fields = dataclasses.asdict(cfg)
+    fields["moe"] = MoEConfig(**fields["moe"])
+    tm = Model(TModelConfig(**fields), device="meta", dtype=torch.bfloat16)
+    got = {n: tuple(p.shape) for n, p in tm.named_parameters()}
+    assert got == {n: tuple(s) for n, s in want.items()}
+    for n, p in tm.named_parameters():
+        assert p.dtype == (torch.float32 if n.endswith("moe.router")
+                           else torch.bfloat16), n
+
+
 @pytest.mark.parametrize("name,item", [
-    ("olmoe-1b-7b", "A.9b"), ("granite-moe-3b-a800m", "A.9b"),
     ("xlstm-350m", "A.9c"), ("zamba2-1.2b", "A.9c"),
     ("whisper-medium", "A.9d"), ("paligemma-3b", "A.9d")])
 def test_other_architectures_raise_naming_their_item(name, item):

@@ -22,7 +22,14 @@ the paged kernel at d = 256 (float and int8 pages), the int8 page writes
 at d = 256, the exit kernels at V = 262144, d = 3840 (``exit_heads``
 with two exits of 1 and 8 slots too); a reduced gemma3
 (a 32-token window) through both engines, chunked prefill and the
-two-tier runtime on two CUDA streams, equal to the CPU.
+two-tier runtime on two CUDA streams, equal to the CPU.  And the shapes
+of stablelm-12b and the MoE decoders: both attention kernels at d = 160
+and at a group of 3 (and the paged one at d = 32, the main path's
+tiny-ee shape, whose paged streams on the card equal the CPU's), the int8
+page writes at d = 32 and 160, the exit kernels at V = 50304 and 49155,
+``exit_quant`` above 16 rows (and ``fused_exit_upload`` at 24), and
+reduced olmoe and granite models through both engines, equal to the
+CPU.
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -91,6 +98,11 @@ def _t(a, dev, dtype=None):
     (3, 8, 2, 64, 300, 48),          # GQA with a window
     (2, 16, 2, 128, 97, 0),          # group of 8
     (2, 16, 8, 256, 1100, 1024),     # gemma3-12b: d = 256, G = 2, window
+    (3, 24, 8, 64, 300, 0),          # granite-moe-3b-a800m: G = 3
+    (2, 32, 8, 160, 700, 0),         # stablelm-12b: d = 160, G = 4
+    (3, 4, 2, 160, 97, 64),          # d = 160, G = 2 (40-element lanes)
+    (2, 16, 2, 160, 130, 0),         # d = 160, G = 8 (10-element lanes)
+    (3, 4, 2, 32, 60, 0),            # tiny-ee: d = 32, G = 2
 ])
 def test_decode_attn_kernel(cuda, dtype, atol, b, h, kv, d, s, window):
     rng = np.random.default_rng(s)
@@ -207,6 +219,12 @@ def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
     (2, 16, 2, 128, 8, 12, 0, True),      # group of 8, 8-token pages
     (3, 4, 2, 64, 32, 4, 0, False),       # group of 2, 32-token pages
     (4, 16, 8, 256, 16, 80, 1024, True),  # gemma3-12b, window, gaps
+    (4, 24, 8, 64, 16, 20, 0, True),      # granite-moe-3b-a800m: G = 3
+    (4, 32, 8, 160, 16, 20, 0, True),     # stablelm-12b: d = 160, G = 4
+    (3, 4, 2, 160, 16, 9, 48, False),     # d = 160, G = 2, window
+    (2, 16, 2, 160, 16, 6, 0, True),      # d = 160, G = 8
+    (3, 4, 2, 32, 16, 6, 0, True),        # tiny-ee: d = 32, G = 2
+    (3, 8, 1, 32, 16, 6, 0, False),       # d = 32, G = 8
 ])
 def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
                                   n_lp, window, gaps):
@@ -240,6 +258,8 @@ def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
     (2, 8, 2, 64, 40, False),      # 4 (row, kv head) pairs: pages split
     (1, 32, 32, 128, 35, False),   # ee-llm-7b at one row: pages split
     (1, 16, 8, 256, 40, False),    # gemma3-12b at one row: pages split
+    (1, 32, 8, 160, 40, False),    # stablelm-12b at one row: pages split
+    (1, 24, 8, 64, 40, False),     # granite-moe at one row: pages split
 ])
 def test_decode_attn_paged_kernel_splits(cuda, dtype, int8, atol, b, h, kv,
                                          d, n_lp, one_page):
@@ -455,7 +475,8 @@ def test_exit_head_and_exit_quant_kernels(cuda, dtype, b, d, v, tie):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,d,v", [(1, 4096, 32000), (8, 4096, 32000),
                                    (1, 3840, 262144), (8, 3840, 262144),
-                                   (12, 256, 300)])
+                                   (12, 256, 300), (8, 2048, 50304),
+                                   (8, 1536, 49155)])
 def test_exit_heads_kernel(cuda, dtype, b, d, v):
     """Two exits of B slots in one launch (R = 2 and 16; B = 12 takes two
     launches of 8 slots): each exit equal to the plain version, and bit for
@@ -491,6 +512,23 @@ def test_exit_heads_kernel(cuda, dtype, b, d, v):
                 assert torch.equal(a, e[i])
     q, s = quantize_int8_ref(ht[1])
     assert torch.equal(got[3], q) and torch.equal(got[4], s)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,d,v", [(24, 2048, 50304), (40, 1536, 49155)])
+def test_exit_quant_above_sixteen_rows(cuda, dtype, b, d, v):
+    """``exit_quant`` over B > 16 rows, one launch per 16 (2 and 3), at
+    the MoE models' vocabularies (49155: a 3-row tail past the last
+    512-row box), against its plain version; ``fused_exit_upload`` takes
+    it at B = 24 (the test after the next)."""
+    h, w, ns = _exit_inputs(b, d, v, cuda, dtype, None, seed=b)
+    before = exit_quant.launches
+    got = exit_quant(h, w, ns)
+    torch.cuda.synchronize()
+    assert exit_quant.launches - before == -(-b // 16)
+    want = exit_quant_ref(h, w, ns)
+    _check_exit(got[:3], want[:3])
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -560,7 +598,7 @@ def _same_kv_pool(got, want):
 
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 160, 256])
 @pytest.mark.parametrize("b", [1, 8])
 def test_quantize_kv_write_kernel(cuda, b, d, dtype, masked):
     """A decode step's int8 page write in one launch against its plain
@@ -594,7 +632,7 @@ def test_quantize_kv_write_kernel(cuda, b, d, dtype, masked):
 
 @pytest.mark.parametrize("case", ["short", "long", "first"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 128, 160, 256])
 def test_quantize_kv_scatter_kernel(cuda, d, dtype, case):
     """A prefilled row's int8 scatter in one launch against its plain
     version: a ring shorter than its pages (fills past it), longer
@@ -1044,3 +1082,94 @@ def test_two_tier_runtime_on_the_card_matches_cpu(cuda, theta, wire, chunk):
                 tok, _, caches = co.full_step(tok[:, None], caches, 80 + t)
                 ref.append(int(tok[0]))
         assert runs[1][0] == ref
+
+
+def test_fused_exit_upload_above_sixteen_rows_on_the_card(cuda):
+    """``CoLLM.fused_exit_upload`` over 24 rows (two ``exit_quant``
+    launches) equals ``exit_decision`` at l_ee1 and ``transport.quantize``
+    on the same hidden."""
+    from repro_torch.core.collm import CoLLM
+    from repro_torch.core.transport import quantize
+    model = build_model(SMALL, device=cuda, seed=3)
+    co = CoLLM(model, CollmConfig(wire_format="int8"))
+    rng = np.random.default_rng(24)
+    h = _t((rng.normal(size=(24, 1, SMALL.d_model)) * 3).astype(np.float32),
+           cuda)
+    before = exit_quant.launches
+    conf, tok, pkt = co.fused_exit_upload(h)
+    torch.cuda.synchronize()
+    assert exit_quant.launches - before == 2
+    ref = co.exit_decision(co.l_ee1, h[:, 0])
+    torch.testing.assert_close(conf, ref.confidence, atol=1e-6, rtol=0)
+    assert torch.equal(tok, ref.token)
+    wire = quantize(h, "int8")
+    assert all(torch.equal(pkt[k], wire[k]) for k in wire)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_tiny_ee_paged_on_the_card_matches_cpu(cuda, kv_dtype):
+    """The main path's test shape (d_model 128, 4 heads over 2 of d = 32)
+    on paged float32 and int8 KV: the card's streams and counters equal
+    the CPU's, through the paged kernel at d = 32."""
+    cpu = build_model(SMALL, device="cpu", seed=7)
+    gpu = build_model(SMALL, device=cuda, seed=7)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, SMALL.vocab_size, n)
+               for i, n in enumerate((24, 9, 40, 17))]
+    ccfg = CollmConfig(theta=_split_theta(cpu, prompts), kv_layout="paged",
+                       kv_dtype=kv_dtype)
+    op = decode_attn_paged_int8 if kv_dtype == "int8" else decode_attn_paged
+    before = op.launches
+    runs = [ServingSystem(m, ccfg).generate(prompts, 16, num_slots=3)
+            for m in (cpu, gpu)]
+    assert op.launches > before
+    assert runs[1]["tokens"] == runs[0]["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
+        assert (getattr(runs[1]["stats"], name)
+                == getattr(runs[0]["stats"], name))
+
+
+def _moe_pair(cuda, arch):
+    """A reduced MoE model (4 layers, exits 1 and 2, 4 experts top-2;
+    granite with its group of 3: 6 heads over 2 of d = 64) in float32 on
+    the CPU and the card from one seed."""
+    import dataclasses
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    shape = ({} if arch == "olmoe-1b-7b" else dict(n_heads=6, d_model=384))
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=4, **shape),
+                              exit_layers=(1, 2))
+    if arch != "olmoe-1b-7b":
+        cfg = dataclasses.replace(cfg, n_kv_heads=2)
+    cfg = cfg.validate()
+    cpu = build_model(cfg, device="cpu", seed=11)
+    gpu = build_model(cfg, device=cuda, seed=11)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((41, 80, 57))]
+    return cpu, gpu, prompts
+
+
+@pytest.mark.parametrize("layout", ["sequential", "dense", "paged",
+                                    "paged-int8", "chunked"])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_small_on_the_card_matches_cpu(cuda, arch, layout):
+    """The MoE block (capacity form in prefill, decode form in steps and
+    chunks) and, for granite, the attention kernels at G = 3: the card's
+    streams and counters equal the CPU's in every engine and layout."""
+    cpu, gpu, prompts = _moe_pair(cuda, arch)
+    theta = _split_theta(cpu, prompts)
+    kw = {"sequential": {}, "dense": dict(kv_layout="dense"),
+          "paged": dict(kv_layout="paged"),
+          "paged-int8": dict(kv_layout="paged", kv_dtype="int8"),
+          "chunked": dict(kv_layout="paged", chunked_prefill=True)}[layout]
+    ccfg = CollmConfig(theta=theta, **kw)
+    runs = [ServingSystem(m, ccfg).generate_sequential(prompts, 12)
+            if layout == "sequential" else
+            ServingSystem(m, ccfg).generate(prompts, 12, num_slots=2)
+            for m in (cpu, gpu)]
+    assert runs[1]["tokens"] == runs[0]["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
+        assert (getattr(runs[1]["stats"], name)
+                == getattr(runs[0]["stats"], name))

@@ -52,9 +52,8 @@ def paged(per, q, kp, vp, pos, tbl, cur, k_scale=None, v_scale=None):
     n_lp = tbl.shape[1]
     out = torch.empty_like(q)
     null = c_void_p(None)
-    fn = _build.function("decode_attn_paged", "decode_attn_paged_launch",
-                         ops._PAGED_ARGTYPES)
-    _build.check("decode_attn_paged", fn(
+    lib, fn = ops.paged_entry(k_scale is not None)
+    _build.check(lib, fn(
         q.device.index, ops._PAGED_CODES[q.dtype], int(k_scale is not None),
         P(q), P(kp), P(vp), null if k_scale is None else P(k_scale),
         null if v_scale is None else P(v_scale), P(pos), P(tbl), P(cur),
