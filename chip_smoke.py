@@ -36,8 +36,12 @@ exit code and no result line:
    attention kernels) and its 49155 x 1536 unembedding, olmoe-1b-7b's
    50304 x 2048 one (``exit_heads`` and ``exit_quant``, and
    ``exit_quant`` at B = 24 and 40: two and three launches), and the
-   paged kernel at tiny-ee's d = 32, G = 2; a bfloat16 attention output is
-   held to two bf16 ulps of its largest value, float32 to 2e-5;
+   paged kernel at tiny-ee's d = 32, G = 2; and at phase 11's: zamba2's
+   shared attention block (H = KV = 32 of d = 64, G = 1: both attention
+   kernels, float and int8 pages of 128 tokens, the int8 page writes) and
+   its 32000 x 2048 unembedding, and xlstm's tied 50304 x 1024 one
+   (``exit_heads`` at R = 2 and 16, ``exit_quant``); a bfloat16 attention
+   output is held to two bf16 ulps of its largest value, float32 to 2e-5;
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
    under deadline misses with the standalone fallback, as N engines
@@ -53,7 +57,11 @@ exit code and no result line:
    dense, paged and int8 pages, chunked prefill and the two-tier runtime
    on two CUDA streams; and reduced olmoe and granite (4 experts top-2,
    granite with 6 heads over 2) through ``generate_sequential`` and
-   ``generate`` on dense, paged and int8 pages and chunked prefill;
+   ``generate`` on dense, paged and int8 pages and chunked prefill; and
+   reduced xlstm (4 layers, layer 3 an sLSTM) and zamba2 (4 layers, the
+   shared block at layers 2 and 4) through ``generate_sequential`` in
+   three modes and ``generate`` on dense KV, zamba2 also on paged and int8
+   pages, under recompute preemption and behind one ``CloudBatcher``;
 3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
@@ -122,14 +130,28 @@ exit code and no result line:
    of d = 160, bfloat16): ``generate`` with 8 slots and 8 prompts of
    512-2048 tokens, 16 new tokens, on dense, paged bf16 and paged int8
    KV, with the launch counters set to 0 before and read after;
-11. the kernel table as one JSON line (launches: phases 3 to 10), the
+11. xlstm-350m (24 layers, d_model 1024: 21 mLSTM and 3 sLSTM blocks,
+   tied 50304-token vocabulary) and then zamba2-1.2b (38 layers, d_model
+   2048: 32 Mamba2 layers and one shared attention block applied 6 times)
+   at full width (bfloat16, random weights; each model freed before the
+   next), with the launch counters set to 0 before and read after: (a)
+   ``generate_sequential`` with two 512-token prompts in five modes
+   (collm θ = 1 float32 equals cloud) and ``fused_exit_upload``, (b)
+   ``generate`` with 8 slots and 12 prompts of 131-1019 tokens (none a
+   multiple of the GLA chunk) on dense KV, and for zamba2 paged bf16 and
+   paged int8 KV; each run's prefill wall and the cache bytes split into
+   KV and recurrent state; each model must launch the kernels its path
+   runs (xlstm: the exit kernels and the wire quantizer, no attention);
+12. the kernel table as one JSON line (launches: phases 3 to 11), the
    ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
    {...}}``.
 
 ``--profile`` adds ``torch.profiler`` windows over a few collaborative
 decode ticks of the sequential loop and of the batched engine on bf16 and
 int8 pages (device time by kernel, the card's busy share, the host's
-costliest operators), and repeats phase 4's two paged runs in turns.  Without a
+costliest operators), repeats phase 4's two paged runs in turns, and
+profiles one 8-slot decode step of each phase 11 model (device time of
+the recurrent layers, the shared attention block and the exits).  Without a
 CUDA card, or run from a directory without the repository, the script
 fails before printing any result.
 """
@@ -182,6 +204,9 @@ M_LENS = (256, 512, 768, 1024, 1280, 1536, 1792, 2048)  # phase 9 (b), (c)
 S_LENS = (512, 768, 1024, 1280, 1536, 1792, 2048, 2048)  # phase 10
 S_NEW = 16                      # phase 10: new tokens a prompt
 N_FILLS = (512, 2048)           # phase 2 at phases 9 and 10's shapes
+XLSTM, ZAMBA2 = "xlstm-350m", "zamba2-1.2b"     # phase 11
+# phase 11 (b): 12 prompts, no length a multiple of the 256-token GLA chunk
+R_LENS = (131, 203, 317, 389, 451, 517, 601, 677, 743, 811, 907, 1019)
 
 
 def check(cond, msg: str) -> None:
@@ -1187,6 +1212,72 @@ def check_small_moe(dev) -> None:
                   "from the CPU's")
 
 
+def recurrent_small(dev, arch):
+    """A reduced recurrent or hybrid model in float32 from one seed, on the
+    card and on the CPU: 4 layers, exits 1 and 2, d_model 256, state 16,
+    chunk 32; xlstm's layer 3 is its sLSTM block, zamba2's layers 1 and 3
+    its shared attention block (4 heads over 4 of d = 64)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=4),
+                              exit_layers=(1, 2)).validate()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(60 + i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((37, 50, 83, 101))]
+    return cpu, gpu, prompts
+
+
+def check_small_recurrent(dev) -> None:
+    """Phase 11's paths on reduced xlstm and zamba2: the mLSTM, sLSTM and
+    Mamba2 blocks (exact-length prefill, masked decode state) through
+    ``generate_sequential`` (cloud, collm at a split θ, standalone) and
+    ``generate`` on dense KV; zamba2's shared attention block also on
+    paged float32 and int8 pages, under recompute preemption and behind
+    one ``CloudBatcher``.  The card's streams and counters equal the
+    CPU's."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    for arch in (XLSTM, ZAMBA2):
+        cpu, gpu, prompts = recurrent_small(dev, arch)
+        theta = split_theta(ServingSystem(cpu, CollmConfig(
+            theta=1.0)).generate_sequential(prompts, 16)["stats"])
+        runs = [(f"sequential {m}", {}, dict(mode=m)) for m in
+                ("cloud", "collm", "standalone")]
+        runs.append(("dense", dict(kv_layout="dense"), {}))
+        if arch == ZAMBA2:
+            runs += [("paged", dict(kv_layout="paged"), {}),
+                     ("paged int8", dict(kv_layout="paged", kv_dtype="int8"),
+                      {}),
+                     ("recompute", dict(kv_layout="paged",
+                                        preemption="recompute"),
+                      dict(preempt_schedule=[(4, 0), (9, 1)])),
+                     ("batcher", dict(kv_layout="paged"),
+                      dict(cloud_batch=True))]
+        for label, ccfg_kw, kw in runs:
+            ccfg = CollmConfig(theta=theta, **ccfg_kw)
+
+            def run(m):
+                system = ServingSystem(m, ccfg)
+                if label.startswith("sequential"):
+                    return system.generate_sequential(prompts, 16, **kw)
+                if label == "batcher":
+                    return system.generate_multi(prompts, 16, **kw)
+                return system.generate(prompts, 16, num_slots=3, **kw)
+
+            want, got = run(cpu), run(gpu)
+            same = same_counts(got, want) and (
+                got["stats"].preemptions == want["stats"].preemptions)
+            print(f"small {arch} {label}: card == CPU: {same} (exits "
+                  f"{got['stats'].exits_l1}/{got['stats'].exits_l2}, cloud "
+                  f"{got['stats'].cloud_requests}, preemptions "
+                  f"{got['stats'].preemptions})")
+            check(same, f"small {arch} {label}: the card's run differs "
+                  "from the CPU's")
+
+
 def check_exit_quant_rows(dev, gen, b) -> dict:
     """``exit_quant`` over ``b`` > 16 rows at ``CFG``'s unembedding (one
     launch per 16 rows), bf16 and float32, against its plain version;
@@ -1230,11 +1321,9 @@ def check_new_kernel_shapes(dev, gen, rows) -> None:
     paged kernel at d = 32, G = 2, 16-token pages).  Each result is kept
     beside the ee-llm-7b row of its kernel under "shapes", by label."""
     from repro_torch.configs.registry import get_config
-    by_name = {r["name"]: r for r in rows}
 
     def keep(label, results):
-        for g in results:
-            by_name[g["name"]].setdefault("shapes", {})[label] = g
+        keep_shapes(rows, label, results)
 
     n_seq = N_FILLS[1] + MAX_NEW + 8
     with shapes_of(get_config(STABLELM), N_FILLS, n_seq, G_PAGE):
@@ -1505,6 +1594,43 @@ def check_small_prefix_fleet(cpu, gpu, theta) -> None:
           f"(batcher {row})")
     check(ok and row["prefix_hit_tokens"] > 0,
           "small model sharing behind the batcher: the card differs")
+
+
+def keep_shapes(rows, label, results) -> None:
+    """Keep each result beside the row of its kernel, under "shapes"."""
+    by_name = {r["name"]: r for r in rows}
+    for g in results:
+        by_name[g["name"]].setdefault("shapes", {})[label] = g
+
+
+def check_recurrent_kernel_shapes(dev, gen, rows) -> None:
+    """Phase 2 again at phase 11's shapes: zamba2-1.2b's shared attention
+    block (H = KV = 32 heads of d = 64, G = 1: the ring kernel at B = 1
+    and 8 slots, the paged kernel on bf16 and int8 pages of 128 tokens at
+    8 slots and B = 1, the int8 page writes with a 2048-token scatter) and
+    its 32000 x 2048 unembedding, and xlstm-350m's tied 50304 x 1024 one
+    (``exit_heads`` at R = 2 and 16, ``exit_quant`` at B = 1 and 8).  Each
+    result is kept beside the ee-llm-7b row of its kernel under "shapes",
+    by label."""
+    from repro_torch.configs.registry import get_config
+    n_seq = N_FILLS[1] + MAX_NEW + 8
+    with shapes_of(get_config(ZAMBA2), N_FILLS, n_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep_shapes(rows, f"{ZAMBA2}, d=64 G=1 KV=32, V=32000",
+                    [check_decode_attn(dev, gen),
+                     *check_decode_attn_paged(dev, gen),
+                     check_kv_write(dev, gen),
+                     check_kv_scatter(dev, gen, length=N_FILLS[1]),
+                     check_exit_quant(dev, gen, cases),
+                     check_exit_heads(dev, gen)])
+        del cases
+    with shapes_of(get_config(XLSTM), N_FILLS, n_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep_shapes(rows, f"{XLSTM}, V=50304 d=1024",
+                    [check_exit_quant(dev, gen, cases),
+                     check_exit_heads(dev, gen)])
+        del cases
+    torch.cuda.empty_cache()
 
 
 def print_time(label, r) -> None:
@@ -1786,6 +1912,7 @@ def check_fused_upload(model, prompts, theta) -> None:
     exit_head launch) equals edge_step's decision, bit for bit."""
     from repro_torch.core.collm import CollmConfig
     from repro_torch.core.transport import quantize
+    from repro_torch.models.cache_tree import map_tensors
     from repro_torch.serving.engine import ServingSystem
     collm = ServingSystem(model, CollmConfig(theta=theta,
                                              wire_format="int8")).collm
@@ -1794,9 +1921,11 @@ def check_fused_upload(model, prompts, theta) -> None:
     batch = {"tokens": torch.as_tensor(prompts[0][None], device=dev)}
     dec, _, caches = collm.edge_prefill(batch, caches)
     tok = dec[collm.l_ee2].token[:, None].long()
+    before = map_tensors(caches, torch.clone)
     _, exit_h, _ = model.decode_step(tok, caches, PROMPT_LEN, collm.edge_segs)
-    # edge_step rewrites the same ring slots with the same K/V
-    out = collm.edge_step(tok, caches, PROMPT_LEN)
+    # edge_step from the caches as they were before that step (a recurrent
+    # state has advanced; ring slots are written again with the same K/V)
+    out = collm.edge_step(tok, before, PROMPT_LEN)
     conf, ftok, pkt = collm.fused_exit_upload(exit_h[collm.l_ee1])
     ref = out.decisions[collm.l_ee1]
     same = (torch.equal(ftok, ref.token)
@@ -1860,8 +1989,10 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
     r["launched"] = {n: op.launches - before[n]
                      for n, op in kernel_ops().items()}
     sched = next(iter(system._schedulers.values()))
-    r["paged_layers"] = sum("kp" in c["self"] for tree in sched._trees()
+    r["paged_layers"] = sum("kp" in c.get("self", {})
+                            for tree in sched._trees()
                             for layers in tree.values() for c in layers)
+    r["kv_split"] = kv_split(sched._trees())
     st = r["stats"]
     check(all(len(t) == max_new and min(t) >= 0
               and max(t) < model.cfg.vocab_size for t in r["tokens"]),
@@ -1878,6 +2009,15 @@ def serve_batched(model, prompts, label, mode, theta, wire, layout="paged",
           f"launches={r['launched']}")
     r["wall_s"] = dt
     return r
+
+
+def kv_split(trees) -> dict:
+    """The bytes of cache trees: attention KV (with its scales and position
+    markers) and recurrent state."""
+    from repro_torch.models.cache_tree import cache_bytes
+    kv = sum(cache_bytes(c["self"]) for tree in trees
+             for layers in tree.values() for c in layers if "self" in c)
+    return {"kv": kv, "state": sum(cache_bytes(t) for t in trees) - kv}
 
 
 def phase4_prompts() -> list:
@@ -2655,7 +2795,8 @@ def build_full(name, dev):
     print(f"model: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} of d={cfg.resolved_head_dim}"
           f"{moe} V={cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, "
-          f"{n_bytes / 1e9:.2f} GB (bf16, float32 routers), initialised in "
+          f"{n_bytes / 1e9:.2f} GB (bf16; MoE routers and Mamba2 gates "
+          f"float32), initialised in "
           f"{time.perf_counter() - t0:.1f} s")
     return model
 
@@ -2761,29 +2902,196 @@ def serve_phase(phase, names, dev, ops, **kw) -> dict:
     return total
 
 
-def profile_window(label, fn) -> None:
-    """Device time by kernel, the card's busy share and the host's
-    costliest operators over one call of ``fn``."""
+# ---------------------------------------------------------------------------
+# phase 11: the recurrent and hybrid decoders at full width
+# ---------------------------------------------------------------------------
+XLSTM_KERNELS = ("exit_heads", "exit_head", "exit_quant", "quantize")
+ATTN_KERNELS = ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
+                "quantize_kv_write", "quantize_kv_scatter")
+
+
+def with_prefill(fn):
+    """``fn()``'s result with its prefill wall ("prefill_s") and the share
+    of its sLSTM blocks ("slstm_s"), printed: the seconds of the model's
+    ``prefill`` and ``slstm`` spans, on the card's clock."""
+    from repro_torch.tracing import timed
+    with timed("prefill", "slstm") as spans:
+        r = fn()
+    r["prefill_s"], r["slstm_s"] = spans["prefill"], spans["slstm"]
+    print(f"  prefill wall {spans['prefill']:.3f} s (sLSTM blocks "
+          f"{spans['slstm']:.3f} s)")
+    return r
+
+
+def profile_decode_split(model) -> None:
+    """``--profile``: one collaborative decode step of 8 slots (the edge
+    step and the cloud step of every row) over dense caches whose rings
+    hold 1024 valid keys.  Timed without the profiler (host wall, and the
+    span of its device events), then under it: the device time of its
+    kernels, their busy share of the unprofiled wall, and that time split
+    by the model's spans (recurrent layers, the shared attention block,
+    the exits).  Every row takes the cloud step, so no path depends on
+    the exit threshold."""
+    from repro_torch.core.collm import CoLLM
+    collm = CoLLM(model)
+    fill, dev = 1024, model.device
+    edge = collm.init_edge_cache(SLOTS, fill + 8)
+    cloud = collm.init_cloud_cache(SLOTS, fill + 8)
+    for tree in (edge, cloud):
+        for layers in tree.values():
+            for c in layers:
+                if "self" in c:
+                    c["self"]["pos"][:, :fill] = torch.arange(fill,
+                                                              device=dev)
+    tok = torch.zeros((SLOTS, 1), dtype=torch.long, device=dev)
+    pos = torch.full((SLOTS,), fill, dtype=torch.int32, device=dev)
+
+    def step():
+        out = collm.edge_step(tok, edge, pos)
+        collm.cloud_step(out.upload, cloud, pos)
+        torch.cuda.synchronize()
+
+    step()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    step()
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    label = f"phase 11 {model.cfg.name} 8-slot decode step"
+    print(f"profile {label}: {wall * 1e3:.3f} ms wall without the "
+          f"profiler, {start.elapsed_time(end):.3f} ms between its first "
+          "and last device events")
+    profile_window(label, step, wall)
+
+
+def serve_recurrent(arch, dev, ops, profile=False) -> dict:
+    """Phase 11 for ``arch`` at full width (bf16, random weights from
+    ``SEED``): (a) ``generate_sequential`` with two 512-token prompts in
+    phase 3's five modes (collm θ = 1 float32 equals cloud; its
+    confidences give the split θ) and ``fused_exit_upload`` on a real
+    l_ee1 hidden; (b) ``generate`` with 8 slots and the 12 prompts of
+    ``R_LENS`` at the split θ with a float16 wire, on dense KV and, for
+    zamba2, on paged bf16 and int8 KV of 128-token pages.  Every run
+    prints its prefill wall; the batched ones the cache bytes split into
+    KV and recurrent state.  Returns the launches of the model's runs."""
+    model = build_full(arch, dev)
+    cfg = model.cfg
+    for op in ops.values():
+        op.launches = 0
+    t0 = time.perf_counter()
+    prompts = vocab_prompts((PROMPT_LEN, PROMPT_LEN), cfg.vocab_size,
+                            SEED + 6)
+    seq = {}
+    for name, mode, theta, wire in (("cloud", "cloud", 1.0, "float32"),
+                                    ("full", "collm", 1.0, "float32")):
+        seq[name] = with_prefill(lambda: serve(model, prompts, mode, theta,
+                                               wire))
+    check(seq["full"]["tokens"] == seq["cloud"]["tokens"], f"phase 11 (a) "
+          f"{arch}: collm at theta=1 with a float32 wire differs from cloud")
+    print(f"phase 11 (a) {arch} collm theta=1 float32 == cloud: True")
+    theta = split_theta(seq["full"]["stats"])
+    for name, mode, th, wire in (("split theta", "collm", theta, "float16"),
+                                 ("theta=0 int8", "collm", 0.0, "int8"),
+                                 ("standalone", "standalone", theta,
+                                  "float16")):
+        seq[name] = with_prefill(lambda: serve(model, prompts, mode, th,
+                                               wire))
+        print(f"phase 11 (a) {arch} {name} vs cloud: "
+              f"{agreement(seq[name]['tokens'], seq['cloud']['tokens'])}")
+    check(seq["theta=0 int8"]["stats"].exits_l1
+          == len(prompts) * (MAX_NEW - 1),
+          f"phase 11 (a) {arch} theta=0: not every token exited at l_ee1")
+    mix = seq["split theta"]["stats"]
+    check(mix.exits_l1 + mix.exits_l2 > 0 and mix.cloud_requests > 0,
+          f"phase 11 (a) {arch}: no mix of exits and cloud requests")
+    check_fused_upload(model, prompts, theta)
+    torch.cuda.empty_cache()
+    batch = vocab_prompts(R_LENS, cfg.vocab_size, SEED + 9)
+    layouts = [("dense", "dense", "float32")]
+    if arch == ZAMBA2:
+        layouts += [("paged", "paged", "float32"),
+                    ("paged-int8", "paged", "int8")]
+    runs = {}
+    for name, layout, kv in layouts:
+        runs[name] = with_prefill(lambda: serve_batched(
+            model, batch, f"{arch} {name}", "collm", theta, "float16",
+            layout=layout, kv_dtype=kv, page_size=G_PAGE))
+        split = runs[name]["kv_split"]
+        print(f"  kv_cache_bytes: KV {split['kv']} + recurrent state "
+              f"{split['state']} ({split['state'] // SLOTS} a slot, edge "
+              f"and cloud partitions)")
+    dense = runs["dense"]["tokens"]
+    for name in ("paged", "paged-int8"):
+        if name in runs:
+            print(f"phase 11 (b) {arch} {name} vs dense: "
+                  f"{agreement(runs[name]['tokens'], dense)}")
+    launched = {name: op.launches for name, op in ops.items()}
+    print(f"phase 11 ({arch} at full width) launches: {launched} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    need = XLSTM_KERNELS + (ATTN_KERNELS if arch == ZAMBA2 else ())
+    for name in need:
+        check(launched[name] > 0,
+              f"{name} was not launched in phase 11 ({arch})")
+    if arch == ZAMBA2:
+        check(launched["quantize_kv_write"]
+              == launched["decode_attn_paged_int8"],
+              f"phase 11 ({arch}): not one int8 page write a paged int8 "
+              "attention call")
+    else:
+        check(all(launched[name] == 0 for name in ATTN_KERNELS),
+              f"phase 11 ({arch}): an attention kernel ran in a model "
+              "without attention")
+    if profile:
+        profile_decode_split(model)
+    del model, seq, runs
+    torch.cuda.empty_cache()
+    return launched
+
+
+def profile_window(label, fn, wall=None) -> None:
+    """Device time by kernel, the card's busy share, the kernels' device
+    time by the model's spans (``repro_torch.tracing``) and the host's
+    costliest operators over one call of ``fn``.  The busy share is of
+    ``wall``, the seconds of an unprofiled call of ``fn``, when given,
+    else of the profiled call's wall."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.tracing import PREFIX
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
-        wall = time.perf_counter() - t0
+        profiled = time.perf_counter() - t0
     events = prof.key_averages()
-    # kernel rows only: a CPU op's device time repeats its kernels'
+    # kernel rows only: a CPU op's device time repeats its kernels', and a
+    # span's device row covers them, gaps included
     rows = [(e.self_device_time_total, e.count, e.key) for e in events
-            if str(e.device_type).endswith("CUDA")]
+            if str(e.device_type).endswith("CUDA")
+            and not e.key.startswith(PREFIX)]
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"profile {label}: {len(rows)} kernels, device busy {busy:.3f}s "
-          f"of {wall:.3f}s wall ({busy / wall:.1%})")
+    which = "profiled" if wall is None else "unprofiled"
+    wall = profiled if wall is None else wall
+    print(f"profile {label}: {len(rows)} kernels, device busy {busy:.6f}s "
+          f"of {wall:.6f}s {which} wall ({busy / wall:.1%})")
+    # a span's host row sums the device time of the kernels it launched
+    split = {}
+    for e in prof.events():
+        if e.name.startswith(PREFIX) and str(e.device_type).endswith("CPU"):
+            work = e.name[len(PREFIX):]
+            split[work] = split.get(work, 0.0) + e.device_time_total / 1e3
+    if split:
+        print("  device ms of the kernels by span: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(split.items())))
     for us, count, key in sorted(rows, reverse=True)[:12]:
-        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
     cpu = [(e.self_cpu_time_total, e.count, e.key) for e in events
-           if str(e.device_type).endswith("CPU")]
+           if str(e.device_type).endswith("CPU")
+           and not e.key.startswith(PREFIX)]
     print(f"  host: top operators by self time (under the profiler)")
     for us, count, key in sorted(cpu, reverse=True)[:8]:
-        print(f"  {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+        print(f"  {us / 1e3:9.3f} ms  {count:6d}x  {key[:90]}")
 
 
 def profile_runs(model, prompts, theta) -> None:
@@ -2825,6 +3133,7 @@ def main(argv=None) -> None:
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    t2 = time.perf_counter()
     cases = exit_cases(dev, gen)
     rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
             check_exit_head(dev, gen, cases), check_quantize(dev, gen),
@@ -2833,6 +3142,7 @@ def main(argv=None) -> None:
     del cases
     check_gemma_kernels(dev, gen, rows)
     check_new_kernel_shapes(dev, gen, rows)
+    check_recurrent_kernel_shapes(dev, gen, rows)
     for r in rows:
         print_time(r["name"], r)
         for shape in ("b8", "b1", "chunk", "r16"):
@@ -2853,7 +3163,9 @@ def main(argv=None) -> None:
     check_small_model(dev)
     check_small_gemma(dev)
     check_small_moe(dev)
+    check_small_recurrent(dev)
     torch.cuda.empty_cache()
+    print(f"phase 2: {time.perf_counter() - t2:.1f} s")
 
     cfg = CFG
     t0 = time.perf_counter()
@@ -2870,6 +3182,7 @@ def main(argv=None) -> None:
     ops = kernel_ops()
     for op in ops.values():
         op.launches = 0
+    t3 = time.perf_counter()
     cloud = serve(model, prompts, "cloud", 1.0, "float32")
     full = serve(model, prompts, "collm", 1.0, "float32")
     check(full["tokens"] == cloud["tokens"],
@@ -2888,21 +3201,26 @@ def main(argv=None) -> None:
     serve(model, prompts, "standalone", theta, "float16")
     check_fused_upload(model, prompts, theta)
     launches = {name: op.launches for name, op in ops.items()}
-    print(f"phase 3 (generate_sequential) launches: {launches}")
+    print(f"phase 3 (generate_sequential) launches: {launches} in "
+          f"{time.perf_counter() - t3:.1f} s")
     torch.cuda.empty_cache()
 
     for op in ops.values():
         op.launches = 0
+    t4 = time.perf_counter()
     phase4 = serve_phase4(model, theta)
     batched = {name: op.launches for name, op in ops.items()}
-    print(f"phase 4 (generate) launches: {batched}")
+    print(f"phase 4 (generate) launches: {batched} in "
+          f"{time.perf_counter() - t4:.1f} s")
     torch.cuda.empty_cache()
 
     for op in ops.values():
         op.launches = 0
+    t5 = time.perf_counter()
     async_a = serve_phase5(model, theta, phase4["paged"])
     adaptive = {name: op.launches for name, op in ops.items()}
-    print(f"phase 5 (adaptive serving) launches: {adaptive}")
+    print(f"phase 5 (adaptive serving) launches: {adaptive} in "
+          f"{time.perf_counter() - t5:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "exit_heads"):
         check(adaptive[name] > 0, f"{name} was not launched in phase 5")
     torch.cuda.empty_cache()
@@ -2962,9 +3280,15 @@ def main(argv=None) -> None:
                       max_new=MAX_NEW, sequential=True, chunked=True)
     dense = serve_phase(10, (STABLELM,), dev, ops, lens=S_LENS,
                         max_new=S_NEW, sequential=False, chunked=False)
+    t11 = time.perf_counter()
+    recurrent = {name: 0 for name in ops}
+    for arch in (XLSTM, ZAMBA2):
+        got = serve_recurrent(arch, dev, ops, profile=args.profile)
+        recurrent = {name: n + got[name] for name, n in recurrent.items()}
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     launches = {name: n + batched[name] + adaptive[name] + spec[name]
                 + shared[name] + gemma[name] + moe[name] + dense[name]
-                for name, n in launches.items()}
+                + recurrent[name] for name, n in launches.items()}
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 

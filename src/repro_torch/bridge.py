@@ -8,7 +8,11 @@ projection weights keep their ``x @ W`` layout, and ``exit_norms`` stay
 keyed by the exit layer's number as a string.  A MoE block's leaves
 (``moe.router``, ``moe.w_gate``, ``moe.w_up``, ``moe.w_down``) carry
 across like the others; the router stays float32 in a model of any dtype,
-as the port's ``MoE`` module holds it.
+as the port's ``MoE`` module holds it.  The recurrent blocks' leaves
+(mLSTM, sLSTM, Mamba2) unstack the same way, Mamba2's float32 ``a_log``,
+``dt_bias`` and ``d_skip`` staying float32.  Zamba2's shared attention
+block (``params["shared"]``) becomes ``shared.*``; its segments' empty
+``{}`` placeholders carry nothing.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import build_segments
 
-_TOP_LEVEL = {"embed", "segments", "final_norm", "lm_head", "exit_norms"}
+_TOP_LEVEL = {"embed", "segments", "shared", "final_norm", "lm_head",
+              "exit_norms"}
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -45,14 +50,18 @@ def params_from_jax(np_params: Dict[str, Any],
     if extra:
         raise NotImplementedError(f"parameters {sorted(extra)} belong to "
                                   f"parts of the model not ported yet "
-                                  f"(ROADMAP A.9c-d)")
+                                  f"(ROADMAP A.9d)")
     state = {"embed": _tensor(np_params["embed"]),
              "final_norm": _tensor(np_params["final_norm"])}
     if "lm_head" in np_params:
         state["lm_head"] = _tensor(np_params["lm_head"])
     for layer, w in np_params["exit_norms"].items():
         state[f"exit_norms.{layer}"] = _tensor(w)
+    for path, w in _leaves(np_params.get("shared", {})):
+        state[f"shared.{path}"] = _tensor(w)
     for seg, tree in zip(build_segments(cfg), np_params["segments"]):
+        if seg.shared:
+            continue                      # an alias of params["shared"]
         for path, stacked in _leaves(tree):
             for j in range(seg.length):
                 state[f"layers.{seg.start + j}.{path}"] = _tensor(stacked[j])

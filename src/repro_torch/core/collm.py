@@ -53,6 +53,7 @@ from repro_torch.core.transport import FORMATS, dequantize, quantize
 from repro_torch.kernels.exit_quant.ops import exit_quant
 from repro_torch.models.blocks import BlockCtx
 from repro_torch.models.transformer import Caches, Model
+from repro_torch.tracing import span
 
 
 # CollmConfig fields the port refuses, with the ROADMAP queue-A item that
@@ -208,18 +209,18 @@ class CoLLM:
     def init_edge_cache_paged(self, batch: int, num_pages: int,
                               page_size: int) -> Caches:
         """Paged edge caches; ``batch`` rows address them through the block
-        table (attention-only partitions keep no per-row state)."""
-        del batch
+        table, and keep their recurrent state (if any) dense per row."""
         return self.model.init_paged_cache(num_pages, page_size,
                                            self.edge_segs,
-                                           kv_dtype=self.ccfg.kv_dtype)
+                                           kv_dtype=self.ccfg.kv_dtype,
+                                           batch=batch)
 
     def init_cloud_cache_paged(self, batch: int, num_pages: int,
                                page_size: int) -> Caches:
-        del batch
         return self.model.init_paged_cache(num_pages, page_size,
                                            self.cloud_segs,
-                                           kv_dtype=self.ccfg.kv_dtype)
+                                           kv_dtype=self.ccfg.kv_dtype,
+                                           batch=batch)
 
     # ------------------------------------------------------------------
     # exits
@@ -251,11 +252,12 @@ class CoLLM:
         in ``transport.quantize``'s layout or None) from one launch."""
         m = self.model
         layers = tuple(sorted(exit_h))
-        decs, packet = evaluate_exits(
-            [exit_h[l] for l in layers], m.unembed_weight(),
-            torch.stack([m.exit_norms[str(l)] for l in layers]),
-            m.cfg.norm_eps,
-            None if quant_layer is None else layers.index(quant_layer))
+        with span("exit", m.device):
+            decs, packet = evaluate_exits(
+                [exit_h[l] for l in layers], m.unembed_weight(),
+                torch.stack([m.exit_norms[str(l)] for l in layers]),
+                m.cfg.norm_eps,
+                None if quant_layer is None else layers.index(quant_layer))
         decisions = {}
         for l, d in zip(layers, decs):
             if with_logits:
@@ -304,6 +306,18 @@ class CoLLM:
     # ------------------------------------------------------------------
     # right-padded prefill (one admission of the batch scheduler)
     # ------------------------------------------------------------------
+    def _admission_row(self, segs, length: int, true_len: int,
+                       caches: Caches) -> Caches:
+        """A reused single-row cache made ready for a new stream's prefill:
+        its recurrent state zeroed.  Recurrent partitions take the exact
+        prompt (a pad would advance their state), so ``length`` must be
+        ``true_len`` there (the engine's ``_pad_ok``)."""
+        if not self.model.attention_only(segs) and length != true_len:
+            raise ValueError(f"a partition with recurrent layers prefills "
+                             f"the exact prompt: got {length} positions "
+                             f"for a {true_len}-token prompt")
+        return self.model.reset_state(caches)
+
     def edge_prefill_padded(self, tokens: torch.Tensor, true_len: int,
                             caches: Caches, with_logits: bool = False):
         """Edge prefill over a right-padded prompt (tokens: (1, Lb)).
@@ -311,8 +325,11 @@ class CoLLM:
         Pad positions are causally invisible to real tokens, so the real
         activations equal an unpadded prefill's; pad cache slots are
         invalidated afterwards.  Exit decisions are evaluated at the TRUE
-        last position.  Returns (decisions, l_ee1 hidden sequence,
-        caches)."""
+        last position.  A partition with recurrent layers takes the exact
+        prompt (Lb = true_len) and starts from the empty state.  Returns
+        (decisions, l_ee1 hidden sequence, caches)."""
+        caches = self._admission_row(self.edge_segs, tokens.shape[1],
+                                     true_len, caches)
         _, exit_h, caches, _ = self.model.prefill({"tokens": tokens}, caches,
                                                   self.edge_segs, true_len)
         decisions = self.exit_decisions(
@@ -323,7 +340,10 @@ class CoLLM:
     def cloud_prefill_padded(self, h1_seq: torch.Tensor, true_len: int,
                              caches: Caches):
         """Cloud prefill over a right-padded prompt upload; logits (1,1,V)
-        at the true last position, pad cache slots invalidated."""
+        at the true last position, pad cache slots invalidated (recurrent
+        partitions: the exact prompt, from the empty state)."""
+        caches = self._admission_row(self.cloud_segs, h1_seq.shape[1],
+                                     true_len, caches)
         ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
                                               device=h1_seq.device),
                        valid_len=true_len)
@@ -336,7 +356,10 @@ class CoLLM:
     def full_prefill_padded(self, tokens: torch.Tensor, true_len: int,
                             caches: Caches):
         """Undivided-model prefill over a right-padded prompt (cloud
-        baseline rows of the batch scheduler)."""
+        baseline rows of the batch scheduler; recurrent models: the exact
+        prompt, from the empty state)."""
+        caches = self._admission_row(self.model.all_segments(),
+                                     tokens.shape[1], true_len, caches)
         x, _, caches, _ = self.model.prefill({"tokens": tokens}, caches,
                                              valid_len=true_len)
         logits = self.model.logits(x[:, true_len - 1:true_len])
@@ -456,11 +479,15 @@ class CoLLM:
         entries at positions >= ``cut[row]`` invalid (pos = -1).  Dense
         rings match on the stored pos marker; paged nodes scatter a
         per-page threshold through the block table.  Rows that are not
-        being rewound pass ``cut = INT32_MAX``."""
+        being rewound pass ``cut = INT32_MAX``.  Recurrent state is left
+        alone (speculation, the only caller, is refused for recurrent
+        models)."""
         cut = torch.as_tensor(cut, dtype=torch.int32,
                               device=self.model.device)
         for layers in caches.values():
             for c in layers:
+                if "self" not in c:
+                    continue
                 node = c["self"]
                 if "kp" not in node:
                     p = node["pos"]

@@ -5,9 +5,9 @@ Port of ``repro.core.transport`` for the token-activation packet.  The
 paper uploads hidden states in float16; int8 with a per-row absmax scale
 is the beyond-paper format, quantized by the ``quantize`` kernel
 (``repro_torch.kernels.quantize``).  Wire sizes are computed from shapes.
-The recurrent-state packets (``quantize_tree``, ``make_packet``,
-``open_packet``) serve the non-dense architectures and are not ported yet
-(ROADMAP A.9c).
+The recurrent-state packets (``quantize_tree``, ``dequantize_tree``,
+``make_packet``, ``open_packet``) carry a state tree beside the hidden:
+every leaf quantized alone, an int8 leaf with its own float32 scales.
 
 ``CloudChannel`` is the request path of both serving engines, in virtual
 time:
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.quantize.ops import quantize_int8
+from repro_torch.models.cache_tree import map_tensors
 
 Pytree = Any
 
@@ -126,12 +127,22 @@ def packet_breakdown(packet: Pytree) -> Dict[str, int]:
     return out
 
 
+def quantize_tree(tree: Pytree, fmt: str) -> Pytree:
+    """Quantize every tensor leaf of a state snapshot."""
+    return map_tensors(tree, lambda x: quantize(x, fmt))
+
+
+def dequantize_tree(tree: Pytree, dtype=torch.float32) -> Pytree:
+    return map_tensors(tree, lambda p: dequantize(p, dtype),
+                       lambda t: isinstance(t, dict) and "data" in t)
+
+
 @dataclasses.dataclass
 class StatePacket:
     """What crosses the edge->cloud boundary for one upload (paper fig 3
-    step 3): the quantized l_ee1 token activation, and (SSM/hybrid
-    architectures, not ported yet: ROADMAP A.9c) boundary recurrent-state
-    snapshots."""
+    step 3): the quantized l_ee1 token activation, and (SSM/hybrid only)
+    boundary recurrent-state snapshots, each int8 leaf with its own
+    float32 scales (billed under ``scale``)."""
     hidden: Dict[str, torch.Tensor]                # quantized (B,1,d)
     states: Optional[Pytree] = None                # quantized recurrent states
     pos: Any = None                                # token position(s)
@@ -149,6 +160,22 @@ class StatePacket:
         bd["pos"] = (4 * int(np.asarray(self.pos).size)
                      if self.pos is not None else 0)
         return bd
+
+
+def make_packet(hidden: torch.Tensor, fmt: str, *, states: Pytree = None,
+                pos: Any = None) -> StatePacket:
+    return StatePacket(
+        hidden=quantize(hidden, fmt),
+        states=quantize_tree(states, fmt) if states is not None else None,
+        pos=pos)
+
+
+def open_packet(pkt: StatePacket, dtype=torch.float32):
+    """(hidden, states) back from a packet, in ``dtype``."""
+    hidden = dequantize(pkt.hidden, dtype)
+    states = (dequantize_tree(pkt.states, dtype)
+              if pkt.states is not None else None)
+    return hidden, states
 
 
 # ---------------------------------------------------------------------------

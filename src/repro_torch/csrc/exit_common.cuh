@@ -42,9 +42,10 @@
 //    on the CUDA cores up to R = 8, where they are not the limit.  bf16
 //    above 8 rows goes to the tensor cores (mma.sync m16n8k16, float32
 //    accumulate; on the CUDA cores R = 16 took twice the bound, about 19
-//    instructions a W element): hn enters as a bf16 high part plus a bf16
-//    low part, so 16 of its 24 bits count and each product is exact, W
-//    fragments come from the swizzled rows by ldmatrix.  float32 W stays
+//    instructions a W element): hn enters as three bf16 parts (high, middle
+//    and low), so all 24 of its bits count and each product is exact, W
+//    fragments come from the swizzled rows by ldmatrix.  (Two parts, 16
+//    bits, left logits near 20 up to 1e-4 off float32.)  float32 W stays
 //    on the CUDA cores.
 //  * Softmax: each thread carries (max, sum-exp, first argmax) per row over
 //    all its W rows in increasing index order, as the TPU kernel carries
@@ -269,17 +270,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-// x = hi + lo in two bf16 (hi rounded, lo the rounded rest): 16 bits of
-// x's 24 reach the tensor cores, and each product is exact in float32
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
-  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
-  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
-  hi = (uint32_t)__bfloat16_as_ushort(h0) |
-       ((uint32_t)__bfloat16_as_ushort(h1) << 16);
-  lo = (uint32_t)__bfloat16_as_ushort(l0) |
-       ((uint32_t)__bfloat16_as_ushort(l1) << 16);
+// x = hi + mid + lo in three bf16 (each the rounded rest of the parts
+// before it): all 24 bits of x reach the tensor cores, and each product is
+// exact in float32.  part[i] packs part i of x0 (low half) and x1.
+__device__ __forceinline__ void split_bf16(float x0, float x1,
+                                           uint32_t (&part)[3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const __nv_bfloat16 p0 = __float2bfloat16_rn(x0);
+    const __nv_bfloat16 p1 = __float2bfloat16_rn(x1);
+    part[i] = (uint32_t)__bfloat16_as_ushort(p0) |
+              ((uint32_t)__bfloat16_as_ushort(p1) << 16);
+    x0 -= __bfloat162float(p0);
+    x1 -= __bfloat162float(p1);
+  }
+}
+constexpr int kSplitParts = 3;
+
+// floats of a stage's hn in shared memory: RT x DK values, or on the
+// tensor cores their A fragments (kSplitParts bf16 values each)
+template <typename T, int RT, bool MMA>
+__host__ __device__ constexpr int hn_floats() {
+  constexpr int DK = kExitChunkBytes / (int)sizeof(T);
+  return MMA ? RT * DK * kSplitParts * 2 / 4 : RT * DK;
 }
 
 // One stage's products on the tensor cores: NJ n-tiles of 8 W rows from
@@ -294,20 +307,23 @@ __device__ __forceinline__ void mma_stage(uint32_t rows, const uint4* frag,
   const int mi = lane >> 3, r8 = lane & 7;
 #pragma unroll
   for (int ks = 0; ks < KSTEPS; ++ks) {
-    const uint4 h4 = frag[(ks * 32 + lane) * 2];
-    const uint4 l4 = frag[(ks * 32 + lane) * 2 + 1];
-    const uint32_t ahi[4] = {h4.x, h4.y, h4.z, h4.w};
-    const uint32_t alo[4] = {l4.x, l4.y, l4.z, l4.w};
+    uint32_t a[kSplitParts][4];
+#pragma unroll
+    for (int i = 0; i < kSplitParts; ++i) {
+      const uint4 v4 = frag[(ks * 32 + lane) * kSplitParts + i];
+      a[i][0] = v4.x, a[i][1] = v4.y, a[i][2] = v4.z, a[i][3] = v4.w;
+    }
 #pragma unroll
     for (int jp = 0; jp < NJ / 2; ++jp) {
       const int n = 8 * (2 * jp + (mi >> 1)) + r8;
       const int q = 2 * ks + (mi & 1);
       uint32_t b[4];
       ldmatrix_x4(rows + n * kExitChunkBytes + ((q ^ r8) << 4), b);
-      mma_bf16(acc[2 * jp], ahi, b[0], b[1]);
-      mma_bf16(acc[2 * jp], alo, b[0], b[1]);
-      mma_bf16(acc[2 * jp + 1], ahi, b[2], b[3]);
-      mma_bf16(acc[2 * jp + 1], alo, b[2], b[3]);
+#pragma unroll
+      for (int i = 0; i < kSplitParts; ++i) {
+        mma_bf16(acc[2 * jp], a[i], b[0], b[1]);
+        mma_bf16(acc[2 * jp + 1], a[i], b[2], b[3]);
+      }
     }
   }
 }
@@ -324,8 +340,8 @@ __device__ __forceinline__ void fold(float x, int v, float& m, float& l,
 }
 
 // MMA = true (bf16, RT = 16): per stage the hn warps write hn as the
-// mma A fragments of 4 k-steps of 16 columns, bf16 high and low parts
-// ([k-step][lane][hi a0..a3, lo a0..a3]); consumer warp w takes 32 kb of
+// mma A fragments of 4 k-steps of 16 columns, three bf16 parts
+// ([k-step][lane][part][a0..a3]); consumer warp w takes 32 kb of
 // the stage's 256 kb W rows (kb boxes: 4 kb n-tiles of 8 rows) and thread
 // (g, t) = (lane / 4, lane % 4) holds the logits of rows g and g + 8
 // against W rows 8j + 2t, 8j + 2t + 1 of its tiles.
@@ -347,13 +363,14 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
   // stages of RT x DK floats, or their A fragments) | rms factors |
   // per-warp partials | flag
   const int S = p.stages;
+  constexpr int HN = hn_floats<T, RT, MMA>();           // a stage's hn
   unsigned char* ring = smem;
   uint64_t* bars =
       reinterpret_cast<uint64_t*>(ring + (size_t)S * kExitStageBytes);
   unsigned char* raw_ring = reinterpret_cast<unsigned char*>(bars + 4 * S);
   float* hn_ring = reinterpret_cast<float*>(
       raw_ring + (size_t)S * 2 * RT * kExitChunkBytes);
-  float* inv = hn_ring + S * RT * DK;                   // [RT]
+  float* inv = hn_ring + S * HN;                        // [RT]
   float* red = inv + RT;                                // [8][3][RT]
   int* flag = reinterpret_cast<int*>(red + kExitConsumerWarps * 3 * RT);
   const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + S);
@@ -435,13 +452,13 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
       mbar_wait(raw0 + 8 * slot, (j / S) & 1);
       const unsigned char* raw =
           raw_ring + (size_t)slot * 2 * RT * kExitChunkBytes;
-      float* hn = hn_ring + slot * RT * DK;
+      float* hn = hn_ring + slot * HN;
       if constexpr (MMA) {
         uint4* frag = reinterpret_cast<uint4*>(hn);
 #pragma unroll
         for (int k2 = 0; k2 < KSTEPS / kExitHnWarps; ++k2) {
           const int ks = kExitHnWarps * k2 + hw;
-          uint32_t hi[4], lo[4];
+          uint32_t part[4][kSplitParts];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             // a0..a3: rows g8, g8 + 8, at columns 2 t4 and 2 t4 + 8
@@ -458,10 +475,12 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
               x1 = __uint_as_float(hv & 0xffff0000u) * inv[r] *
                    (1.0f + __uint_as_float(nv & 0xffff0000u));
             }
-            split_bf16(x0, x1, hi[q], lo[q]);
+            split_bf16(x0, x1, part[q]);
           }
-          frag[(ks * 32 + lane) * 2] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-          frag[(ks * 32 + lane) * 2 + 1] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+#pragma unroll
+          for (int i = 0; i < kSplitParts; ++i)
+            frag[(ks * 32 + lane) * kSplitParts + i] =
+                make_uint4(part[0][i], part[1][i], part[2][i], part[3][i]);
         }
       } else {
 #pragma unroll
@@ -554,7 +573,7 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
         const uint32_t rows = smem_addr(ring + (size_t)slot * kExitStageBytes +
                                         row0 * kExitChunkBytes);
         const uint4* frag =
-            reinterpret_cast<const uint4*>(hn_ring + slot * RT * DK);
+            reinterpret_cast<const uint4*>(hn_ring + slot * HN);
         if (kb == kBoxes)
           mma_stage<4 * kBoxes, KSTEPS>(rows, frag, lane, acc);
         else
@@ -581,7 +600,7 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
         const int slot = i % S;
         mbar_wait(full0 + 8 * slot, (i / S) & 1);
         const unsigned char* wst = ring + (size_t)slot * kExitStageBytes;
-        const float* hn = hn_ring + slot * RT * DK;
+        const float* hn = hn_ring + slot * HN;
         if (kb == kBoxes)
           stage_products<T, RT, kBoxes>(wst, hn, t, acc);
         else
@@ -670,13 +689,12 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
   if (t == 0) *p.counter = 0u;
 }
 
-template <typename T, int RT>
+template <typename T, int RT, bool MMA>
 size_t exit_smem_bytes(int stages) {
-  constexpr int DK = kExitChunkBytes / (int)sizeof(T);
   return 1024 + (size_t)stages * kExitStageBytes +
          sizeof(uint64_t) * 4 * stages +
          (size_t)stages * 2 * RT * kExitChunkBytes +
-         sizeof(float) * ((size_t)stages * RT * DK + RT +
+         sizeof(float) * ((size_t)stages * hn_floats<T, RT, MMA>() + RT +
                           kExitConsumerWarps * 3 * RT) +
          sizeof(int);
 }
@@ -735,7 +753,7 @@ cudaError_t exit_grid(int device, int sms, int V, int stages, int per_sm,
 template <typename T, int RT, bool MMA = false>
 cudaError_t exit_heads_rt(int device, int sms, const CUtensorMap& map,
                           ExitArgs a, int per_sm, cudaStream_t st, int* grid) {
-  const size_t smem = exit_smem_bytes<T, RT>(a.stages);
+  const size_t smem = exit_smem_bytes<T, RT, MMA>(a.stages);
   if (smem > kMaxSharedBytes) return cudaErrorInvalidValue;
   cudaError_t err = exit_grid<T, RT, MMA>(device, sms, a.V, a.stages, per_sm,
                                           a.cap, smem, grid);

@@ -11,9 +11,18 @@ or ``--device cpu``.  Weights are random, initialised from ``--seed``.
 ``--arch`` is one of the dense decoders: ee-llm-7b, gemma3-12b (a
 1024-token sliding window in 40 of its 48 layers; prompts past 2048
 tokens take the chunked prefill path), command-r-35b, qwen1.5-110b or
-stablelm-12b; or one of the mixture-of-experts decoders, olmoe-1b-7b or
-granite-moe-3b-a800m; ``--smoke`` cuts any of them to 2 layers at
-d_model 256 (and 4 experts).  gemma3-12b fits one H100 in bfloat16:
+stablelm-12b; one of the mixture-of-experts decoders, olmoe-1b-7b or
+granite-moe-3b-a800m; or the recurrent xlstm-350m (mLSTM and sLSTM
+blocks) or the hybrid zamba2-1.2b (Mamba2 layers and a shared attention
+block), whose admissions prefill the exact prompt and which refuse
+speculative decode, chunked prefill and swap preemption, as the JAX
+package does.  ``--smoke`` cuts any of them to 2 layers at d_model 256
+(and 4 experts):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
+        --smoke --device cpu --clients 3 --kv-layout paged
+
+gemma3-12b fits one H100 in bfloat16:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \
         --dtype bfloat16 --prompt-len 4096 --clients 8 --num-slots 8 \

@@ -1,36 +1,45 @@
-"""Per-layer decoder blocks (port of the dense and MoE paths of
-``repro.models.blocks``).
+"""Per-layer decoder blocks (port of ``repro.models.blocks`` without
+cross-attention and layer norms, ROADMAP A.9d).
 
-    DecoderBlock(cfg, kind)                        -> parameters of ONE layer
+    make_block(cfg, kind)                          -> parameters of ONE layer
+    init_block(block, cfg, gen)                    -> the JAX distributions
     block_forward(block, cfg, x, ctx, cache)       -> (x, cache)
     block_decode(block, cfg, x, cache, ctx)        -> (x, cache)
-    init_block_cache(cfg, batch, max_seq, window)  -> cache for ONE layer
-    init_block_cache_paged(cfg, num_pages, page_size) -> paged cache, ditto
+    init_block_cache(cfg, batch, max_seq, window, kind=) -> cache of ONE layer
+    init_block_cache_paged(cfg, num_pages, page_size, kind=, batch=) -> ditto
 
-A block is attention and then an MLP (kind ``dense``) or a routed-expert
-FFN (kind ``moe``: ``moe_forward_local`` in the full-sequence forward,
+A ``DecoderBlock`` is attention and then an MLP (kinds ``dense`` and
+``shared_attn``, Zamba2's shared block) or a routed-expert FFN (kind
+``moe``: ``moe_forward_local`` in the full-sequence forward,
 ``moe_forward_decode`` in decode steps and prefill chunks, as the JAX
-package runs them).  Caches are updated in place (see
-``repro_torch.models.attention``).  Other block kinds (mamba2, xLSTM,
-shared attention, cross-attention) and layer norms are not ported yet
-(ROADMAP A.9c-d) and raise.
+package runs them).  The recurrent kinds are ``MLSTMBlock`` and
+``SLSTMBlock`` (``repro_torch.models.xlstm``) and ``Mamba2Block``
+(``repro_torch.models.mamba2``): their caches are dense per row, batch
+axis first, in the dense and the paged layout alike (a recurrent state
+has nothing to page).  Caches are updated in place (see
+``repro_torch.models.attention``); a decode ``write_mask`` keeps the
+masked-out rows' KV and recurrent state as they were.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import DENSE, MOE, ModelConfig
+from repro_torch.configs.base import (DENSE, MAMBA2, MLSTM, MOE, SHARED_ATTN,
+                                      SLSTM, ModelConfig)
+from repro_torch.models import mamba2 as m2
+from repro_torch.models import xlstm
 from repro_torch.models.attention import (Attention, attention_forward,
                                           chunk_attention_paged,
                                           decode_attention,
                                           decode_attention_paged,
                                           init_attention, init_attn_cache,
                                           init_paged_attn_cache)
+from repro_torch.models.cache_tree import commit
 from repro_torch.models.common import dense_init_, rms_norm
 from repro_torch.models.moe import (MoE, init_moe, moe_forward_decode,
                                     moe_forward_local)
@@ -48,6 +57,9 @@ class BlockCtx:
     # rows (B,) or chunk tokens (B,C) allowed to write KV
     write_mask: Optional[torch.Tensor] = None
     valid_len: Optional[int] = None            # real length of a padded prefill
+
+
+ATTN_KINDS = (DENSE, SHARED_ATTN, MOE)
 
 
 class MLP(nn.Module):
@@ -74,9 +86,8 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, kind: str = DENSE, *, device,
                  dtype):
         super().__init__()
-        if kind not in (DENSE, MOE):
-            raise NotImplementedError(
-                f"block kind {kind!r} is not ported yet (ROADMAP A.9c)")
+        if kind not in ATTN_KINDS:
+            raise ValueError(f"{kind!r} is not an attention block kind")
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
         self.attn = Attention(cfg, **kw)
@@ -88,10 +99,41 @@ class DecoderBlock(nn.Module):
         self.ln2_scale = nn.Parameter(torch.empty(cfg.d_model, **kw))
 
 
+class _Recurrent(NamedTuple):
+    """A recurrent block kind's module, init, cache and two passes."""
+    module: Any
+    init: Any
+    cache: Any
+    forward: Any
+    decode: Any
+
+
+_RECURRENT = {
+    MLSTM: _Recurrent(xlstm.MLSTMBlock, xlstm.init_mlstm_block,
+                      xlstm.init_mlstm_cache, xlstm.mlstm_forward,
+                      xlstm.mlstm_decode),
+    SLSTM: _Recurrent(xlstm.SLSTMBlock, xlstm.init_slstm_block,
+                      xlstm.init_slstm_cache, xlstm.slstm_forward,
+                      xlstm.slstm_decode),
+    MAMBA2: _Recurrent(m2.Mamba2Block, m2.init_mamba2_block,
+                       m2.init_mamba2_cache, m2.mamba2_forward,
+                       m2.mamba2_decode)}
+
+
+def make_block(cfg: ModelConfig, kind: str, *, device, dtype) -> nn.Module:
+    """The parameters of one layer of ``kind``."""
+    if kind in _RECURRENT:
+        return _RECURRENT[kind].module(cfg, device=device, dtype=dtype)
+    return DecoderBlock(cfg, kind, device=device, dtype=dtype)
+
+
 @torch.no_grad()
-def init_block(block: DecoderBlock, cfg: ModelConfig,
+def init_block(block: nn.Module, cfg: ModelConfig,
                gen: torch.Generator) -> None:
     """Fill one block with the JAX package's distributions."""
+    if block.kind in _RECURRENT:
+        _RECURRENT[block.kind].init(block, gen)
+        return
     init_attention(block.attn, gen)
     if block.kind == MOE:
         init_moe(block.moe, gen)
@@ -120,27 +162,43 @@ def _mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (g * u) @ p.w_down.to(x.dtype)
 
 
-def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int, window: int,
-                     *, device=None, dtype=torch.float32) -> Cache:
+def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                     window: int, *, kind: str = DENSE, device=None,
+                     dtype=torch.float32) -> Cache:
+    if kind in _RECURRENT:
+        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_attn_cache(cfg, batch, max_seq, window=window,
                                     device=device, dtype=dtype)}
 
 
 def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
-                           *, device=None, dtype=torch.float32,
+                           *, kind: str = DENSE, batch: int = 0, device=None,
+                           dtype=torch.float32,
                            kv_dtype: str = "float32") -> Cache:
     """Paged variant: self-attention K/V lives in the shared page pool (no
-    batch axis — rows address it through their block table).
-    ``kv_dtype="int8"`` stores the pages quantized with per-row scales."""
+    batch axis — rows address it through their block table);
+    ``kv_dtype="int8"`` stores the pages quantized with per-row scales.
+    Recurrent state stays dense per row (``batch`` rows)."""
+    if kind in _RECURRENT:
+        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_paged_attn_cache(cfg, num_pages, page_size,
                                           device=device, dtype=dtype,
                                           kv_dtype=kv_dtype)}
 
 
-def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
+def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                   ctx: BlockCtx, cache: Optional[Cache] = None
                   ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence forward; fills ``cache`` in place when given."""
+    """Full-sequence forward; fills ``cache`` in place when given.  A
+    recurrent block starts from the state ``cache`` holds (as the JAX
+    package's ``state=cache``; its conv starts from zeros) and leaves the
+    state after ``x`` there, so ``x`` must be the exact prompt: a pad
+    would advance the state."""
+    if block.kind in _RECURRENT:
+        x, new = _RECURRENT[block.kind].forward(block, cfg, x, state=cache)
+        if cache is not None:
+            commit(cache, new)
+        return x, cache
     h = _norm(x, block, cfg, "ln1")
     att, _ = attention_forward(
         block.attn, cfg, h, positions=ctx.positions, causal=ctx.causal,
@@ -156,14 +214,18 @@ def block_forward(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
     return x + y, cache
 
 
-def block_decode(block: DecoderBlock, cfg: ModelConfig, x: torch.Tensor,
+def block_decode(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                  cache: Cache, ctx: BlockCtx) -> Tuple[torch.Tensor, Cache]:
     """Single-token decode (x: (B,1,d)); updates ``cache`` in place.  A
     paged cache (it holds ``kp``) decodes through the block table in
     ``ctx``, and also takes a multi-token chunk (x: (B,C,d), ``ctx.pos``
     the chunk's first position, ``ctx.write_mask`` optionally (B,C)): the
     chunked-prefill path.  ``ctx.write_mask`` keeps the masked-out rows'
-    (or tokens') KV as it was."""
+    (or tokens') KV, and a recurrent block's masked-out rows' state, as
+    they were (the JAX package's per-row cache merge)."""
+    if block.kind in _RECURRENT:
+        return _RECURRENT[block.kind].decode(block, cfg, x, cache,
+                                             ctx.write_mask)
     h = _norm(x, block, cfg, "ln1")
     if "kp" in cache["self"] and x.shape[1] > 1:
         att, _ = chunk_attention_paged(

@@ -7,6 +7,11 @@ identical (kind, window), additionally cut at every early-exit layer, so
 the partition boundaries (``l_ee1``, ``l_ee2``) are always segment
 boundaries and edge/cloud partitions are segment subsets.  Caches are
 ``{segment index: [per-layer cache, ...]}`` and are updated in place.
+
+Zamba2's shared attention block is one module, ``shared``, that every
+shared segment (a length-1 segment of kind ``shared_attn``) runs, each
+application with its own KV cache; its places in ``layers`` hold an
+``nn.Identity`` so that every parameter has one name.
 """
 from __future__ import annotations
 
@@ -16,12 +21,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import DENSE, MOE, SHARED_ATTN, ModelConfig
-from repro_torch.models.blocks import (BlockCtx, DecoderBlock, block_decode,
-                                       block_forward, init_block,
-                                       init_block_cache,
-                                       init_block_cache_paged)
+from repro_torch.configs.base import SHARED_ATTN, ModelConfig
+from repro_torch.models import cache_tree
+from repro_torch.models.blocks import (ATTN_KINDS, BlockCtx, DecoderBlock,
+                                       block_decode, block_forward,
+                                       init_block, init_block_cache,
+                                       init_block_cache_paged, make_block)
 from repro_torch.models.common import embed_init_, rms_norm
+from repro_torch.tracing import span
 
 Caches = Dict[int, List[Dict[str, Any]]]
 
@@ -64,12 +71,9 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
 
 def unported_item(cfg: ModelConfig) -> str:
     """The ROADMAP item that ports ``cfg``'s kind of model, or "" for the
-    dense and MoE decoders the port serves: recurrent and hybrid blocks
-    (A.9c), encoder-decoder, vision prefix, absolute positions or layer
-    norms (A.9d)."""
-    kinds = set(cfg.block_kinds())
-    if kinds - {DENSE, MOE}:
-        return "A.9c"
+    dense, MoE, recurrent and hybrid decoders the port serves:
+    encoder-decoder, vision prefix, absolute positions or layer norms
+    (A.9d)."""
     if (cfg.is_encdec or cfg.vision_tokens or not cfg.use_rope
             or cfg.norm_type != "rms"):
         return "A.9d"
@@ -77,10 +81,12 @@ def unported_item(cfg: ModelConfig) -> str:
 
 
 class Model(nn.Module):
-    """Early-exit decoder of dense or MoE blocks.  Parameter names follow
-    the JAX package's pytree: ``embed``, ``layers.<i>.*``, ``final_norm``,
-    ``lm_head`` (untied only) and ``exit_norms.<layer>``.  Every parameter
-    is in ``dtype`` except the MoE routers, which stay float32."""
+    """Early-exit decoder of dense, MoE, recurrent (xLSTM) or hybrid
+    (Mamba2 with a shared attention block) layers.  Parameter names follow
+    the JAX package's pytree: ``embed``, ``layers.<i>.*``, ``shared.*``,
+    ``final_norm``, ``lm_head`` (untied only) and ``exit_norms.<layer>``.
+    Every parameter is in ``dtype`` except the MoE routers and Mamba2's
+    ``a_log``, ``dt_bias`` and ``d_skip``, which stay float32."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32):
         super().__init__()
@@ -88,16 +94,20 @@ class Model(nn.Module):
         item = unported_item(cfg)
         if item:
             raise NotImplementedError(
-                f"{cfg.name}: only the dense and MoE rotary rms-norm "
-                f"decoders are ported yet (ROADMAP {item})")
+                f"{cfg.name}: only the rotary rms-norm decoders are "
+                f"ported yet (ROADMAP {item})")
         self.segments = build_segments(cfg)
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = nn.Parameter(torch.empty(v, d, **kw))
-        self.layers = nn.ModuleList(DecoderBlock(cfg, kind, device=device,
-                                                 dtype=dtype)
-                                    for kind in cfg.block_kinds())
+        self.layers = nn.ModuleList(
+            nn.Identity() if kind == SHARED_ATTN
+            else make_block(cfg, kind, device=device, dtype=dtype)
+            for kind in cfg.block_kinds())
+        if any(s.shared for s in self.segments):
+            self.shared = DecoderBlock(cfg, SHARED_ATTN, device=device,
+                                       dtype=dtype)
         self.final_norm = nn.Parameter(torch.empty(d, **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(v, d, **kw))
@@ -121,7 +131,10 @@ class Model(nn.Module):
         cfg = self.cfg
         embed_init_(self.embed, gen)
         for block in self.layers:
-            init_block(block, cfg, gen)
+            if not isinstance(block, nn.Identity):
+                init_block(block, cfg, gen)
+        if hasattr(self, "shared"):
+            init_block(self.shared, cfg, gen)
         self.final_norm.zero_()       # rms gains are (1 + scale)
         if not cfg.tie_embeddings:
             embed_init_(self.lm_head, gen)
@@ -156,6 +169,12 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # segment execution
     # ------------------------------------------------------------------
+    def block(self, si: int, j: int) -> nn.Module:
+        """Layer j of segment si: the shared block for a shared segment
+        (the JAX package's ``_seg_params``)."""
+        seg = self.segments[si]
+        return self.shared if seg.shared else self.layers[seg.start + j]
+
     def run_segments(self, x: torch.Tensor, ctx: BlockCtx,
                      seg_indices: Sequence[int],
                      caches: Optional[Caches] = None,
@@ -166,15 +185,16 @@ class Model(nn.Module):
         cfg = self.cfg
         exit_set = set(cfg.exit_layers) if collect_exits else set()
         exit_hiddens: Dict[int, torch.Tensor] = {}
-        for si in seg_indices:
-            seg = self.segments[si]
-            sctx = dataclasses.replace(ctx, window=seg.window)
-            for j in range(seg.length):
-                cache = caches[si][j] if caches is not None else None
-                x, _ = block_forward(self.layers[seg.start + j], cfg, x,
-                                     sctx, cache=cache)
-            if seg.end in exit_set:
-                exit_hiddens[seg.end] = x
+        with span("prefill", x.device):
+            for si in seg_indices:
+                seg = self.segments[si]
+                sctx = dataclasses.replace(ctx, window=seg.window)
+                for j in range(seg.length):
+                    cache = caches[si][j] if caches is not None else None
+                    x, _ = block_forward(self.block(si, j), cfg, x, sctx,
+                                         cache=cache)
+                if seg.end in exit_set:
+                    exit_hiddens[seg.end] = x
         return x, exit_hiddens, caches
 
     def decode_segments(self, x: torch.Tensor, ctx: BlockCtx,
@@ -188,8 +208,10 @@ class Model(nn.Module):
             seg = self.segments[si]
             sctx = dataclasses.replace(ctx, window=seg.window)
             for j in range(seg.length):
-                x, _ = block_decode(self.layers[seg.start + j], cfg, x,
-                                    caches[si][j], sctx)
+                block = self.block(si, j)
+                work = "attention" if block.kind in ATTN_KINDS else "recurrent"
+                with span(work, x.device):
+                    x, _ = block_decode(block, cfg, x, caches[si][j], sctx)
             if seg.end in exit_set:
                 exit_hiddens[seg.end] = x
         return x, exit_hiddens, caches
@@ -203,34 +225,66 @@ class Model(nn.Module):
                        else seg_indices)
         return {si: [init_block_cache(self.cfg, batch, max_seq,
                                       self.segments[si].window,
+                                      kind=self.segments[si].kind,
                                       device=self.device, dtype=self.dtype)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          seg_indices: Optional[Sequence[int]] = None,
-                         kv_dtype: str = "float32") -> Caches:
+                         kv_dtype: str = "float32",
+                         batch: int = 0) -> Caches:
         """Block-paged caches: self-attention K/V is pooled across rows in
         ``num_pages`` pages of ``page_size`` tokens (plus a trash page) and
         addressed through a per-row block table passed to ``decode_step``
         (the pool has no batch axis).  ``kv_dtype="int8"`` stores pages
-        quantized with per-row scales; otherwise in the model's dtype."""
+        quantized with per-row scales; otherwise in the model's dtype.
+        Recurrent state stays dense per row: ``batch`` rows, which a
+        partition with recurrent layers must name."""
         seg_indices = (range(len(self.segments)) if seg_indices is None
                        else seg_indices)
+        if batch < 1 and not self.attention_only(seg_indices):
+            raise ValueError("recurrent layers keep dense per-row state: "
+                             "init_paged_cache needs batch >= 1")
         return {si: [init_block_cache_paged(self.cfg, num_pages, page_size,
-                                            device=self.device,
+                                            kind=self.segments[si].kind,
+                                            batch=batch, device=self.device,
                                             dtype=self.dtype,
                                             kv_dtype=kv_dtype)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
+    def attention_only(self, seg_indices: Optional[Sequence[int]] = None
+                       ) -> bool:
+        """True when every segment is attention-style (KV-cached).  Such
+        partitions tolerate right-padded prefill: pad positions are
+        causally invisible to real tokens and their cache entries can be
+        invalidated afterwards.  Recurrent (SSM/xLSTM) segments cannot:
+        their state advances through pad tokens irreversibly."""
+        seg_indices = (range(len(self.segments)) if seg_indices is None
+                       else seg_indices)
+        return all(self.segments[si].kind in ATTN_KINDS
+                   for si in seg_indices)
+
     def invalidate_cache_after(self, caches: Caches, true_len: int) -> Caches:
         """Mark self-attention ring slots >= true_len invalid (pos = -1),
         in place — used after a right-padded prefill so pad positions never
-        take part in decode attention."""
+        take part in decode attention.  Recurrent state is left alone."""
         for layers in caches.values():
             for c in layers:
-                c["self"]["pos"][:, true_len:] = -1
+                if "self" in c:
+                    c["self"]["pos"][:, true_len:] = -1
+        return caches
+
+    def reset_state(self, caches: Caches) -> Caches:
+        """Zero the recurrent state of ``caches`` in place: a prefill into
+        a reused single-row cache starts a new stream from the empty state
+        (every admission of the JAX package prefills a fresh zero cache).
+        Attention caches are left alone."""
+        for layers in caches.values():
+            for c in layers:
+                if "self" not in c:
+                    cache_tree.zero(c)
         return caches
 
     # ------------------------------------------------------------------

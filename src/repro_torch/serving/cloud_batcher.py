@@ -39,6 +39,7 @@ from repro_torch.core.content_manager import ContentManager
 from repro_torch.core.paging import OutOfPages, PagePool, pages_needed
 from repro_torch.models.attention import (paged_reset_pages,
                                           paged_scatter_prefill)
+from repro_torch.models.cache_tree import cache_bytes, map_tensors
 
 Pytree = Any
 
@@ -194,18 +195,10 @@ def _copy_pages_tree(caches: Pytree, src: int, dst: int) -> Pytree:
     return caches
 
 
-def _map_tensors(tree: Pytree, fn) -> Pytree:
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_tensors(v, fn) for v in tree]
-    return fn(tree) if isinstance(tree, torch.Tensor) else tree
-
-
 def snapshot_to_device(snap: Pytree, device) -> Pytree:
     """A host snapshot's tensors on ``device``: non-blocking copies, then
     one synchronisation, after which the host snapshot may be dropped."""
-    out = _map_tensors(snap, lambda t: t.to(device, non_blocking=True))
+    out = map_tensors(snap, lambda t: t.to(device, non_blocking=True))
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
     return out
@@ -221,7 +214,7 @@ def gather_slot_pages(pool: PagePool, slot: int, caches: Pytree):
     if not len(logical):
         return logical, None
     padded = _pad_pages(tbl_row[logical].astype(np.int32))
-    return logical, _map_tensors(_gather_pages_tree(caches, padded),
+    return logical, map_tensors(_gather_pages_tree(caches, padded),
                                  lambda t: t.to("cpu"))
 
 
@@ -715,6 +708,4 @@ class CloudBatcher:
         self.stats.cloud_time += time.perf_counter() - t0
 
     def kv_cache_bytes(self) -> int:
-        return sum(leaf.numel() * leaf.element_size()
-                   for layers in self.caches.values() for c in layers
-                   for leaf in c["self"].values())
+        return cache_bytes(self.caches)

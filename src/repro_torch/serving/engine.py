@@ -74,6 +74,7 @@ from repro_torch.core.transport import (TOKEN_BYTES, ChannelStats,
                                         CloudChannel, StatePacket,
                                         SyncChannel, draft_request_bytes,
                                         hidden_wire_bytes)
+from repro_torch.models.cache_tree import cache_bytes
 from repro_torch.models.transformer import Caches, Model
 from repro_torch.serving import sampler as samplerlib
 from repro_torch.serving.adaptive import (AdaptiveConfig,
@@ -498,23 +499,40 @@ class BatchScheduler:
         if self._spec and sampler != "greedy":
             raise ValueError("speculative decode reconciles token ids and "
                              "requires greedy sampling")
+        if self._spec and not self.model.attention_only():
+            raise ValueError("speculative decode rewinds positions; "
+                             "recurrent state cannot rewind")
         # chunked prefill + radix prefix sharing: admission maps
         # shared-prefix pages and prefills the suffix one page-sized chunk
         # per tick
         self._chunked = bool(self.ccfg.chunked_prefill)
         self._prefix_share = bool(self.ccfg.prefix_share)
-        if self._chunked and mode == "cloud":
-            raise ValueError(
-                "chunked_prefill is implemented for the edge-resident "
-                'modes ("collm"/"standalone"), not mode="cloud"')
+        if self._chunked:
+            if mode == "cloud":
+                raise ValueError(
+                    "chunked_prefill is implemented for the edge-resident "
+                    'modes ("collm"/"standalone"), not mode="cloud"')
+            if not self.model.attention_only():
+                raise ValueError(
+                    "chunked_prefill writes chunks through the paged decode "
+                    "path and requires an attention-only model (recurrent "
+                    "state cannot resume mid-prompt)")
         if self._prefix_share and sampler != "greedy":
             raise ValueError(
                 "prefix_share memoizes greedy first tokens (terminal hits) "
                 "and requires greedy sampling")
-        # chunked mode masks the edge step: a mid-prefill row's
-        # placeholder write would otherwise land in its (possibly shared)
-        # page-0 prefix
-        self._mask_edge = self._chunked
+        # a stalled row takes a placeholder step through the batched graph:
+        # harmless to attention (the slot is written again before it is
+        # read), but recurrent state would advance, so collm mode masks
+        # the edge step of recurrent models.  Chunked mode masks too: a
+        # mid-prefill row's placeholder write would otherwise land in its
+        # (possibly shared) page-0 prefix
+        self._mask_edge = ((mode == "collm"
+                            and not self.model.attention_only())
+                           or self._chunked)
+        # recurrent layers cannot take a right-padded prefill (their state
+        # would advance through the pads): they prefill the exact prompt
+        self._pad_ok = self.model.attention_only()
 
         self.layout = self.ccfg.kv_layout
         if self.layout not in ("dense", "paged"):
@@ -588,7 +606,7 @@ class BatchScheduler:
             self.main_caches = self._init_pool_cache(
                 self.model.init_cache,
                 lambda b, n, ps: self.model.init_paged_cache(
-                    n, ps, kv_dtype=self.ccfg.kv_dtype))
+                    n, ps, kv_dtype=self.ccfg.kv_dtype, batch=b))
             self._full_row0 = self.model.init_cache(1, row_seq)
         else:
             self.edge_caches = self._init_pool_cache(
@@ -621,11 +639,11 @@ class BatchScheduler:
                 if getattr(self, n, None) is not None]
 
     def kv_cache_bytes(self) -> int:
-        """Device bytes held by the pooled KV caches (the number the paged
-        layout shrinks: num_pages x page_size instead of B x max_seq)."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for tree in self._trees() for layers in tree.values()
-                   for c in layers for leaf in c["self"].values())
+        """Device bytes held by the pooled KV and recurrent-state caches
+        (the number the paged layout shrinks: num_pages x page_size instead
+        of B x max_seq), every cache leaf counted as the JAX package
+        counts it."""
+        return sum(cache_bytes(tree) for tree in self._trees())
 
     def _block_tbl(self) -> Optional[torch.Tensor]:
         """Device copy of the pool's block table, uploaded again only after
@@ -795,9 +813,10 @@ class BatchScheduler:
                 break
             prompt = np.asarray(req.prompt, np.int32)
             p_len = len(prompt)
-            # right-padded prefill is exact: every ported block is
-            # attention, where pads are causally invisible to real tokens
-            pad = _bucket(p_len)
+            # right-padded prefill is exact for attention (pads are
+            # causally invisible to real tokens); recurrent layers take the
+            # exact prompt
+            pad = _bucket(p_len) if self._pad_ok else p_len
             # radix prefix hit: full prompt pages already resident in the
             # pool(s).  A *terminal* hit (whole prompt, memoized first
             # token) skips prefill compute entirely; otherwise the hit is
@@ -1326,7 +1345,9 @@ class BatchScheduler:
     def _resume_pad(self, length: int) -> int:
         """Prefill bucket for a resume prefix: the usual power-of-two
         bucket, clamped to the single-row cache capacity (the prefix itself
-        always fits)."""
+        always fits); the exact length for recurrent models."""
+        if not self._pad_ok:
+            return length
         return min(_bucket(length), self._row_seq)
 
     def _resume(self, ck: _Checkpoint, slot: _Slot) -> None:

@@ -29,7 +29,12 @@ tiny-ee shape, whose paged streams on the card equal the CPU's), the int8
 page writes at d = 32 and 160, the exit kernels at V = 50304 and 49155,
 ``exit_quant`` above 16 rows (and ``fused_exit_upload`` at 24), and
 reduced olmoe and granite models through both engines, equal to the
-CPU.
+CPU.  And the recurrent and hybrid decoders: both attention kernels at
+zamba2-1.2b's H = KV = 32 of d = 64 (G = 1; 128-token pages), the exit
+kernels at its 32000 x 2048 and xlstm-350m's 50304 x 1024 unembeddings,
+and reduced xlstm and zamba2 models through both engines (zamba2 on
+paged and int8 pages, under recompute preemption and behind one
+``CloudBatcher``), equal to the CPU.
 
 Every test carries the ``gpu`` marker and skips where no CUDA card is
 present (decided in the ``cuda`` fixture, never at import).  On a machine
@@ -103,6 +108,8 @@ def _t(a, dev, dtype=None):
     (3, 4, 2, 160, 97, 64),          # d = 160, G = 2 (40-element lanes)
     (2, 16, 2, 160, 130, 0),         # d = 160, G = 8 (10-element lanes)
     (3, 4, 2, 32, 60, 0),            # tiny-ee: d = 32, G = 2
+    (8, 32, 32, 64, 1059, 0),        # zamba2-1.2b's shared block, 8 slots
+    (1, 32, 32, 64, 552, 0),         # zamba2-1.2b, the sequential loop
 ])
 def test_decode_attn_kernel(cuda, dtype, atol, b, h, kv, d, s, window):
     rng = np.random.default_rng(s)
@@ -225,6 +232,8 @@ def _paged_pool(b, kv, d, ps, n_lp, rng, *, gaps):
     (2, 16, 2, 160, 16, 6, 0, True),      # d = 160, G = 8
     (3, 4, 2, 32, 16, 6, 0, True),        # tiny-ee: d = 32, G = 2
     (3, 8, 1, 32, 16, 6, 0, False),       # d = 32, G = 8
+    (8, 32, 32, 64, 128, 9, 0, True),     # zamba2-1.2b: G = 1, 128 pages
+    (1, 32, 32, 64, 128, 9, 0, False),    # zamba2-1.2b, one row
 ])
 def test_decode_attn_paged_kernel(cuda, dtype, int8, atol, b, h, kv, d, ps,
                                   n_lp, window, gaps):
@@ -455,7 +464,9 @@ def _check_exit(got, want):
 @pytest.mark.parametrize("b,d,v,tie", [(1, 4096, 32000, (100, 20000)),
                                        (8, 4096, 32000, None),
                                        (3, 256, 300, (5, 299)),
-                                       (1, 3840, 262144, (100, 200000))])
+                                       (1, 3840, 262144, (100, 200000)),
+                                       (1, 1024, 50304, (100, 40000)),
+                                       (1, 2048, 32000, (100, 20000))])
 def test_exit_head_and_exit_quant_kernels(cuda, dtype, b, d, v, tie):
     h, w, ns = _exit_inputs(b, d, v, cuda, dtype, tie, seed=b + v)
     got = exit_head(h, w, ns)
@@ -476,7 +487,9 @@ def test_exit_head_and_exit_quant_kernels(cuda, dtype, b, d, v, tie):
 @pytest.mark.parametrize("b,d,v", [(1, 4096, 32000), (8, 4096, 32000),
                                    (1, 3840, 262144), (8, 3840, 262144),
                                    (12, 256, 300), (8, 2048, 50304),
-                                   (8, 1536, 49155)])
+                                   (8, 1536, 49155), (1, 1024, 50304),
+                                   (8, 1024, 50304), (1, 2048, 32000),
+                                   (8, 2048, 32000)])
 def test_exit_heads_kernel(cuda, dtype, b, d, v):
     """Two exits of B slots in one launch (R = 2 and 16; B = 12 takes two
     launches of 8 slots): each exit equal to the plain version, and bit for
@@ -1173,3 +1186,59 @@ def test_moe_small_on_the_card_matches_cpu(cuda, arch, layout):
     for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes"):
         assert (getattr(runs[1]["stats"], name)
                 == getattr(runs[0]["stats"], name))
+
+
+def _recurrent_pair(cuda, arch):
+    """A reduced recurrent or hybrid model (4 layers, exits 1 and 2;
+    xlstm's layer 3 an sLSTM block, zamba2's layers 1 and 3 its shared
+    attention block) in float32 on the CPU and the card from one seed."""
+    import dataclasses
+
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=4),
+                              exit_layers=(1, 2)).validate()
+    cpu = build_model(cfg, device="cpu", seed=11)
+    gpu = build_model(cfg, device=cuda, seed=11)
+    gpu.load_state_dict(cpu.state_dict())
+    prompts = [np.random.default_rng(i).integers(0, cfg.vocab_size, n)
+               for i, n in enumerate((37, 50, 83))]
+    return cpu, gpu, prompts
+
+
+RECURRENT_RUNS = {
+    "sequential": ({}, None),
+    "dense": (dict(kv_layout="dense"), {}),
+    "paged": (dict(kv_layout="paged"), {}),
+    "paged-int8": (dict(kv_layout="paged", kv_dtype="int8"), {}),
+    "recompute": (dict(kv_layout="paged", preemption="recompute"),
+                  dict(preempt_schedule=[(3, 0), (7, 1)])),
+    "batcher": (dict(kv_layout="paged"), None),
+}
+
+
+@pytest.mark.parametrize("arch,run", [
+    ("xlstm-350m", "sequential"), ("xlstm-350m", "dense"),
+    *(("zamba2-1.2b", r) for r in RECURRENT_RUNS)])
+def test_recurrent_small_on_the_card_matches_cpu(cuda, arch, run):
+    """The mLSTM, sLSTM and Mamba2 blocks (exact-length prefill, a masked
+    decode state) and zamba2's shared attention block through both
+    engines: the card's streams and counters equal the CPU's."""
+    cpu, gpu, prompts = _recurrent_pair(cuda, arch)
+    theta = _split_theta(cpu, prompts)
+    ccfg_kw, kw = RECURRENT_RUNS[run]
+    ccfg = CollmConfig(theta=theta, **ccfg_kw)
+
+    def serve(m):
+        system = ServingSystem(m, ccfg)
+        if run == "sequential":
+            return system.generate_sequential(prompts, 12)
+        if run == "batcher":
+            return system.generate_multi(prompts, 12, cloud_batch=True)
+        return system.generate(prompts, 12, num_slots=2, **kw)
+
+    want, got = serve(cpu), serve(gpu)
+    assert got["tokens"] == want["tokens"]
+    for name in ("exits_l1", "exits_l2", "cloud_requests", "upload_bytes",
+                 "preemptions"):
+        assert getattr(got["stats"], name) == getattr(want["stats"], name)
