@@ -40,7 +40,12 @@ exit code and no result line:
    shared attention block (H = KV = 32 of d = 64, G = 1: both attention
    kernels, float and int8 pages of 128 tokens, the int8 page writes) and
    its 32000 x 2048 unembedding, and xlstm's tied 50304 x 1024 one
-   (``exit_heads`` at R = 2 and 16, ``exit_quant``); a bfloat16 attention
+   (``exit_heads`` at R = 2 and 16, ``exit_quant``); and at phase 12's:
+   whisper-medium's self-attention ring (H = KV = 16 of d = 64) and its
+   cross-attention over 1500 encoder keys, its untied 51865 x 1024
+   unembedding and d = 1024 wire, paligemma-3b's ring at d = 256, G = 8
+   (H = 8 over KV = 1), both paged variants there, its tied 257216 x 2048
+   unembedding and d = 2048 wire; a bfloat16 attention
    output is held to two bf16 ulps of its largest value, float32 to 2e-5;
    then a small model served on the card and on the CPU must give the same
    streams, sequentially and batched on dense, paged and int8-paged KV,
@@ -62,7 +67,11 @@ exit code and no result line:
    shared block at layers 2 and 4) through ``generate_sequential`` in
    three modes and ``generate`` on dense KV, zamba2 also on paged and int8
    pages, under recompute preemption and behind one ``CloudBatcher``;
-3. ee-llm-7b at full width (32 layers, bfloat16, random weights from a seed)
+   and reduced whisper (4 decoder layers, 2 encoder layers over 64
+   frames) and paligemma (16 patches, 4 heads over 1) through phase 12's
+   calls at one row and three, in five modes;
+3. ee-llm-7b at full width (18 of its 32 layers: ``DEPTH``; bfloat16,
+   random weights from a seed)
    through ``ServingSystem.generate_sequential`` in five modes, plus
    ``CoLLM.fused_exit_upload`` on a real l_ee1 hidden, with every kernel's
    launch counter set to 0 before and read after; every serving run prints
@@ -105,9 +114,9 @@ exit code and no result line:
    engines sharing behind one ``CloudBatcher``, (h) Poisson arrivals at 20
    a second with SLO targets on phase 5 (a)'s channel and (i) the same
    with adaptive control;
-8. gemma3-12b at full width (48 layers, d_model 3840, a 1024-token
-   window in 40 layers, bfloat16, random weights; ee-llm-7b freed first),
-   with the launch counters set to 0 before and read after: (a)
+8. gemma3-12b at full width (30 of its 48 layers, d_model 3840, a
+   1024-token window in 25 of them, bfloat16, random weights), with the
+   launch counters set to 0 before and read after: (a)
    ``generate_sequential`` with two 4096-token prompts in five modes
    (chunked prefill attention in the global layers, banded in the local
    ones), (b) one 32768-token prompt (its prefill time and peak memory),
@@ -117,22 +126,23 @@ exit code and no result line:
    streams (θ = 1.1 with a float32 wire equals ``CoLLM.full_step``'s
    greedy stream; float16 and int8 wire, the prompt upload whole or in
    slices; the edge tick's host time against a synchronised cloud);
-9. olmoe-1b-7b (16 layers, d_model 2048, 64 experts top-8) and then
-   granite-moe-3b-a800m (32 layers, d_model 1536, 24 heads over 8, 40
-   experts top-8, tied) at full width (bfloat16, random weights, float32
-   routers; gemma3-12b freed first, each model freed before the next),
-   with the launch counters set to 0 before and read after: (a)
+9. olmoe-1b-7b (10 of 16 layers, d_model 2048, 64 experts top-8) and
+   then granite-moe-3b-a800m (18 of 32 layers, d_model 1536, 24 heads
+   over 8, 40 experts top-8, tied) at full width (bfloat16, random
+   weights, float32 routers; each model freed before the next), with
+   the launch counters set to 0 before and read after: (a)
    ``generate_sequential`` with two 512-token prompts in five modes
    (collm θ = 1 float32 equals cloud), (b) ``generate`` with 8 slots and
    8 prompts of 256-2048 tokens on dense, paged bf16 and paged int8 KV
    (128-token pages), (c) (b)'s paged run with chunked prefill;
-10. stablelm-12b at full width (40 layers, d_model 5120, 32 heads over 8
+10. stablelm-12b at full width (22 of 40 layers, d_model 5120, 32 heads over 8
    of d = 160, bfloat16): ``generate`` with 8 slots and 8 prompts of
    512-2048 tokens, 16 new tokens, on dense, paged bf16 and paged int8
    KV, with the launch counters set to 0 before and read after;
-11. xlstm-350m (24 layers, d_model 1024: 21 mLSTM and 3 sLSTM blocks,
-   tied 50304-token vocabulary) and then zamba2-1.2b (38 layers, d_model
-   2048: 32 Mamba2 layers and one shared attention block applied 6 times)
+11. xlstm-350m (18 of 24 layers, d_model 1024: 15 mLSTM and 3 sLSTM
+   blocks, tied 50304-token vocabulary) and then zamba2-1.2b (24 of 38
+   layers, d_model 2048: 20 Mamba2 layers and one shared attention block
+   applied 4 times)
    at full width (bfloat16, random weights; each model freed before the
    next), with the launch counters set to 0 before and read after: (a)
    ``generate_sequential`` with two 512-token prompts in five modes
@@ -142,16 +152,39 @@ exit code and no result line:
    paged int8 KV; each run's prefill wall and the cache bytes split into
    KV and recurrent state; each model must launch the kernels its path
    runs (xlstm: the exit kernels and the wire quantizer, no attention);
-12. the kernel table as one JSON line (launches: phases 3 to 11), the
-   ``nvidia-smi`` line, and the status line ``{"ok": true, "device":
-   {...}}``.
+12. whisper-medium (24 encoder and 24 decoder layers, d_model 1024, 16
+   heads of d = 64, layer norms, absolute positions, untied V = 51865)
+   and then paligemma-3b (18 layers, d_model 2048, 8 heads over 1 of d =
+   256, tied V = 257216) at full width (bfloat16, random weights; each
+   model freed before the next), with the launch counters set to 0
+   before and read after; the engines take token prompts only, so
+   ``prefixed_stream`` composes ``Model.prefill``, ``Model.encode`` and
+   ``CoLLM``'s prefills and steps itself: (a) and (c) one row of 64
+   tokens with 1500 frames (whisper) or 256 tokens after 256 patches
+   (paligemma), 64 new tokens, in five modes (collm θ = 1 float32 equals
+   cloud: for paligemma only if the cloud prefill keeps the prefix-LM
+   mask), (b) and (d) 8 rows: cloud, collm θ = 1 float32 (equal to
+   cloud) and a split θ; each run prints tokens/s, exits, cloud requests,
+   upload and ``enc_out`` bytes, the encoder's device time, peak memory
+   and the launches of the ring kernel (self and cross), ``exit_heads``
+   and the wire quantizer;
+13. the kernel table as one JSON line (launches: phases 3 to 12; each
+   kernel's other shapes under "shapes"), the ``nvidia-smi`` line, and
+   the status line ``{"ok": true, "device": {...}}``.
+
+Phases 1 and 2's kernel rows run alone on the card.  Then the serving
+phases run in four processes at once, each group's phases in turn: 3-6
+here; 7 (started with phase 3's split θ); 8, 10 and 9; phase 2's small
+models, 11 and 12 (``GROUPS``).  Each process counts its own launches
+and the script adds them up; the groups' output follows phase 6's.
 
 ``--profile`` adds ``torch.profiler`` windows over a few collaborative
 decode ticks of the sequential loop and of the batched engine on bf16 and
 int8 pages (device time by kernel, the card's busy share, the host's
 costliest operators), repeats phase 4's two paged runs in turns, and
 profiles one 8-slot decode step of each phase 11 model (device time of
-the recurrent layers, the shared attention block and the exits).  Without a
+the recurrent layers, the shared attention block and the exits); every
+phase then runs in this one process, one after the other.  Without a
 CUDA card, or run from a directory without the repository, the script
 fails before printing any result.
 """
@@ -160,10 +193,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -207,6 +243,20 @@ N_FILLS = (512, 2048)           # phase 2 at phases 9 and 10's shapes
 XLSTM, ZAMBA2 = "xlstm-350m", "zamba2-1.2b"     # phase 11
 # phase 11 (b): 12 prompts, no length a multiple of the 256-token GLA chunk
 R_LENS = (131, 203, 317, 389, 451, 517, 601, 677, 743, 811, 907, 1019)
+WHISPER, PALIGEMMA = "whisper-medium", "paligemma-3b"  # phase 12
+P_PROMPT = {WHISPER: 64, PALIGEMMA: 256}        # phase 12: prompt tokens
+P_NEW, P_ROWS = 64, 8                           # phase 12: new tokens, (b)
+COLD_BYTES = 120e6              # ring sets timed in turn: past the 50 MB L2
+# Decoder layers of the earlier full-width phases (3-11): widths, exits and
+# every check as published, depth cut so that the whole script ends well
+# inside its 1200-s limit on a shared host (their host-bound loops take
+# time in proportion to the layers).  Each cut keeps both exits, a cloud
+# segment, and every kind of layer the model has in each segment:
+# gemma3-12b's global layers 6-30 (one in the cloud), xlstm's sLSTM
+# blocks 4, 11 and 18, zamba2's shared block at 6-24.  Phase 12 (this
+# slice's models) runs at full depth.
+DEPTH = {"ee-llm-7b": 18, GEMMA: 30, OLMOE: 10, GRANITE: 18, STABLELM: 22,
+         XLSTM: 18, ZAMBA2: 24}
 
 
 def check(cond, msg: str) -> None:
@@ -242,6 +292,13 @@ def bound_ms(nbytes: float, ops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lap(t0: float, label: str) -> float:
+    """Print the seconds since ``t0`` under ``label``; returns now."""
+    now = time.perf_counter()
+    print(f"{label}: {now - t0:.1f} s")
+    return now
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -325,13 +382,16 @@ def attn_inputs(b, s, dtype, dev, gen, *, masked_row=False):
     return q, k, v, pos, cur
 
 
-def time_ring(b, n_sets, dev, gen) -> dict:
-    """Device time of ``decode_attn`` at B=b, bf16, full 552-key rings,
-    beside its plain version and SDPA, on ``n_sets`` rings in turn (more
-    than the 50 MB L2 in all), with bytes and operations of the first."""
+def time_ring(b, dev, gen) -> dict:
+    """Device time of ``decode_attn`` at B=b, bf16, full ``MAX_SEQ``-key
+    rings (ee-llm-7b: 552), beside its plain version and SDPA, on as many
+    rings in turn as take ``COLD_BYTES`` of K/V (at least 4), with bytes
+    and operations of the first."""
     from repro_torch.kernels.decode_attn.ops import decode_attn
     from repro_torch.kernels.decode_attn.ref import decode_attn_ref
     s = MAX_SEQ
+    per = 2 * b * s * CFG.n_kv_heads * CFG.resolved_head_dim * 2
+    n_sets = int(min(256, max(4, -(-COLD_BYTES // per))))
     sets = [attn_inputs(b, s, torch.bfloat16, dev, gen)
             for _ in range(n_sets)]
     for _, _, _, _, cur in sets:
@@ -393,12 +453,11 @@ def check_decode_attn(dev, gen) -> dict:
     check(torch.equal(*again), "decode_attn differs between two calls")
     print(f"decode_attn bf16 B=1 in {splits} splits: two calls "
           f"bit-identical: True")
-    # B=1: 12 rings (108 MB) in turn; B=8: 4 rings of 72 MB
     row = dict(name="decode_attn",
                source="src/repro_torch/csrc/decode_attn.cu",
                replaces="src/repro/kernels/decode_attn/kernel.py:94",
-               max_abs_err=err, **time_ring(1, 12, dev, gen))
-    row["b8"] = time_ring(8, 4, dev, gen)
+               max_abs_err=err, **time_ring(1, dev, gen))
+    row["b8"] = time_ring(8, dev, gen)
     return row
 
 
@@ -1633,6 +1692,97 @@ def check_recurrent_kernel_shapes(dev, gen, rows) -> None:
     torch.cuda.empty_cache()
 
 
+def check_prefixed_kernel_shapes(dev, gen, rows) -> None:
+    """Phase 2 again at phase 12's shapes: whisper-medium's self-attention
+    (H = KV = 16 heads of d = 64, G = 1, a ring of its prompt and new
+    tokens) and its cross-attention (the ring kernel over 1500 encoder
+    keys, every one valid), its untied 51865 x 1024 unembedding (an odd V)
+    and its d = 1024 wire; paligemma-3b's ring at d = 256, G = 8 (H = 8
+    over KV = 1), both paged variants there (a shape check: no path of
+    phase 12 pages), its tied 257216 x 2048 unembedding and its d = 2048
+    wire.  Each result is kept beside the ee-llm-7b row of its kernel
+    under "shapes", by label."""
+    from repro_torch.configs.registry import get_config
+    wcfg, pcfg = get_config(WHISPER), get_config(PALIGEMMA)
+    with shapes_of(wcfg, N_FILLS, P_PROMPT[WHISPER] + P_NEW + 8, G_PAGE):
+        keep_shapes(rows, f"{WHISPER} self, d=64 G=1",
+                    [check_decode_attn(dev, gen)])
+    with shapes_of(wcfg, N_FILLS, wcfg.encoder_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep_shapes(rows, f"{WHISPER} cross, {wcfg.encoder_seq} keys; "
+                    f"V=51865 d=1024",
+                    [check_decode_attn(dev, gen),
+                     check_quantize(dev, gen),
+                     check_exit_quant(dev, gen, cases),
+                     check_exit_heads(dev, gen)])
+        del cases
+    n_seq = pcfg.vision_tokens + P_PROMPT[PALIGEMMA] + P_NEW + 8
+    with shapes_of(pcfg, N_FILLS, n_seq, G_PAGE):
+        cases = exit_cases(dev, gen)
+        keep_shapes(rows, f"{PALIGEMMA}, d=256 G=8; V=257216 d=2048",
+                    [check_decode_attn(dev, gen),
+                     *check_decode_attn_paged(dev, gen),
+                     check_quantize(dev, gen),
+                     check_exit_quant(dev, gen, cases),
+                     check_exit_heads(dev, gen)])
+        del cases
+    torch.cuda.empty_cache()
+
+
+def prefixed_small(dev, arch):
+    """A reduced whisper or paligemma in float32 from one seed, on the card
+    and on the CPU: 4 decoder layers with exits 1 and 2, d_model 256,
+    whisper 2 encoder layers over 64 frames, paligemma 16 patches (4 heads
+    over 1)."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduced(get_config(arch), n_layers=4),
+                              exit_layers=(1, 2),
+                              encoder_layers=min(2, get_config(
+                                  arch).encoder_layers)).validate()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def check_small_prefixed(dev) -> None:
+    """Phase 12's path on reduced whisper and paligemma: one row and three
+    (the masked cloud step) through ``prefixed_stream`` in the cloud,
+    collm at θ = 1 with a float32 wire, at a split θ with a float16 wire,
+    at θ = 0 with an int8 wire, and standalone.  The card's streams and
+    counters equal the CPU's, and at θ = 1 the collm stream equals the
+    cloud's."""
+    for arch in (WHISPER, PALIGEMMA):
+        cpu, gpu = prefixed_small(dev, arch)
+        for rows in (1, 3):
+            batch = prefixed_batch(cpu.cfg, rows, 12, SEED + rows)
+            full = prefixed_stream(cpu, batch, "collm", 1.0, "float32", 16)
+            theta = split_confidence(full["confs"])
+            for mode, th, wire in (("cloud", 1.0, "float32"),
+                                   ("collm", 1.0, "float32"),
+                                   ("collm", theta, "float16"),
+                                   ("collm", 0.0, "int8"),
+                                   ("standalone", theta, "float16")):
+                want = prefixed_stream(cpu, batch, mode, th, wire, 16)
+                got = prefixed_stream(gpu, {k: v.to(dev) for k, v in
+                                            batch.items()}, mode, th, wire,
+                                      16)
+                same = all(got[k] == want[k] for k in PREFIXED_COUNTS)
+                print(f"small {arch} {rows} rows {mode} theta={th:.6g} "
+                      f"{wire}: card == CPU: {same} (exits "
+                      f"{got['exits_l1']}/{got['exits_l2']}, cloud "
+                      f"{got['cloud_requests']})")
+                check(same, f"small {arch} {mode}: the card's stream "
+                      "differs from the CPU's")
+                if mode == "cloud":
+                    cloud = got["tokens"]
+                elif th == 1.0:
+                    check(got["tokens"] == cloud, f"small {arch}: collm at "
+                          "theta=1 float32 differs from cloud")
+
+
 def print_time(label, r) -> None:
     lib = r["library_ms"]
     print(f"time {label}: {r['ms'] * 1e3:.2f} us (bound "
@@ -1640,6 +1790,34 @@ def print_time(label, r) -> None:
           f"{'; %.0f bytes' % r['bytes'] if 'bytes' in r else ''}; plain "
           f"{r['plain_ms'] * 1e3:.2f} us; library "
           f"{'-' if lib is None else '%.2f us' % (lib * 1e3)})")
+
+
+SHAPE_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+              "library_ms")
+SUB_SHAPES = ("b8", "b1", "chunk", "window", "r16")
+
+
+def shape_rows(r) -> list:
+    """Every shape a kernel's row holds besides its own (gemma3-12b's, the
+    "shapes" of later models, and their B=8, B=1, chunk, window and R=16
+    variants) as flat records for the kernel table's JSON line."""
+    out = []
+
+    def add(label, g):
+        out.append(dict({k: g[k] for k in SHAPE_KEYS if k in g},
+                        shape=label))
+        for sub in SUB_SHAPES:
+            if sub in g:
+                add(f"{label}, {sub.upper()}", g[sub])
+
+    for sub in SUB_SHAPES:
+        if sub in r:
+            add(f"{CFG.name}, {sub.upper()}", r[sub])
+    if "gemma" in r:
+        add(GEMMA, r["gemma"])
+    for label, g in r.get("shapes", {}).items():
+        add(label, g)
+    return out
 
 
 @contextlib.contextmanager
@@ -2671,8 +2849,8 @@ def two_tier_run(model, prompt, theta, wire, chunk, sync=False):
 
 
 def serve_phase8(model) -> dict:
-    """gemma3-12b at full width (48 layers, d_model 3840, bf16, random
-    weights): (a) ``generate_sequential`` with two 4096-token prompts in
+    """gemma3-12b at full width (30 of 48 layers, d_model 3840, bf16,
+    random weights): (a) ``generate_sequential`` with two 4096-token prompts in
     the cloud, collm θ = 1 float32 (equal to cloud; its confidences give
     the split θ), split-θ float16, θ = 0 int8 and standalone modes; (b)
     one 32768-token prompt at the split θ, its prefill (to the first
@@ -2780,11 +2958,27 @@ def vocab_prompts(lens, vocab, seed) -> list:
     return [rng.integers(0, vocab, int(n)) for n in lens]
 
 
-def build_full(name, dev):
-    """``name`` at full width in bf16, random weights from ``SEED``."""
+def smoke_config(name):
+    """``name``'s configuration cut to the depth ``DEPTH`` gives it (its
+    full depth where ``DEPTH`` names none)."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.models.registry import build_model
     cfg = get_config(name)
+    return dataclasses.replace(
+        cfg, n_layers=DEPTH.get(name, cfg.n_layers)).validate()
+
+
+def depth_of(cfg) -> str:
+    from repro_torch.configs.registry import get_config
+    full = get_config(cfg.name).n_layers
+    return (f"{cfg.n_layers} layers" if cfg.n_layers == full
+            else f"{cfg.n_layers} of {full} layers")
+
+
+def build_full(name, dev):
+    """``name`` at full width in bf16, random weights from ``SEED``, at the
+    depth of ``smoke_config``."""
+    from repro_torch.models.registry import build_model
+    cfg = smoke_config(name)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
     torch.cuda.synchronize()
@@ -2792,7 +2986,7 @@ def build_full(name, dev):
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     moe = (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k} of "
            f"d_ff {cfg.moe.expert_d_ff}" if cfg.moe else "")
-    print(f"model: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+    print(f"model: {cfg.name} {depth_of(cfg)} d={cfg.d_model} "
           f"heads {cfg.n_heads}/{cfg.n_kv_heads} of d={cfg.resolved_head_dim}"
           f"{moe} V={cfg.vocab_size}, {n_params / 1e9:.3f} B parameters, "
           f"{n_bytes / 1e9:.2f} GB (bf16; MoE routers and Mamba2 gates "
@@ -2883,11 +3077,10 @@ def serve_phase(phase, names, dev, ops, **kw) -> dict:
     t0 = time.perf_counter()
     for arch in names:
         model = build_full(arch, dev)
-        for op in ops.values():
-            op.launches = 0
+        reset(ops)
         ta = time.perf_counter()
         serve_full(model, phase, **kw)
-        launched = {name: op.launches for name, op in ops.items()}
+        launched = counted(ops)
         print(f"phase {phase} ({arch} at full width) launches: {launched} in "
               f"{time.perf_counter() - ta:.1f} s")
         for name in ("decode_attn", "decode_attn_paged",
@@ -2897,7 +3090,7 @@ def serve_phase(phase, names, dev, ops, **kw) -> dict:
                   f"{name} was not launched in phase {phase} ({arch})")
         total = {name: n + launched[name] for name, n in total.items()}
         del model
-        torch.cuda.empty_cache()
+        free()
     print(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
     return total
 
@@ -2979,8 +3172,7 @@ def serve_recurrent(arch, dev, ops, profile=False) -> dict:
     KV and recurrent state.  Returns the launches of the model's runs."""
     model = build_full(arch, dev)
     cfg = model.cfg
-    for op in ops.values():
-        op.launches = 0
+    reset(ops)
     t0 = time.perf_counter()
     prompts = vocab_prompts((PROMPT_LEN, PROMPT_LEN), cfg.vocab_size,
                             SEED + 6)
@@ -3028,7 +3220,7 @@ def serve_recurrent(arch, dev, ops, profile=False) -> dict:
         if name in runs:
             print(f"phase 11 (b) {arch} {name} vs dense: "
                   f"{agreement(runs[name]['tokens'], dense)}")
-    launched = {name: op.launches for name, op in ops.items()}
+    launched = counted(ops)
     print(f"phase 11 ({arch} at full width) launches: {launched} in "
           f"{time.perf_counter() - t0:.1f} s")
     need = XLSTM_KERNELS + (ATTN_KERNELS if arch == ZAMBA2 else ())
@@ -3047,7 +3239,269 @@ def serve_recurrent(arch, dev, ops, profile=False) -> dict:
     if profile:
         profile_decode_split(model)
     del model, seq, runs
-    torch.cuda.empty_cache()
+    free()
+    return launched
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the encoder-decoder and vision-prefix models at full width
+# ---------------------------------------------------------------------------
+PREFIXED_COUNTS = ("tokens", "exits_l1", "exits_l2", "cloud_requests",
+                   "upload_bytes", "enc_bytes")
+
+
+def prefixed_batch(cfg, rows, prompt_len, seed) -> dict:
+    """``rows`` prompts of ``prompt_len`` tokens with their frames
+    (whisper) or patches (paligemma), N(0, 1) x 0.1, drawn on the CPU from
+    a generator seeded with ``seed``."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, prompt_len),
+                                     generator=gen)}
+    key, n = (("frames", cfg.encoder_seq) if cfg.is_encdec
+              else ("patches", cfg.vision_tokens))
+    batch[key] = torch.randn((rows, n, cfg.d_model), generator=gen) * 0.1
+    return batch
+
+
+def split_confidence(confs) -> float:
+    """A θ between the two middle larger-exit confidences of a θ = 1 run:
+    about half its ticks go to the cloud, the others exit at l_ee1 or
+    l_ee2 (``confs``: (ticks x rows, 2) l_ee1 and l_ee2 confidences)."""
+    c = sorted(max(c12) for c12 in confs)
+    return (c[len(c) // 2 - 1] + c[len(c) // 2]) / 2
+
+
+@contextlib.contextmanager
+def cross_decodes():
+    """Counts the cross decodes (each one launch of the ring kernel on the
+    card) made while open: yields a one-element list that holds the
+    count."""
+    from repro_torch.models import blocks
+    n = [0]
+    fn = blocks.cross_decode_attention
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return fn(*a, **kw)
+
+    blocks.cross_decode_attention = counted
+    try:
+        yield n
+    finally:
+        blocks.cross_decode_attention = fn
+
+
+@torch.no_grad()
+def prefixed_stream(model, batch, mode, theta, wire, max_new) -> dict:
+    """Greedy decode of ``batch``'s rows through the ``Model`` and
+    ``CoLLM`` calls (the engines take token prompts only): ``cloud`` is
+    ``Model.prefill`` + ``full_step``; ``collm`` is ``edge_prefill``, the
+    prompt's l_ee1 hiddens and ``Model.encode``'s output quantized to the
+    wire and opened by the cloud once, ``cloud_prefill``, then each tick
+    ``edge_step`` and, for the rows below θ, one ``cloud_step`` whose
+    write mask keeps the other rows' cloud KV (their uploads released, as
+    the sequential engine does); ``standalone`` is ``edge_prefill`` +
+    ``standalone_step``.  Returns the tokens per row, exits, cloud
+    requests, upload and ``enc_out`` bytes, the ticks' (l_ee1, l_ee2)
+    confidences and, on the card, the wall, the encoder's device time,
+    the peak memory and the kernel launches."""
+    from repro_torch.core import transport
+    from repro_torch.core.collm import CoLLM, CollmConfig
+    from repro_torch.core.exits import first_confident_exit
+    from repro_torch.tracing import timed
+    cfg, dev, dt = model.cfg, model.device, model.dtype
+    cuda = dev.type == "cuda"
+    b = batch["tokens"].shape[0]
+    max_seq = cfg.vision_tokens + batch["tokens"].shape[1] + max_new + 8
+    collm = CoLLM(model, CollmConfig(theta=theta, wire_format=wire))
+    st = dict(exits_l1=0, exits_l2=0, cloud_requests=0, upload_bytes=0,
+              enc_bytes=0)
+    toks, confs, encodes = [], [], 0
+    before = {n: op.launches for n, op in kernel_ops().items()}
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed("encode") as spans, cross_decodes() as cross:
+        if mode == "cloud":
+            caches = model.init_cache(b, max_seq)
+            x, _, caches, _ = model.prefill(batch, caches)
+            encodes += cfg.is_encdec
+            tok = model.logits(x[:, -1:])[:, 0].argmax(-1).to(torch.int32)
+            pos = x.shape[1]
+            toks.append(tok)
+            for _ in range(max_new - 1):
+                tok, _, caches = collm.full_step(tok[:, None], caches, pos)
+                toks.append(tok)
+                pos += 1
+        else:
+            edge = collm.init_edge_cache(b, max_seq)
+            decisions, h1, edge = collm.edge_prefill(batch, edge)
+            encodes += cfg.is_encdec
+            pos = h1.shape[1]
+            if mode == "standalone":
+                tok = decisions[collm.l_ee2].token
+                toks.append(tok)
+                for _ in range(max_new - 1):
+                    tok, _, edge = collm.standalone_step(tok[:, None], edge,
+                                                         pos)
+                    toks.append(tok)
+                    pos += 1
+                st["exits_l2"] = b * (max_new - 1)
+            else:
+                up = transport.quantize(h1, wire)
+                st["upload_bytes"] += transport.packet_bytes(up)
+                enc = None
+                if cfg.is_encdec:
+                    enc_up = transport.quantize(model.encode(batch["frames"]),
+                                                wire)
+                    encodes += 1
+                    st["enc_bytes"] = transport.packet_bytes(enc_up)
+                    enc = transport.dequantize(enc_up, dt)
+                cloud = collm.init_cloud_cache(b, max_seq)
+                logits, cloud = collm.cloud_prefill(
+                    transport.dequantize(up, dt), cloud, enc_out=enc)
+                tok, exited, _ = first_confident_exit(decisions, theta)
+                st["cloud_requests"] += int((~exited).sum())
+                tok = torch.where(exited, tok,
+                                  logits[:, 0].argmax(-1).to(tok.dtype))
+                toks.append(tok)
+                l1 = torch.zeros((b,), dtype=torch.int32, device=dev)
+                l2 = torch.zeros_like(l1)
+                for _ in range(max_new - 1):
+                    out = collm.edge_step(tok[:, None], edge, pos)
+                    c12 = torch.stack([out.decisions[l].confidence.float()
+                                       for l in (collm.l_ee1, collm.l_ee2)],
+                                      dim=-1)
+                    confs.append(c12)
+                    at1 = c12[:, 0] >= theta
+                    l1 += out.exited & at1
+                    l2 += out.exited & ~at1
+                    # each row's packet and its int32 position
+                    st["upload_bytes"] += (transport.packet_bytes(out.upload)
+                                           + 4 * b)
+                    need = ~out.exited
+                    n_need = int(need.sum())
+                    tok = out.token
+                    if n_need:
+                        cl, cloud = collm.cloud_step(
+                            out.upload, cloud, pos,
+                            write_mask=None if n_need == b else need)
+                        tok = torch.where(need, cl.argmax(-1).to(tok.dtype),
+                                          tok)
+                        st["cloud_requests"] += n_need
+                    toks.append(tok)
+                    pos += 1
+                st["exits_l1"] = int(l1.sum())
+                st["exits_l2"] = int(l2.sum())
+        if cuda:
+            torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st["tokens"] = torch.stack(toks, dim=1).tolist()
+    st["confs"] = (torch.cat(confs).tolist() if confs else [])
+    st.update(wall_s=wall, encode_s=spans["encode"], encodes=encodes,
+              cross=cross[0],
+              launches={n: op.launches - before[n]
+                        for n, op in kernel_ops().items()},
+              peak_gib=(torch.cuda.max_memory_allocated() / 2**30 if cuda
+                        else 0.0))
+    return st
+
+
+def print_prefixed(arch, label, r, rows) -> None:
+    n = rows * P_NEW
+    ring = r["launches"]["decode_attn"]
+    enc = (f" encoder {r['encode_s'] / r['encodes'] * 1e3:.2f} ms a pass"
+           if r["encodes"] else "")
+    print(f"phase 12 {arch} {label:24s} rows={rows} tokens={n} "
+          f"tokens/s={n / r['wall_s']:.2f} wall={r['wall_s']:.2f}s "
+          f"exits_l1={r['exits_l1']} exits_l2={r['exits_l2']} "
+          f"cloud_requests={r['cloud_requests']} "
+          f"upload_bytes={r['upload_bytes']} enc_out_bytes={r['enc_bytes']}"
+          f"{enc} peak_mem={r['peak_gib']:.2f}GiB launches: ring self "
+          f"{ring - r['cross']}, ring cross {r['cross']}, exit_heads "
+          f"{r['launches']['exit_heads']}, quantize "
+          f"{r['launches']['quantize']}")
+
+
+def serve_prefixed(arch, dev, ops) -> dict:
+    """Phase 12 for ``arch`` at full width (bf16, random weights from
+    ``SEED``): (a) or (c) one row of ``P_PROMPT`` tokens with its 1500
+    frames or 256 patches, ``P_NEW`` new tokens, through
+    ``prefixed_stream`` in five modes: cloud (``full_step``), collm θ = 1
+    with a float32 wire (must equal cloud: for paligemma only if the
+    cloud prefill keeps the prefix-LM mask), a split θ with a float16
+    wire, θ = 0 with an int8 wire (every token exits at l_ee1) and
+    standalone; (b) or (d) 8 rows of equal prompt length: cloud, collm θ
+    = 1 float32 (must equal cloud) and the split θ (the masked cloud
+    step).  Returns the launches of the model's runs."""
+    model = build_full(arch, dev)
+    cfg = model.cfg
+    reset(ops)
+    t0 = time.perf_counter()
+    one = {k: v.to(dev) for k, v in prefixed_batch(
+        cfg, 1, P_PROMPT[arch], SEED + 12).items()}
+    seq = {}
+    for name, mode, theta, wire in (("cloud", "cloud", 1.0, "float32"),
+                                    ("theta=1 float32", "collm", 1.0,
+                                     "float32")):
+        seq[name] = prefixed_stream(model, one, mode, theta, wire, P_NEW)
+        print_prefixed(arch, name, seq[name], 1)
+    check(seq["theta=1 float32"]["tokens"] == seq["cloud"]["tokens"],
+          f"phase 12 {arch}: collm at theta=1 with a float32 wire differs "
+          "from cloud")
+    print(f"phase 12 {arch} collm theta=1 float32 == cloud: True")
+    theta = split_confidence(seq["theta=1 float32"]["confs"])
+    for name, mode, th, wire in (("split theta float16", "collm", theta,
+                                  "float16"),
+                                 ("theta=0 int8", "collm", 0.0, "int8"),
+                                 ("standalone", "standalone", theta,
+                                  "float16")):
+        seq[name] = prefixed_stream(model, one, mode, th, wire, P_NEW)
+        print_prefixed(arch, name, seq[name], 1)
+        print(f"phase 12 {arch} {name} vs cloud: "
+              f"{agreement(seq[name]['tokens'], seq['cloud']['tokens'])}")
+    check(seq["theta=0 int8"]["exits_l1"] == P_NEW - 1
+          and seq["theta=0 int8"]["cloud_requests"] == 0,
+          f"phase 12 {arch} theta=0: not every token exited at l_ee1")
+    mix = seq["split theta float16"]
+    check(mix["exits_l1"] + mix["exits_l2"] > 0 and mix["cloud_requests"] > 0,
+          f"phase 12 {arch}: no mix of exits and cloud requests")
+    rows = {k: v.to(dev) for k, v in prefixed_batch(
+        cfg, P_ROWS, P_PROMPT[arch], SEED + 13).items()}
+    many = {}
+    for name, mode, th, wire in (("cloud", "cloud", 1.0, "float32"),
+                                 ("theta=1 float32", "collm", 1.0,
+                                  "float32"),
+                                 ("split theta float16", "collm", theta,
+                                  "float16")):
+        many[name] = prefixed_stream(model, rows, mode, th, wire, P_NEW)
+        print_prefixed(arch, name, many[name], P_ROWS)
+    check(many["theta=1 float32"]["tokens"] == many["cloud"]["tokens"],
+          f"phase 12 {arch}: {P_ROWS} rows at theta=1 float32 differ from "
+          "cloud")
+    split = agreement(many["split theta float16"]["tokens"],
+                      many["cloud"]["tokens"])
+    print(f"phase 12 {arch} {P_ROWS} rows collm theta=1 float32 == cloud: "
+          f"True; split theta vs cloud: {split}")
+    for r in [*seq.values(), *many.values()]:
+        toks = np.asarray(r["tokens"])
+        check(toks.shape[1] == P_NEW and toks.min() >= 0
+              and toks.max() < cfg.vocab_size, f"phase 12 {arch}: bad tokens")
+    launched = counted(ops)
+    cross = sum(r["cross"] for r in [*seq.values(), *many.values()])
+    print(f"phase 12 ({arch} at full width) launches: {launched} (ring "
+          f"cross {cross}) in {time.perf_counter() - t0:.1f} s")
+    for name in ("decode_attn", "exit_heads", "quantize"):
+        check(launched[name] > 0,
+              f"{name} was not launched in phase 12 ({arch})")
+    if cfg.is_encdec:
+        check(0 < cross < launched["decode_attn"],
+              f"phase 12 ({arch}): the ring kernel ran no self or no cross "
+              "decode")
+    del model
+    free()
     return launched
 
 
@@ -3111,77 +3565,77 @@ def profile_runs(model, prompts, theta) -> None:
                       theta, "float16", kv_dtype=kv_dtype)
 
 
-@torch.no_grad()
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", action="store_true")
-    args = ap.parse_args(argv)
-    global CFG
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
-                         "is False)")
-    from repro_torch.configs.registry import get_config
-    from repro_torch.models.registry import build_model
+# ---------------------------------------------------------------------------
+# the serving phases' groups, one process each
+# ---------------------------------------------------------------------------
+# After phase 2's timings, which have the card to themselves, the serving
+# phases run in four processes at once, each group's phases in turn: each
+# phase keeps the card busy 8-25% of its time (its host loop is the
+# bound), so together they finish in about the time of the longest group,
+# well inside the script's 1200-s limit.  Every group sets the launch
+# counters of its own process to 0 before each phase and reads them after;
+# the parent adds them up.  The models of 8, 10 and 9 (up to 28 GiB a
+# phase) take turns in one process.
+GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
+          "small-11-12": "phase 2's small models, phases 11 and 12"}
+# Each process's share of the card's memory, GiB, over the most its phases
+# hold at once (3-6 12.5, 7 10.2, 8 28.1, 12 7.2): a process keeps what it
+# frees cached for itself, and without a cap the groups together filled
+# the card and one ran out.  With these the four, and their CUDA contexts,
+# stay ~5 GiB below the card's 79.
+CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9}
 
-    CFG = get_config("ee-llm-7b")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    smi = nvidia_smi()
-    print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
-    build_kernels()
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    t2 = time.perf_counter()
-    cases = exit_cases(dev, gen)
-    rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
-            check_exit_head(dev, gen, cases), check_quantize(dev, gen),
-            check_kv_write(dev, gen), check_kv_scatter(dev, gen),
-            check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)]
-    del cases
-    check_gemma_kernels(dev, gen, rows)
-    check_new_kernel_shapes(dev, gen, rows)
-    check_recurrent_kernel_shapes(dev, gen, rows)
-    for r in rows:
-        print_time(r["name"], r)
-        for shape in ("b8", "b1", "chunk", "r16"):
-            if shape in r:
-                print_time(f"{r['name']} ({shape.upper()})", r[shape])
-        g = r["gemma"]
-        print_time(f"{r['name']} ({GEMMA})", g)
-        for shape in ("b8", "b1", "chunk", "window", "r16"):
-            if shape in g:
-                print_time(f"{r['name']} ({GEMMA}, {shape.upper()})",
-                           g[shape])
-        for label, g in r.get("shapes", {}).items():
-            print_time(f"{r['name']} ({label})", g)
-            for shape in ("b8", "b1", "chunk", "r16"):
-                if shape in g:
-                    print_time(f"{r['name']} ({label}, {shape.upper()})",
-                               g[shape])
-    check_small_model(dev)
-    check_small_gemma(dev)
-    check_small_moe(dev)
-    check_small_recurrent(dev)
+def cap_memory(group: str) -> None:
+    """Hold this process to ``CAP_GIB[group]`` of the card: past it, the
+    caching allocator frees what it keeps cached before it asks for more."""
     torch.cuda.empty_cache()
-    print(f"phase 2: {time.perf_counter() - t2:.1f} s")
+    card = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(CAP_GIB[group] * 2**30 / card)
 
-    cfg = CFG
+
+def reset(ops) -> None:
+    for op in ops.values():
+        op.launches = 0
+
+
+def counted(ops) -> dict:
+    return {name: op.launches for name, op in ops.items()}
+
+
+def total(*runs) -> dict:
+    return {name: sum(r[name] for r in runs) for name in runs[0]}
+
+
+def free() -> None:
+    """Give a deleted model's memory back to the card: its modules sit in
+    reference cycles that only the cycle collector breaks."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def build_ee(dev):
+    """ee-llm-7b at full width and ``DEPTH``'s depth, bf16, from ``SEED``."""
+    from repro_torch.models.registry import build_model
+    cfg = smoke_config(CFG.name)
     t0 = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {cfg.name} {cfg.n_layers} layers d={cfg.d_model} "
+    print(f"model: {cfg.name} {depth_of(cfg)} d={cfg.d_model} "
           f"V={cfg.vocab_size}, {n_params / 1e9:.3f} B parameters in bf16, "
           f"initialised in {time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab_size, PROMPT_LEN)
-               for _ in range(CLIENTS)]
+    return model
 
-    ops = kernel_ops()
-    for op in ops.values():
-        op.launches = 0
+
+def phases_3_to_6(dev, ops, on_theta, profile) -> dict:
+    """Phases 3-6 on ee-llm-7b; ``on_theta(theta)`` gets phase 3's split
+    θ as soon as it is known."""
+    model = build_ee(dev)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, model.cfg.vocab_size, PROMPT_LEN)
+               for _ in range(CLIENTS)]
+    reset(ops)
     t3 = time.perf_counter()
     cloud = serve(model, prompts, "cloud", 1.0, "float32")
     full = serve(model, prompts, "collm", 1.0, "float32")
@@ -3200,73 +3654,80 @@ def main(argv=None) -> None:
               "median theta: no mix of exits and cloud requests")
     serve(model, prompts, "standalone", theta, "float16")
     check_fused_upload(model, prompts, theta)
-    launches = {name: op.launches for name, op in ops.items()}
+    launches = counted(ops)
     print(f"phase 3 (generate_sequential) launches: {launches} in "
           f"{time.perf_counter() - t3:.1f} s")
+    on_theta(theta)
     torch.cuda.empty_cache()
 
-    for op in ops.values():
-        op.launches = 0
+    reset(ops)
     t4 = time.perf_counter()
     phase4 = serve_phase4(model, theta)
-    batched = {name: op.launches for name, op in ops.items()}
+    batched = counted(ops)
     print(f"phase 4 (generate) launches: {batched} in "
           f"{time.perf_counter() - t4:.1f} s")
     torch.cuda.empty_cache()
 
-    for op in ops.values():
-        op.launches = 0
+    reset(ops)
     t5 = time.perf_counter()
     async_a = serve_phase5(model, theta, phase4["paged"])
-    adaptive = {name: op.launches for name, op in ops.items()}
+    adaptive = counted(ops)
     print(f"phase 5 (adaptive serving) launches: {adaptive} in "
           f"{time.perf_counter() - t5:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "exit_heads"):
         check(adaptive[name] > 0, f"{name} was not launched in phase 5")
     torch.cuda.empty_cache()
 
-    for op in ops.values():
-        op.launches = 0
+    reset(ops)
     t6 = time.perf_counter()
     serve_phase6(model, theta, phase4["paged"], async_a)
-    spec = {name: op.launches for name, op in ops.items()}
+    spec = counted(ops)
     print(f"phase 6 (drafting and preemption) launches: {spec} in "
           f"{time.perf_counter() - t6:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
                  "exit_heads", "quantize_kv_write", "quantize_kv_scatter"):
         check(spec[name] > 0, f"{name} was not launched in phase 6")
-    torch.cuda.empty_cache()
+    if profile:
+        profile_runs(model, prompts, theta)
+    del model
+    free()
+    return total(launches, batched, adaptive, spec)
 
-    for op in ops.values():
-        op.launches = 0
+
+def phase_7(dev, ops, theta) -> dict:
+    """Phase 7 on its own ee-llm-7b (the same weights as phases 3-6) at
+    phase 3's split θ."""
+    model = build_ee(dev)
+    reset(ops)
     t7 = time.perf_counter()
     serve_phase7(model, theta)
-    shared = {name: op.launches for name, op in ops.items()}
+    shared = counted(ops)
     print(f"phase 7 (chunked prefill, prefix sharing, fleet replay) "
           f"launches: {shared} in {time.perf_counter() - t7:.1f} s")
     for name in ("decode_attn_paged", "decode_attn_paged_int8", "exit_heads",
                  "quantize_kv_write"):
         check(shared[name] > 0, f"{name} was not launched in phase 7")
-    if args.profile:
-        profile_runs(model, prompts, theta)
     del model
-    torch.cuda.empty_cache()
+    free()
+    return shared
 
-    gcfg = get_config(GEMMA)
+
+def phase_8(dev, ops) -> dict:
+    from repro_torch.models.registry import build_model
+    gcfg = smoke_config(GEMMA)
     t0 = time.perf_counter()
     gmodel = build_model(gcfg, device=dev, dtype=torch.bfloat16, seed=SEED)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in gmodel.parameters())
-    print(f"model: {gcfg.name} {gcfg.n_layers} layers d={gcfg.d_model} "
+    print(f"model: {gcfg.name} {depth_of(gcfg)} d={gcfg.d_model} "
           f"V={gcfg.vocab_size} window {gcfg.sliding_window} in "
           f"{sum(w > 0 for w in gcfg.layer_windows())} layers, "
           f"{n_params / 1e9:.3f} B parameters in bf16, initialised in "
           f"{time.perf_counter() - t0:.1f} s")
-    for op in ops.values():
-        op.launches = 0
+    reset(ops)
     t8 = time.perf_counter()
     serve_phase8(gmodel)
-    gemma = {name: op.launches for name, op in ops.items()}
+    gemma = counted(ops)
     print(f"phase 8 ({GEMMA} at full width) launches: {gemma} in "
           f"{time.perf_counter() - t8:.1f} s")
     for name in ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
@@ -3274,21 +3735,192 @@ def main(argv=None) -> None:
                  "quantize_kv_scatter"):
         check(gemma[name] > 0, f"{name} was not launched in phase 8")
     del gmodel
-    torch.cuda.empty_cache()
+    free()
+    return gemma
 
-    moe = serve_phase(9, (OLMOE, GRANITE), dev, ops, lens=M_LENS,
-                      max_new=MAX_NEW, sequential=True, chunked=True)
-    dense = serve_phase(10, (STABLELM,), dev, ops, lens=S_LENS,
-                        max_new=S_NEW, sequential=False, chunked=False)
-    t11 = time.perf_counter()
-    recurrent = {name: 0 for name in ops}
-    for arch in (XLSTM, ZAMBA2):
-        got = serve_recurrent(arch, dev, ops, profile=args.profile)
-        recurrent = {name: n + got[name] for name, n in recurrent.items()}
-    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
-    launches = {name: n + batched[name] + adaptive[name] + spec[name]
-                + shared[name] + gemma[name] + moe[name] + dense[name]
-                + recurrent[name] for name, n in launches.items()}
+
+def phase_of(number, archs, serve_one, dev, ops, **kw) -> dict:
+    """Phase ``number``: ``serve_one(arch, dev, ops, **kw)`` for each of
+    ``archs`` in turn; their launches added up."""
+    t0 = time.perf_counter()
+    got = total(*(serve_one(arch, dev, ops, **kw) for arch in archs))
+    print(f"phase {number}: {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def small_models(dev) -> None:
+    """Phase 2's small models, each served on the card and on the CPU."""
+    t0 = time.perf_counter()
+    for small in (check_small_model, check_small_gemma, check_small_moe,
+                  check_small_recurrent, check_small_prefixed):
+        small(dev)
+        t0 = lap(t0, f"phase 2, {small.__name__}")
+
+
+def run_group(group, dev, ops, theta, profile) -> dict:
+    """The phases of ``group`` in turn; their launches added up."""
+    if group == "7":
+        return phase_7(dev, ops, theta)
+    if group == "8-10-9":
+        return total(phase_8(dev, ops),
+                     serve_phase(10, (STABLELM,), dev, ops, lens=S_LENS,
+                                 max_new=S_NEW, sequential=False,
+                                 chunked=False),
+                     serve_phase(9, (OLMOE, GRANITE), dev, ops, lens=M_LENS,
+                                 max_new=MAX_NEW, sequential=True,
+                                 chunked=True))
+    if group == "small-11-12":
+        small_models(dev)
+        return total(phase_of(11, (XLSTM, ZAMBA2), serve_recurrent, dev, ops,
+                              profile=profile),
+                     phase_of(12, (WHISPER, PALIGEMMA), serve_prefixed, dev,
+                              ops))
+    raise ValueError(f"no group {group!r}")
+
+
+class Group:
+    """One group of phases in a process of its own; its output goes to a
+    temporary file, echoed by :meth:`finish` after the parent's phases."""
+    MARK = "group launches: "
+
+    def __init__(self, group: str, theta=None):
+        self.group = group
+        self.out = tempfile.TemporaryFile("w+")
+        cmd = [sys.executable, str(Path(__file__).resolve()), "--group",
+               group, "--parent", str(os.getpid())]
+        if theta is not None:
+            cmd += ["--theta", repr(theta)]
+        self.proc = subprocess.Popen(cmd, stdout=self.out,
+                                     stderr=subprocess.STDOUT)
+
+    def finish(self) -> dict:
+        code = self.proc.wait()
+        self.out.seek(0)
+        launches = None
+        for line in self.out.read().splitlines():
+            if line.startswith(self.MARK):
+                launches = json.loads(line[len(self.MARK):])
+            else:
+                print(line)
+        print(f"group {self.group} ({GROUPS[self.group]}): exit {code}")
+        check(code == 0 and launches is not None,
+              f"group {self.group} ({GROUPS[self.group]}) failed")
+        return launches
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+def die_with(parent: int) -> None:
+    """Have the kernel kill this process when ``parent`` exits, so that no
+    group outlives a parent that failed or was stopped."""
+    import ctypes
+    import signal
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.prctl(1, signal.SIGKILL)           # PR_SET_PDEATHSIG
+    if os.getppid() != parent:
+        raise SystemExit("chip_smoke: the parent process is gone")
+
+
+def setup():
+    """The card, with float32 products kept exact; raises without one."""
+    global CFG
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA card (torch.cuda.is_available() "
+                         "is False)")
+    from repro_torch.configs.registry import get_config
+    CFG = get_config("ee-llm-7b")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@torch.no_grad()
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="add the profiles; every phase then runs in this "
+                         "process, one after the other")
+    ap.add_argument("--group", choices=sorted(GROUPS), help=argparse.SUPPRESS)
+    ap.add_argument("--parent", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--theta", type=float, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.group:                  # a group started by the parent below
+        die_with(args.parent)
+        dev = setup()
+        cap_memory(args.group)
+        t0 = time.perf_counter()
+        got = run_group(args.group, dev, kernel_ops(), args.theta, False)
+        print(f"group {args.group}: {time.perf_counter() - t0:.1f} s")
+        print(Group.MARK + json.dumps(got))
+        return
+    dev = setup()
+    smi = nvidia_smi()
+    print(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda}")
+    build_kernels()
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t2 = time.perf_counter()
+    cases = exit_cases(dev, gen)
+    rows = [check_decode_attn(dev, gen), *check_decode_attn_paged(dev, gen),
+            check_exit_head(dev, gen, cases), check_quantize(dev, gen),
+            check_kv_write(dev, gen), check_kv_scatter(dev, gen),
+            check_exit_quant(dev, gen, cases), check_exit_heads(dev, gen)]
+    del cases
+    part = lap(t2, "phase 2, ee-llm-7b's shapes")
+    check_gemma_kernels(dev, gen, rows)
+    part = lap(part, f"phase 2, {GEMMA}'s shapes")
+    check_new_kernel_shapes(dev, gen, rows)
+    part = lap(part, "phase 2, phases 9 and 10's shapes")
+    check_recurrent_kernel_shapes(dev, gen, rows)
+    part = lap(part, "phase 2, phase 11's shapes")
+    check_prefixed_kernel_shapes(dev, gen, rows)
+    lap(part, "phase 2, phase 12's shapes")
+    for r in rows:
+        print_time(r["name"], r)
+        for shape in ("b8", "b1", "chunk", "r16"):
+            if shape in r:
+                print_time(f"{r['name']} ({shape.upper()})", r[shape])
+        g = r["gemma"]
+        print_time(f"{r['name']} ({GEMMA})", g)
+        for shape in ("b8", "b1", "chunk", "window", "r16"):
+            if shape in g:
+                print_time(f"{r['name']} ({GEMMA}, {shape.upper()})",
+                           g[shape])
+        for label, g in r.get("shapes", {}).items():
+            print_time(f"{r['name']} ({label})", g)
+            for shape in ("b8", "b1", "chunk", "r16"):
+                if shape in g:
+                    print_time(f"{r['name']} ({label}, {shape.upper()})",
+                               g[shape])
+    torch.cuda.empty_cache()
+    print(f"phase 2 (the kernels' rows): {time.perf_counter() - t2:.1f} s")
+
+    ops = kernel_ops()
+    groups, theta = {}, []
+
+    def start_7(split):             # phase 7 waits for phase 3's split θ
+        theta.append(split)
+        if not args.profile:
+            groups["7"] = Group("7", split)
+    try:
+        # with --profile every phase runs here: the profiles see no other
+        if not args.profile:
+            cap_memory("3-6")
+            groups.update((g, Group(g)) for g in GROUPS if g != "7")
+        t3 = time.perf_counter()
+        launches = phases_3_to_6(dev, ops, start_7, args.profile)
+        print(f"phases 3-6: {time.perf_counter() - t3:.1f} s")
+        for g in GROUPS:
+            launches = total(launches, run_group(g, dev, ops, theta[0], True)
+                             if args.profile else groups[g].finish())
+    finally:
+        for g in groups.values():
+            g.stop()
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched on the main path")
 
@@ -3297,7 +3929,9 @@ def main(argv=None) -> None:
         r["launches"] = launches[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [dict({k: r[k] for k in keys},
+                                       shapes=shape_rows(r))
+                                  for r in rows]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,10 +5,15 @@ The caller converts the pytree to numpy first (for example
 result is a state dict for ``repro_torch.models.transformer.Model``: each
 segment's stacked leading layer axis is unstacked into ``layers.<i>``,
 projection weights keep their ``x @ W`` layout, and ``exit_norms`` stay
-keyed by the exit layer's number as a string.  A MoE block's leaves
-(``moe.router``, ``moe.w_gate``, ``moe.w_up``, ``moe.w_down``) carry
-across like the others; the router stays float32 in a model of any dtype,
-as the port's ``MoE`` module holds it.  The recurrent blocks' leaves
+keyed by the exit layer's number as a string.  Layer norms carry their
+``*_scale`` and ``*_bias`` leaves, and a dict-valued ``final_norm``
+becomes ``final_norm.scale`` and ``.bias``.  An encoder-decoder's stacked
+``encoder.layers`` unstack into ``encoder.layers.<i>`` beside
+``encoder.norm``, and each decoder block's ``cross.*`` (with its biases)
+carries like ``attn.*``; a vision prefix brings ``vis_proj``.  A MoE
+block's leaves (``moe.router``, ``moe.w_gate``, ``moe.w_up``,
+``moe.w_down``) carry across like the others; the router stays float32 in
+a model of any dtype, as the port's ``MoE`` module holds it.  The recurrent blocks' leaves
 (mLSTM, sLSTM, Mamba2) unstack the same way, Mamba2's float32 ``a_log``,
 ``dt_bias`` and ``d_skip`` staying float32.  Zamba2's shared attention
 block (``params["shared"]``) becomes ``shared.*``; its segments' empty
@@ -25,7 +30,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import build_segments
 
 _TOP_LEVEL = {"embed", "segments", "shared", "final_norm", "lm_head",
-              "exit_norms"}
+              "exit_norms", "encoder", "vis_proj"}
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -48,13 +53,18 @@ def params_from_jax(np_params: Dict[str, Any],
     """JAX params as numpy arrays -> the port's state dict (CPU tensors)."""
     extra = set(np_params) - _TOP_LEVEL
     if extra:
-        raise NotImplementedError(f"parameters {sorted(extra)} belong to "
-                                  f"parts of the model not ported yet "
-                                  f"(ROADMAP A.9d)")
-    state = {"embed": _tensor(np_params["embed"]),
-             "final_norm": _tensor(np_params["final_norm"])}
-    if "lm_head" in np_params:
-        state["lm_head"] = _tensor(np_params["lm_head"])
+        raise ValueError(f"parameters {sorted(extra)} have no place in the "
+                         f"port's model")
+    state = {"embed": _tensor(np_params["embed"])}
+    for key in ("final_norm", "vis_proj", "lm_head"):
+        for path, w in _leaves(np_params.get(key, {}), f"{key}."):
+            state[path] = _tensor(w)
+    encoder = np_params.get("encoder", {})
+    for path, w in _leaves(encoder.get("norm", {}), "encoder.norm."):
+        state[path] = _tensor(w)
+    for path, stacked in _leaves(encoder.get("layers", {})):
+        for j in range(stacked.shape[0]):
+            state[f"encoder.layers.{j}.{path}"] = _tensor(stacked[j])
     for layer, w in np_params["exit_norms"].items():
         state[f"exit_norms.{layer}"] = _tensor(w)
     for path, w in _leaves(np_params.get("shared", {})):

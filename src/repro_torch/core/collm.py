@@ -39,6 +39,11 @@ caches are updated in place, so a masked step never writes a masked-out row
 (the JAX package computes every row and merges the old ones back).
 ``CoLLM`` raises for any ``CollmConfig`` field that selects a feature not
 ported yet, naming its ROADMAP queue item (``UNPORTED_FIELDS``).
+
+An encoder-decoder (whisper) or vision-prefix (paligemma) model goes
+through ``edge_prefill`` with its frames or patches and ``cloud_prefill``
+with the encoder's output, then the decode steps; the padded and chunked
+admission paths, like the JAX package's, take token prompts only.
 """
 from __future__ import annotations
 
@@ -285,19 +290,34 @@ class CoLLM:
     # prefill (prompt processing)
     # ------------------------------------------------------------------
     def edge_prefill(self, batch: Dict[str, torch.Tensor], caches: Caches):
-        """Edge processes the prompt; returns (exit decisions at the last
-        position, l_ee1 hidden sequence for upload, caches)."""
+        """Edge processes the prompt (``Model.embed_inputs``' batch: tokens,
+        and frames or patches where configured); returns (exit decisions at
+        the last position, l_ee1 hidden sequence for upload (B, S or P +
+        S, d), caches).  An encoder-decoder's edge runs the encoder; the
+        caller uploads its output (``Model.encode``) to ``cloud_prefill``
+        once."""
         _, exit_h, caches, _ = self.model.prefill(batch, caches,
                                                   self.edge_segs)
         decisions = self.exit_decisions({l: h[:, -1]
                                          for l, h in exit_h.items()})
         return decisions, exit_h[self.l_ee1], caches
 
-    def cloud_prefill(self, h1_seq: torch.Tensor, caches: Caches):
-        """Cloud builds its KV over the uploaded prompt hidden states;
-        returns (last-position logits (B,1,V), caches)."""
+    def cloud_prefill(self, h1_seq: torch.Tensor, caches: Caches,
+                      enc_out: Optional[torch.Tensor] = None):
+        """Cloud builds its KV over the uploaded prompt hidden states, and
+        an encoder-decoder's cross caches from ``enc_out`` (B, Se, d);
+        returns (last-position logits (B,1,V), caches).
+
+        A vision-prefix model's upload starts with its ``vision_tokens``
+        patch positions, which every position attends to (the prefix-LM
+        mask of ``Model.prefill``), so the split model equals the
+        undivided one.  Here the port departs from the JAX package, whose
+        ``cloud_prefill`` builds its context without ``prefix_len`` and
+        so attends causally over the prefix in the cloud layers."""
         ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
-                                              device=h1_seq.device))
+                                              device=h1_seq.device),
+                       enc_out=enc_out,
+                       prefix_len=self.model.cfg.vision_tokens)
         x, _, caches = self.model.run_segments(h1_seq, ctx, self.cloud_segs,
                                                caches=caches,
                                                collect_exits=False)

@@ -31,7 +31,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
            "exit_head", "quantize", "exit_quant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "--split-compile=0")     # optimise on every core at once
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, ctypes._CFuncPtr] = {}

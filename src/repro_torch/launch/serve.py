@@ -16,7 +16,9 @@ granite-moe-3b-a800m; or the recurrent xlstm-350m (mLSTM and sLSTM
 blocks) or the hybrid zamba2-1.2b (Mamba2 layers and a shared attention
 block), whose admissions prefill the exact prompt and which refuse
 speculative decode, chunked prefill and swap preemption, as the JAX
-package does.  ``--smoke`` cuts any of them to 2 layers at d_model 256
+package does.  whisper-medium and paligemma-3b are refused: they need
+frames or patches, and the engines take token prompts only, as the JAX
+package's do.  ``--smoke`` cuts any of them to 2 layers at d_model 256
 (and 4 experts):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \
@@ -222,6 +224,15 @@ def main(argv=None):
     if args.prefix_share and not args.chunked_prefill:
         ap.error("--prefix-share admits the unshared suffix through "
                  "chunked prefill; needs --chunked-prefill")
+    arch_cfg = ARCHS[args.arch]
+    if arch_cfg.is_encdec or arch_cfg.vision_tokens:
+        # the JAX package's engines prefill {"tokens": ...} alone, so its
+        # CLI fails later, on a KeyError for the frames or patches
+        ap.error(f"--arch {args.arch} needs "
+                 f"{'frames' if arch_cfg.is_encdec else 'patches'} beside "
+                 f"its tokens, and the serving engines take token prompts "
+                 f"only, as the JAX package's do; drive it through "
+                 f"Model.prefill and CoLLM (chip_smoke.py phase 12)")
     if args.arrival_rate < 0:
         ap.error("--arrival-rate must be >= 0")
     if args.arrival_rate == 0 and (args.arrival_cv2 != 1.0

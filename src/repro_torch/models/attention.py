@@ -1,9 +1,11 @@
-"""Multi-head attention: GQA, optional bias, RoPE, sliding-window masks,
-the full-sequence paths of training and prefill (direct, chunked
-flash-style for long sequences, banded for sliding windows),
-single-token decode over a dense ring KV cache or a block-paged KV pool
-(float or int8 pages), and the page-sized chunk decode of chunked
-prefill over the paged pool (its tokens as rows of the paged kernels).
+"""Multi-head attention: GQA, optional bias, RoPE, sliding-window and
+prefix-LM masks, cross-attention over an encoder's output, the
+full-sequence paths of training and prefill (direct, chunked flash-style
+for long sequences, banded for sliding windows), single-token decode over
+a dense ring KV cache or a block-paged KV pool (float or int8 pages), the
+page-sized chunk decode of chunked prefill over the paged pool (its
+tokens as rows of the paged kernels), and cross decode over a cache of
+the encoder's keys (``build_cross_cache``), read through the ring kernel.
 
 Port of ``repro.models.attention``.  Decode attention goes through the
 ``decode_attn`` / ``decode_attn_paged`` kernels
@@ -391,23 +393,33 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                       cache: Optional[Cache] = None,
                       valid_len: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence self-attention (training / prefill), dispatched as in
-    the JAX package: banded when a window is shorter than S, direct while
-    S*S <= ``_DIRECT_LIMIT``, chunked beyond.  ``valid_len``: the real
-    length of a right-padded prefill (see ``_cache_write``).  Returns
-    (output, the cache written in place, or None)."""
-    if enc_out is not None:
-        raise NotImplementedError("cross-attention is not ported yet "
-                                  "(ROADMAP A.9d)")
+    """Full-sequence attention (training / prefill), dispatched as in the
+    JAX package: banded when a window is shorter than S, direct while
+    Sq*Sk <= ``_DIRECT_LIMIT``, chunked beyond.  ``enc_out`` (B, Se, d)
+    makes it cross-attention: keys and values from the encoder's output at
+    positions 0..Se-1, no mask, no rotation (``cache`` is then unused; the
+    cross cache is ``build_cross_cache``'s).  ``prefix_len``: the first
+    positions every query sees (the prefix-LM mask of a vision prefix).
+    ``valid_len``: the real length of a right-padded prefill (see
+    ``_cache_write``).  Returns (output, the cache written in place, or
+    None)."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, x)
+    cross = enc_out is not None
+    kv_src = enc_out if cross else x
+    sk = kv_src.shape[1]
+    q, k, v = _project_qkv(p, cfg, x, kv_src)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    if use_rope:
+    kpos = torch.arange(sk, device=x.device) if cross else positions
+    if use_rope and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
-    if window and s > window:
+    if cross:
+        out = (_direct_attention if s * sk <= _DIRECT_LIMIT else
+               _chunked_attention)(q, k, v, positions, kpos, causal=False,
+                                   window=0, prefix_len=0, scale=scale)
+    elif window and s > window:
         out = _banded_attention(q, k, v, positions, positions,
                                 window=window, scale=scale)
     else:
@@ -415,7 +427,7 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                _chunked_attention)(q, k, v, positions, positions,
                                    causal=causal, window=window,
                                    prefix_len=prefix_len, scale=scale)
-    if cache is not None:
+    if cache is not None and not cross:
         cache = _cache_write(cache, k, v, positions, valid_len)
     y = out.reshape(b, s, -1) @ p.wo.to(x.dtype)
     return y, cache
@@ -588,3 +600,48 @@ def chunk_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                             v_scale=cache.get("vs"), window=window)
     y = out.reshape(b, c, h * hd) @ p.wo.to(x.dtype)
     return y, cache
+
+
+def build_cross_cache(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor,
+                      cache: Cache) -> Cache:
+    """The encoder's keys and values for cross decode, written in place
+    into ``cache`` (a dense per-row entry of Se keys, in its dtype): k/v
+    (B, Se, KV, d) projected from ``enc_out`` (B, Se, d) with their
+    biases, and ``pos`` = 0..Se-1 in every row."""
+    b, sk, _ = enc_out.shape
+    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    k = enc_out @ p.wk.to(enc_out.dtype)
+    v = enc_out @ p.wv.to(enc_out.dtype)
+    if cfg.qkv_bias:
+        k = k + p.bk.to(enc_out.dtype)
+        v = v + p.bv.to(enc_out.dtype)
+    k = k.reshape(b, sk, kvh, hd)
+    v = v.reshape(b, sk, kvh, hd)
+    pos = torch.arange(sk, dtype=torch.int32, device=enc_out.device
+                       ).expand(b, sk)
+    if cache["k"].shape != k.shape:
+        raise ValueError(f"cross cache holds {tuple(cache['k'].shape)} keys, "
+                         f"the encoder gave {tuple(k.shape)}: frames must "
+                         f"have the configuration's encoder_seq")
+    cache["k"].copy_(k)
+    cache["v"].copy_(v)
+    cache["pos"].copy_(pos)
+    return cache
+
+
+def cross_decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                           cache: Cache, cur: torch.Tensor) -> torch.Tensor:
+    """Single-token cross-attention (x: (B,1,d)) over a cross cache of Se
+    encoder keys, through the ring ``decode_attn`` kernel (its plain
+    version on the CPU).  ``cur`` (B,) int32 is Se - 1 in every row with
+    no window, so every key (pos 0..Se-1) is valid, as the JAX package's
+    ``valid = kpos >= 0``; the cache is read, never written, so a masked
+    row leaves it as it is."""
+    b = x.shape[0]
+    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    q = x @ p.wq.to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(x.dtype)
+    out = decode_attn(q.reshape(b, h, hd).contiguous(), cache["k"],
+                      cache["v"], cache["pos"], cur)
+    return out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)

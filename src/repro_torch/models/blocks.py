@@ -1,5 +1,4 @@
-"""Per-layer decoder blocks (port of ``repro.models.blocks`` without
-cross-attention and layer norms, ROADMAP A.9d).
+"""Per-layer blocks (port of ``repro.models.blocks``).
 
     make_block(cfg, kind)                          -> parameters of ONE layer
     init_block(block, cfg, gen)                    -> the JAX distributions
@@ -12,7 +11,15 @@ A ``DecoderBlock`` is attention and then an MLP (kinds ``dense`` and
 ``shared_attn``, Zamba2's shared block) or a routed-expert FFN (kind
 ``moe``: ``moe_forward_local`` in the full-sequence forward,
 ``moe_forward_decode`` in decode steps and prefill chunks, as the JAX
-package runs them).  The recurrent kinds are ``MLSTMBlock`` and
+package runs them).  Its norms are rms norms (``ln1_scale``,
+``ln2_scale``) or, with ``norm_type="layernorm"``, layer norms with a
+bias each.  A decoder block of an encoder-decoder model also owns a
+``cross`` attention (with its norm ``lnx``) between the two: over the
+encoder's output in the full-sequence forward, where it fills the
+cache's dense per-row ``cross`` entry of ``encoder_seq`` keys
+(``build_cross_cache``), and over that entry in decode, through the ring
+kernel; the entry stays dense per row in the paged layout too, and
+nothing but a prefill writes it.  The recurrent kinds are ``MLSTMBlock`` and
 ``SLSTMBlock`` (``repro_torch.models.xlstm``) and ``Mamba2Block``
 (``repro_torch.models.mamba2``): their caches are dense per row, batch
 axis first, in the dense and the paged layout alike (a recurrent state
@@ -34,13 +41,15 @@ from repro_torch.configs.base import (DENSE, MAMBA2, MLSTM, MOE, SHARED_ATTN,
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import xlstm
 from repro_torch.models.attention import (Attention, attention_forward,
+                                          build_cross_cache,
                                           chunk_attention_paged,
+                                          cross_decode_attention,
                                           decode_attention,
                                           decode_attention_paged,
                                           init_attention, init_attn_cache,
                                           init_paged_attn_cache)
 from repro_torch.models.cache_tree import commit
-from repro_torch.models.common import dense_init_, rms_norm
+from repro_torch.models.common import dense_init_, layer_norm, rms_norm
 from repro_torch.models.moe import (MoE, init_moe, moe_forward_decode,
                                     moe_forward_local)
 
@@ -50,6 +59,8 @@ Cache = Dict[str, Any]
 @dataclasses.dataclass
 class BlockCtx:
     positions: Optional[torch.Tensor] = None   # (S,) absolute positions
+    enc_out: Optional[torch.Tensor] = None     # encoder output (enc-dec only)
+    prefix_len: int = 0                        # prefix-LM boundary (VLM)
     window: int = 0                            # sliding window for this layer
     causal: bool = True
     pos: Optional[torch.Tensor] = None         # decode positions (B,) int32
@@ -57,6 +68,8 @@ class BlockCtx:
     # rows (B,) or chunk tokens (B,C) allowed to write KV
     write_mask: Optional[torch.Tensor] = None
     valid_len: Optional[int] = None            # real length of a padded prefill
+    # cross decode: (B,) int32 encoder_seq - 1, every encoder key valid
+    cross_pos: Optional[torch.Tensor] = None
 
 
 ATTN_KINDS = (DENSE, SHARED_ATTN, MOE)
@@ -79,12 +92,15 @@ class MLP(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    """Attention + MLP (or routed experts) with pre-norms; parameter names
-    follow the JAX package's pytree (``attn.wq``, ``mlp.w_gate``,
-    ``moe.router``, ``ln1_scale``, ...)."""
+    """Attention (+ cross-attention) + MLP (or routed experts) with
+    pre-norms; parameter names follow the JAX package's pytree
+    (``attn.wq``, ``cross.bq``, ``mlp.w_gate``, ``moe.router``,
+    ``ln1_scale``, ``lnx_bias``, ...).  ``with_cross`` defaults to the
+    configuration's: a decoder block of an encoder-decoder model (the JAX
+    package's ``init_block``); encoder blocks pass False."""
 
     def __init__(self, cfg: ModelConfig, kind: str = DENSE, *, device,
-                 dtype):
+                 dtype, with_cross: Optional[bool] = None):
         super().__init__()
         if kind not in ATTN_KINDS:
             raise ValueError(f"{kind!r} is not an attention block kind")
@@ -95,8 +111,17 @@ class DecoderBlock(nn.Module):
             self.moe = MoE(cfg, **kw)
         else:
             self.mlp = MLP(cfg, **kw)
-        self.ln1_scale = nn.Parameter(torch.empty(cfg.d_model, **kw))
-        self.ln2_scale = nn.Parameter(torch.empty(cfg.d_model, **kw))
+        norms = ["ln1", "ln2"]
+        if kind != MOE and (cfg.is_encdec if with_cross is None
+                            else with_cross):
+            self.cross = Attention(cfg, **kw)
+            norms.append("lnx")
+        parts = ("_scale", "_bias") if cfg.norm_type == "layernorm" else (
+            "_scale",)
+        for name in norms:
+            for part in parts:
+                setattr(self, name + part,
+                        nn.Parameter(torch.empty(cfg.d_model, **kw)))
 
 
 class _Recurrent(NamedTuple):
@@ -143,12 +168,21 @@ def init_block(block: nn.Module, cfg: ModelConfig,
                 w.zero_()
             else:
                 dense_init_(w, gen)
-    block.ln1_scale.zero_()           # rms gains are (1 + scale)
-    block.ln2_scale.zero_()
+    if hasattr(block, "cross"):
+        init_attention(block.cross, gen)
+    for name, w in block.named_parameters(recurse=False):
+        # layer-norm gains are 1, rms gains (1 + scale); biases 0
+        if name.endswith("_scale") and cfg.norm_type == "layernorm":
+            w.fill_(1.0)
+        else:
+            w.zero_()
 
 
 def _norm(x: torch.Tensor, block: DecoderBlock, cfg: ModelConfig,
           key: str) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, getattr(block, key + "_scale"),
+                          getattr(block, key + "_bias"), cfg.norm_eps)
     return rms_norm(x, getattr(block, key + "_scale"), cfg.norm_eps)
 
 
@@ -162,13 +196,25 @@ def _mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return (g * u) @ p.w_down.to(x.dtype)
 
 
+def _cross_cache(cfg: ModelConfig, kind: str, batch: int, device,
+                 dtype) -> Cache:
+    """The dense per-row cross entry of an encoder-decoder's decoder
+    block ({} otherwise): ``encoder_seq`` keys, filled by a prefill."""
+    if not cfg.is_encdec or kind == MOE:
+        return {}
+    return {"cross": init_attn_cache(cfg, batch, cfg.encoder_seq,
+                                     kv_len=cfg.encoder_seq, device=device,
+                                     dtype=dtype)}
+
+
 def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      window: int, *, kind: str = DENSE, device=None,
                      dtype=torch.float32) -> Cache:
     if kind in _RECURRENT:
         return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_attn_cache(cfg, batch, max_seq, window=window,
-                                    device=device, dtype=dtype)}
+                                    device=device, dtype=dtype),
+            **_cross_cache(cfg, kind, batch, device, dtype)}
 
 
 def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -178,12 +224,14 @@ def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
     """Paged variant: self-attention K/V lives in the shared page pool (no
     batch axis — rows address it through their block table);
     ``kv_dtype="int8"`` stores the pages quantized with per-row scales.
-    Recurrent state stays dense per row (``batch`` rows)."""
+    Recurrent state and the cross entry stay dense per row (``batch``
+    rows)."""
     if kind in _RECURRENT:
         return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_paged_attn_cache(cfg, num_pages, page_size,
                                           device=device, dtype=dtype,
-                                          kv_dtype=kv_dtype)}
+                                          kv_dtype=kv_dtype),
+            **_cross_cache(cfg, kind, batch, device, dtype)}
 
 
 def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
@@ -202,10 +250,19 @@ def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
     h = _norm(x, block, cfg, "ln1")
     att, _ = attention_forward(
         block.attn, cfg, h, positions=ctx.positions, causal=ctx.causal,
-        window=ctx.window, use_rope=cfg.use_rope,
+        window=ctx.window, prefix_len=ctx.prefix_len, use_rope=cfg.use_rope,
         cache=cache["self"] if cache is not None else None,
         valid_len=ctx.valid_len)
     x = x + att
+    if hasattr(block, "cross") and ctx.enc_out is not None:
+        hx = _norm(x, block, cfg, "lnx")
+        catt, _ = attention_forward(block.cross, cfg, hx,
+                                    positions=ctx.positions,
+                                    enc_out=ctx.enc_out, causal=False,
+                                    use_rope=False)
+        x = x + catt
+        if cache is not None and "cross" in cache:
+            build_cross_cache(block.cross, cfg, ctx.enc_out, cache["cross"])
     h2 = _norm(x, block, cfg, "ln2")
     if block.kind == MOE:
         y, _ = moe_forward_local(block.moe, cfg, h2)
@@ -242,6 +299,10 @@ def block_decode(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                                   window=ctx.window, use_rope=cfg.use_rope,
                                   write_mask=ctx.write_mask)
     x = x + att
+    if hasattr(block, "cross") and "cross" in cache:
+        hx = _norm(x, block, cfg, "lnx")
+        x = x + cross_decode_attention(block.cross, cfg, hx, cache["cross"],
+                                       ctx.cross_pos)
     h2 = _norm(x, block, cfg, "ln2")
     if block.kind == MOE:
         return x + moe_forward_decode(block.moe, cfg, h2), cache

@@ -1,6 +1,13 @@
 """Cache trees: the nested dicts and lists of tensors that hold a model's
 KV caches and recurrent state, and the snapshots and packets made of
-them.  The one place that walks them leaf by leaf."""
+them.  The one place that walks them leaf by leaf.
+
+An encoder-decoder's decoder blocks also hold a ``cross`` entry: the
+encoder's keys, dense per row in every layout, written by a prefill and
+then only read.  The walks that invalidate, page, swap or reset KV
+(``Model.invalidate_cache_after``, ``CoLLM.invalidate_rows_after``,
+``Model.reset_state``) touch ``self`` entries and recurrent state only,
+as the JAX package skips ``"cross"``."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional

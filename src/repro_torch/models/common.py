@@ -2,8 +2,9 @@
 
 Numerics follow ``repro.models.common``: norms compute in float32 and cast
 back to the input's dtype; rotary embeddings rotate split halves (not
-interleaved pairs); initializers draw from an explicit ``torch.Generator``
-with the JAX package's distributions.
+interleaved pairs); sinusoidal positions are Whisper's sin | cos halves;
+initializers draw from an explicit ``torch.Generator`` with the JAX
+package's distributions.
 """
 from __future__ import annotations
 
@@ -23,6 +24,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm with a ``scale`` gain and a ``bias``, in float32 (the
+    biased variance, as ``jnp.var``)."""
+    dtype = x.dtype
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -45,6 +58,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq, d_model: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings, float32.  ``seq`` is an int
+    (returns (seq, d)) or a position tensor of any shape (returns
+    (*seq.shape, d)): a decode step's per-row (B,) offsets, or their
+    (B, S) positions."""
+    half = d_model // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    if isinstance(seq, int):
+        pos = torch.arange(seq, dtype=torch.float32, device=device)
+    else:
+        pos = torch.as_tensor(seq, device=device).float()
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=pos.device))
+    scaled = pos[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,15 @@ Zamba2's shared attention block is one module, ``shared``, that every
 shared segment (a length-1 segment of kind ``shared_attn``) runs, each
 application with its own KV cache; its places in ``layers`` hold an
 ``nn.Identity`` so that every parameter has one name.
+
+An encoder-decoder model (whisper) adds a non-causal ``encoder`` over
+precomputed frames (``encode``) whose output every decoder block attends
+to (cross-attention), with sinusoidal absolute positions and layer
+norms; a vision-prefix model (paligemma) projects precomputed patches
+through ``vis_proj`` in front of the tokens, which attend to that prefix
+in both directions (the prefix-LM mask).  ``embed_inputs`` is the
+front-end of both; the serving engines take token prompts only, as the
+JAX package's do.
 """
 from __future__ import annotations
 
@@ -21,13 +30,15 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from repro_torch.configs.base import SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
 from repro_torch.models import cache_tree
 from repro_torch.models.blocks import (ATTN_KINDS, BlockCtx, DecoderBlock,
                                        block_decode, block_forward,
                                        init_block, init_block_cache,
                                        init_block_cache_paged, make_block)
-from repro_torch.models.common import embed_init_, rms_norm
+from repro_torch.models.common import (dense_init_, embed_init_,
+                                       layer_norm, rms_norm,
+                                       sinusoidal_positions)
 from repro_torch.tracing import span
 
 Caches = Dict[int, List[Dict[str, Any]]]
@@ -69,33 +80,62 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
     return tuple(segs)
 
 
-def unported_item(cfg: ModelConfig) -> str:
-    """The ROADMAP item that ports ``cfg``'s kind of model, or "" for the
-    dense, MoE, recurrent and hybrid decoders the port serves:
-    encoder-decoder, vision prefix, absolute positions or layer norms
-    (A.9d)."""
-    if (cfg.is_encdec or cfg.vision_tokens or not cfg.use_rope
-            or cfg.norm_type != "rms"):
-        return "A.9d"
-    return ""
+class Encoder(nn.Module):
+    """Whisper's encoder: ``layers.<i>`` dense blocks without cross
+    attention and the final ``norm`` (``scale`` and ``bias`` under a layer
+    norm)."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            DecoderBlock(cfg, DENSE, device=device, dtype=dtype,
+                         with_cross=False)
+            for _ in range(cfg.encoder_layers))
+        self.norm = _final_norm_params(cfg, device=device, dtype=dtype)
+
+
+def _final_norm_params(cfg: ModelConfig, *, device, dtype):
+    """A final norm's parameters: the rms ``(1 + scale)`` gain, or a layer
+    norm's ``scale`` and ``bias``."""
+    kw = dict(device=device, dtype=dtype)
+    if cfg.norm_type == "layernorm":
+        return nn.ParameterDict(
+            {k: nn.Parameter(torch.empty(cfg.d_model, **kw))
+             for k in ("scale", "bias")})
+    return nn.Parameter(torch.empty(cfg.d_model, **kw))
+
+
+@torch.no_grad()
+def _init_final_norm(norm) -> None:
+    if isinstance(norm, nn.ParameterDict):
+        norm["scale"].fill_(1.0)
+        norm["bias"].zero_()
+    else:
+        norm.zero_()                  # rms gains are (1 + scale)
+
+
+def _apply_final_norm(norm, cfg: ModelConfig, x: torch.Tensor
+                      ) -> torch.Tensor:
+    if isinstance(norm, nn.ParameterDict):
+        return layer_norm(x, norm["scale"], norm["bias"], cfg.norm_eps)
+    return rms_norm(x, norm, cfg.norm_eps)
 
 
 class Model(nn.Module):
     """Early-exit decoder of dense, MoE, recurrent (xLSTM) or hybrid
-    (Mamba2 with a shared attention block) layers.  Parameter names follow
-    the JAX package's pytree: ``embed``, ``layers.<i>.*``, ``shared.*``,
-    ``final_norm``, ``lm_head`` (untied only) and ``exit_norms.<layer>``.
-    Every parameter is in ``dtype`` except the MoE routers and Mamba2's
+    (Mamba2 with a shared attention block) layers, with an encoder
+    (whisper) or a vision prefix (paligemma) in front where configured.
+    Parameter names follow the JAX package's pytree: ``embed``,
+    ``layers.<i>.*``, ``shared.*``, ``final_norm`` (``final_norm.scale``
+    and ``.bias`` under a layer norm), ``lm_head`` (untied only),
+    ``exit_norms.<layer>``, ``encoder.layers.<i>.*`` and ``encoder.norm``
+    (encoder-decoder only) and ``vis_proj`` (vision prefix only).  Every
+    parameter is in ``dtype`` except the MoE routers and Mamba2's
     ``a_log``, ``dt_bias`` and ``d_skip``, which stay float32."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32):
         super().__init__()
         self.cfg = cfg.validate()
-        item = unported_item(cfg)
-        if item:
-            raise NotImplementedError(
-                f"{cfg.name}: only the rotary rms-norm decoders are "
-                f"ported yet (ROADMAP {item})")
         self.segments = build_segments(cfg)
         self.dtype = dtype
         kw = dict(device=device, dtype=dtype)
@@ -108,7 +148,11 @@ class Model(nn.Module):
         if any(s.shared for s in self.segments):
             self.shared = DecoderBlock(cfg, SHARED_ATTN, device=device,
                                        dtype=dtype)
-        self.final_norm = nn.Parameter(torch.empty(d, **kw))
+        self.final_norm = _final_norm_params(cfg, **kw)
+        if cfg.is_encdec:
+            self.encoder = Encoder(cfg, **kw)
+        if cfg.vision_tokens:
+            self.vis_proj = nn.Parameter(torch.empty(d, d, **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(v, d, **kw))
         # per-exit read-out norms; the heads share the unembedding
@@ -135,11 +179,17 @@ class Model(nn.Module):
                 init_block(block, cfg, gen)
         if hasattr(self, "shared"):
             init_block(self.shared, cfg, gen)
-        self.final_norm.zero_()       # rms gains are (1 + scale)
+        _init_final_norm(self.final_norm)
         if not cfg.tie_embeddings:
             embed_init_(self.lm_head, gen)
         for w in self.exit_norms.values():
             w.zero_()
+        if cfg.is_encdec:
+            for block in self.encoder.layers:
+                init_block(block, cfg, gen)
+            _init_final_norm(self.encoder.norm)
+        if cfg.vision_tokens:
+            dense_init_(self.vis_proj, gen)
         return self
 
     # ------------------------------------------------------------------
@@ -151,7 +201,7 @@ class Model(nn.Module):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         w = self.unembed_weight()
-        h = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        h = _apply_final_norm(self.final_norm, self.cfg, x)
         return h @ w.to(x.dtype).T
 
     def exit_logits(self, layer: int, x: torch.Tensor) -> torch.Tensor:
@@ -161,10 +211,64 @@ class Model(nn.Module):
         return h @ self.unembed_weight().to(x.dtype).T
 
     # ------------------------------------------------------------------
-    # embedding front-end
+    # embedding front-ends
     # ------------------------------------------------------------------
-    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed[tokens].to(self.dtype)
+    def embed_tokens(self, tokens: torch.Tensor, pos_offset=0
+                     ) -> torch.Tensor:
+        """tokens (B, S) -> (B, S, d).  A model without rotary embeddings
+        adds sinusoidal absolute positions from ``pos_offset``: an int or
+        a per-row (B,) tensor of offsets (rows decode at their own
+        positions)."""
+        x = self.embed[tokens].to(self.dtype)
+        if not self.cfg.use_rope:
+            s = tokens.shape[1]
+            steps = torch.arange(s, device=x.device)
+            off = torch.as_tensor(pos_offset, device=x.device)
+            idx = off[:, None] + steps if off.dim() == 1 else off + steps
+            x = x + sinusoidal_positions(idx, self.cfg.d_model).to(x.dtype)
+        return x
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Whisper's encoder over precomputed conv-frontend frames (B, Se,
+        d): sinusoidal positions, non-causal dense blocks, the encoder's
+        layer norm."""
+        cfg = self.cfg
+        x = frames.to(self.dtype)
+        x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                     device=x.device).to(x.dtype)
+        ctx = BlockCtx(positions=torch.arange(x.shape[1], device=x.device),
+                       causal=False)
+        with span("encode", x.device):
+            for block in self.encoder.layers:
+                x, _ = block_forward(block, cfg, x, ctx)
+            return _apply_final_norm(self.encoder.norm, cfg, x)
+
+    def embed_inputs(self, batch: Dict[str, torch.Tensor],
+                     valid_len: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, BlockCtx]:
+        """Prefill front-end: batch["tokens"] (B, S) int64, with
+        batch["frames"] (B, Se, d) for an encoder-decoder model or
+        batch["patches"] (B, P, d) for a vision prefix.  Returns the
+        embedded sequence (B, S or P + S, d) and a context with its
+        positions, ``enc_out`` and ``prefix_len`` = P (the patches come
+        first, so a prompt's decode starts at position P + S)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        enc_out, prefix = None, 0
+        if cfg.is_encdec:
+            enc_out = self.encode(batch["frames"])
+            x = self.embed_tokens(tokens)
+        elif cfg.vision_tokens:
+            vis = batch["patches"].to(self.dtype) @ self.vis_proj.to(
+                self.dtype)
+            x = torch.cat([vis, self.embed_tokens(tokens)], dim=1)
+            prefix = vis.shape[1]
+        else:
+            x = self.embed_tokens(tokens)
+        ctx = BlockCtx(positions=torch.arange(x.shape[1], device=x.device),
+                       enc_out=enc_out, prefix_len=prefix,
+                       valid_len=valid_len)
+        return x, ctx
 
     # ------------------------------------------------------------------
     # segment execution
@@ -221,6 +325,10 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int,
                    seg_indices: Optional[Sequence[int]] = None) -> Caches:
+        """Dense caches of ``batch`` rows: self-attention rings of
+        ``max_seq`` slots (a vision prefix's patches take slots too),
+        an encoder-decoder's cross entries of ``encoder_seq`` keys, and
+        recurrent state."""
         seg_indices = (range(len(self.segments)) if seg_indices is None
                        else seg_indices)
         return {si: [init_block_cache(self.cfg, batch, max_seq,
@@ -246,6 +354,9 @@ class Model(nn.Module):
         if batch < 1 and not self.attention_only(seg_indices):
             raise ValueError("recurrent layers keep dense per-row state: "
                              "init_paged_cache needs batch >= 1")
+        if batch < 1 and self.cfg.is_encdec:
+            raise ValueError("cross-attention keeps a dense per-row cross "
+                             "entry: init_paged_cache needs batch >= 1")
         return {si: [init_block_cache_paged(self.cfg, num_pages, page_size,
                                             kind=self.segments[si].kind,
                                             batch=batch, device=self.device,
@@ -269,7 +380,8 @@ class Model(nn.Module):
     def invalidate_cache_after(self, caches: Caches, true_len: int) -> Caches:
         """Mark self-attention ring slots >= true_len invalid (pos = -1),
         in place — used after a right-padded prefill so pad positions never
-        take part in decode attention.  Recurrent state is left alone."""
+        take part in decode attention.  Recurrent state and cross entries
+        are left alone."""
         for layers in caches.values():
             for c in layers:
                 if "self" in c:
@@ -280,7 +392,7 @@ class Model(nn.Module):
         """Zero the recurrent state of ``caches`` in place: a prefill into
         a reused single-row cache starts a new stream from the empty state
         (every admission of the JAX package prefills a fresh zero cache).
-        Attention caches are left alone."""
+        Attention caches (self and cross) are left alone."""
         for layers in caches.values():
             for c in layers:
                 if "self" not in c:
@@ -309,16 +421,14 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, torch.Tensor], caches: Caches,
                 seg_indices: Optional[Sequence[int]] = None,
                 valid_len: Optional[int] = None):
-        """Full-sequence pass that fills caches.  batch["tokens"]: (B, S)
-        int64; ``valid_len``: the real length of a right-padded prompt
-        (a windowed ring keeps real tokens, not pads).  Returns (hidden
-        (B,S,d), exit_hiddens, caches, ctx)."""
+        """Full-sequence pass that fills caches.  batch: ``embed_inputs``'
+        (tokens (B, S) int64, and frames or patches where configured);
+        ``valid_len``: the real length of a right-padded prompt (a
+        windowed ring keeps real tokens, not pads).  Returns (hidden
+        (B, S or P + S, d), exit_hiddens, caches, ctx); ``ctx.enc_out`` is
+        the encoder's output (what the edge uploads to the cloud once)."""
         seg_indices = seg_indices or self.all_segments()
-        tokens = batch["tokens"]
-        x = self.embed_tokens(tokens)
-        ctx = BlockCtx(positions=torch.arange(tokens.shape[1],
-                                              device=self.device),
-                       valid_len=valid_len)
+        x, ctx = self.embed_inputs(batch, valid_len)
         x, exit_hiddens, caches = self.run_segments(x, ctx, seg_indices,
                                                     caches=caches)
         return x, exit_hiddens, caches, ctx
@@ -328,22 +438,32 @@ class Model(nn.Module):
         return torch.as_tensor(pos, dtype=torch.int32, device=self.device
                                ).broadcast_to((b,)).contiguous()
 
+    def _decode_ctx(self, pos, b: int, block_tbl, write_mask) -> BlockCtx:
+        """A decode step's context: (B,) positions and, for an
+        encoder-decoder model, the cross decode's cur = encoder_seq - 1."""
+        cross_pos = None
+        if self.cfg.is_encdec:
+            cross_pos = torch.full((b,), self.cfg.encoder_seq - 1,
+                                   dtype=torch.int32, device=self.device)
+        return BlockCtx(pos=self._rows_pos(pos, b), block_tbl=block_tbl,
+                        write_mask=write_mask, cross_pos=cross_pos)
+
     def decode_step(self, token: torch.Tensor, caches: Caches, pos,
                     seg_indices: Optional[Sequence[int]] = None,
                     collect_exits: bool = True,
                     block_tbl: Optional[torch.Tensor] = None,
                     write_mask: Optional[torch.Tensor] = None):
         """token: (B,1); pos: scalar or per-row (B,) position ->
-        (final hidden (B,1,d), exit_hiddens, caches).  Paged caches need
-        ``block_tbl`` (B, max_logical) int32 on the model's device;
+        (final hidden (B,1,d), exit_hiddens, caches).  A vision-prefix
+        row's first decode position is P + len(prompt).  Paged caches
+        need ``block_tbl`` (B, max_logical) int32 on the model's device;
         ``write_mask`` (B,) bool leaves the masked-out rows' KV as it
         was.  With paged caches ``token`` may also be a (B,C) chunk whose
         first position is ``pos`` (chunked prefill), and ``write_mask``
         then (B,C) per token."""
         seg_indices = seg_indices or self.all_segments()
-        x = self.embed_tokens(token)
-        ctx = BlockCtx(pos=self._rows_pos(pos, token.shape[0]),
-                       block_tbl=block_tbl, write_mask=write_mask)
+        ctx = self._decode_ctx(pos, token.shape[0], block_tbl, write_mask)
+        x = self.embed_tokens(token, pos_offset=ctx.pos)
         return self.decode_segments(x, ctx, seg_indices, caches,
                                     collect_exits=collect_exits)
 
@@ -354,7 +474,6 @@ class Model(nn.Module):
         """Cloud-partition decode: continue from an uploaded hidden state
         (B,1,d), or with paged caches a (B,C,d) chunk starting at ``pos``
         (``write_mask`` (B,) or (B,C), as ``decode_step``)."""
-        ctx = BlockCtx(pos=self._rows_pos(pos, hidden.shape[0]),
-                       block_tbl=block_tbl, write_mask=write_mask)
+        ctx = self._decode_ctx(pos, hidden.shape[0], block_tbl, write_mask)
         return self.decode_segments(hidden, ctx, seg_indices, caches,
                                     collect_exits=False)

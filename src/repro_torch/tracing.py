@@ -1,8 +1,9 @@
 """Named spans of the model and co-inference layers.
 
 ``span(name, device)`` marks a piece of work: the prefill of a partition
-(``prefill``), an sLSTM block's time loop (``slstm``), a decode block
-(``recurrent`` or ``attention``) and an exit pass (``exit``).  Under
+(``prefill``), an encoder pass (``encode``), an sLSTM block's time loop
+(``slstm``), a decode block (``recurrent`` or ``attention``) and an exit
+pass (``exit``).  Under
 ``torch.profiler`` it is a ``record_function`` range named ``PREFIX +
 name``, so a profile attributes the operators and kernels launched inside
 it to that work.  While ``timed(*names)`` is open, the spans it names also

@@ -63,10 +63,49 @@ LAYOUTS = {"dense": dict(kv_layout="dense"),
 def test_registry_serves_the_dense_decoders():
     assert sorted(ARCHS) == sorted(["ee-llm-7b", *SHAPES, "olmoe-1b-7b",
                                     "granite-moe-3b-a800m", "xlstm-350m",
-                                    "zamba2-1.2b"])
+                                    "zamba2-1.2b", "whisper-medium",
+                                    "paligemma-3b"])
     for name, cfg in ARCHS.items():
         assert dataclasses.asdict(cfg) == dataclasses.asdict(
             jget_config(name)), name
+
+
+def _jax_parameter_shapes(name):
+    """Each leaf of ``name``'s full-size JAX pytree (``jax.eval_shape``,
+    nothing allocated) under the port's parameter name: segments and the
+    encoder's stacked layers unstacked per layer, as the bridge does."""
+    from repro.models.transformer import build_segments as jsegments
+    cfg = jget_config(name)
+    shapes = jax.eval_shape(jbuild(cfg).init, jax.random.PRNGKey(0))
+
+    def leaves(tree):
+        return [(".".join(str(k.key) for k in path), leaf) for path, leaf
+                in jax.tree_util.tree_flatten_with_path(tree)[0]]
+
+    want = {}
+    for key in ("embed", "final_norm", "lm_head", "exit_norms", "vis_proj"):
+        for path, leaf in leaves({key: shapes[key]} if key in shapes else {}):
+            want[path] = leaf.shape
+    for seg, tree in zip(jsegments(cfg), shapes["segments"]):
+        for path, leaf in leaves(tree):
+            for j in range(seg.length):
+                want[f"layers.{seg.start + j}.{path}"] = leaf.shape[1:]
+    if "encoder" in shapes:
+        for path, leaf in leaves({"norm": shapes["encoder"]["norm"]}):
+            want[f"encoder.{path}"] = leaf.shape
+        for path, leaf in leaves(shapes["encoder"]["layers"]):
+            for j in range(cfg.encoder_layers):
+                want[f"encoder.layers.{j}.{path}"] = leaf.shape[1:]
+    return cfg, {n: tuple(s) for n, s in want.items()}
+
+
+def _meta_model(cfg):
+    """The port's bfloat16 model of ``cfg`` on the meta device."""
+    from repro_torch.configs.base import MoEConfig
+    fields = dataclasses.asdict(cfg)
+    if fields["moe"]:
+        fields["moe"] = MoEConfig(**fields["moe"])
+    return Model(TModelConfig(**fields), device="meta", dtype=torch.bfloat16)
 
 
 @pytest.mark.parametrize("name", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
@@ -76,43 +115,29 @@ def test_moe_parameters_match_the_jax_pytree(name):
     per layer as the bridge does, is a parameter of the port's bfloat16
     model of the same shape, and the port has no other; the routers stay
     float32."""
-    from repro.models.transformer import build_segments as jsegments
-    cfg = jget_config(name)
-    jm = jbuild(cfg)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0))
-    want = {"embed": shapes["embed"].shape,
-            "final_norm": shapes["final_norm"].shape}
-    if "lm_head" in shapes:
-        want["lm_head"] = shapes["lm_head"].shape
-    want.update({f"exit_norms.{l}": w.shape
-                 for l, w in shapes["exit_norms"].items()})
-    for seg, tree in zip(jsegments(cfg), shapes["segments"]):
-        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
-            key = ".".join(str(k.key) for k in path)
-            for j in range(seg.length):
-                want[f"layers.{seg.start + j}.{key}"] = leaf.shape[1:]
-    from repro_torch.configs.base import MoEConfig
-    fields = dataclasses.asdict(cfg)
-    fields["moe"] = MoEConfig(**fields["moe"])
-    tm = Model(TModelConfig(**fields), device="meta", dtype=torch.bfloat16)
+    cfg, want = _jax_parameter_shapes(name)
+    tm = _meta_model(cfg)
     got = {n: tuple(p.shape) for n, p in tm.named_parameters()}
-    assert got == {n: tuple(s) for n, s in want.items()}
+    assert got == want
     for n, p in tm.named_parameters():
         assert p.dtype == (torch.float32 if n.endswith("moe.router")
                            else torch.bfloat16), n
 
 
-@pytest.mark.parametrize("name,item", [
-    ("whisper-medium", "A.9d"), ("paligemma-3b", "A.9d")])
-def test_other_architectures_raise_naming_their_item(name, item):
-    from repro_torch.configs.base import MoEConfig, SSMConfig
-    fields = dataclasses.asdict(jreduced(jget_config(name)))
-    if fields["moe"]:
-        fields["moe"] = MoEConfig(**fields["moe"])
-    if fields["ssm"]:
-        fields["ssm"] = SSMConfig(**fields["ssm"])
-    with pytest.raises(NotImplementedError, match=item):
-        Model(TModelConfig(**fields), device="cpu")
+@pytest.mark.parametrize("name", ["whisper-medium", "paligemma-3b"])
+def test_encdec_and_vlm_parameters_match_the_jax_pytree(name):
+    """The same at full size for whisper-medium (its 24-layer encoder and
+    norm, every decoder block's cross-attention with qkv biases and its
+    layer norms' scales and biases, the GELU MLP's biases, the untied
+    head, the dict-valued final norm) and paligemma-3b (``vis_proj``)."""
+    cfg, want = _jax_parameter_shapes(name)
+    got = {n: tuple(p.shape) for n, p in _meta_model(cfg).named_parameters()}
+    assert got == want
+    if cfg.is_encdec:
+        assert "encoder.layers.23.attn.bq" in got
+        assert "layers.0.cross.bv" in got and "final_norm.bias" in got
+    else:
+        assert got["vis_proj"] == (2048, 2048)
 
 
 class Arch:

@@ -15,6 +15,7 @@ float32 on the CPU, on the same numpy inputs and weights.
   attention of chunked prefill and the paged decode, pool and outputs.
 * A right-padded prefill keeps its real tail in a windowed ring (the JAX
   package keeps the pads there: ROADMAP §C).
+* Cross-attention over an encoder's output, direct and chunked.
 """
 import numpy as np
 import pytest
@@ -134,12 +135,27 @@ def test_attention_forward_dispatch_matches_jax(s, window, ring):
         _close(tc[key], jc[key], atol=1e-5)
 
 
-def test_cross_attention_raises():
-    cfg, tcfg = _cfg()
-    _, tp = _layer(cfg, tcfg, seed=0)
-    x = torch.zeros((1, 4, 64))
-    with pytest.raises(NotImplementedError, match="A.9d"):
-        tattn.attention_forward(tp, tcfg, x, enc_out=x)
+@pytest.mark.parametrize("sq,sk", [(12, 64), (2048, 2304)])
+def test_cross_attention_matches_jax(sq, sk):
+    """Cross-attention over an encoder's output: the direct path, and the
+    chunked one at Sq*Sk > 2**22 (JAX's gcd chunks of 512 queries and 256
+    keys), with qkv biases and no rotation of the keys."""
+    cfg, tcfg = _cfg(d_model=32, n_heads=2, n_kv_heads=1, qkv_bias=True)
+    jp, tp = _layer(cfg, tcfg, seed=sq)
+    rng = np.random.default_rng(sk)
+    for b in ("bq", "bk", "bv"):
+        jp[b] = jnp.asarray(rng.normal(size=jp[b].shape), jnp.float32)
+        with torch.no_grad():
+            getattr(tp, b).copy_(torch.from_numpy(np.asarray(jp[b])))
+    x = rng.normal(size=(1, sq, 32)).astype(np.float32)
+    enc = rng.normal(size=(1, sk, 32)).astype(np.float32)
+    want, _ = jattn.attention_forward(jp, cfg, jnp.asarray(x),
+                                      enc_out=jnp.asarray(enc),
+                                      causal=False, use_rope=False)
+    got, _ = tattn.attention_forward(tp, tcfg, torch.from_numpy(x),
+                                     enc_out=torch.from_numpy(enc),
+                                     causal=False, use_rope=False)
+    _close(got, want, atol=1e-4)
 
 
 @torch.no_grad()
