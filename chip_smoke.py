@@ -168,15 +168,40 @@ exit code and no result line:
    upload and ``enc_out`` bytes, the encoder's device time, peak memory
    and the launches of the ring kernel (self and cross), ``exit_heads``
    and the wire quantizer;
-13. the kernel table as one JSON line (launches: phases 3 to 12; each
+13. training and checkpoints, with the launch counters set to 0 before
+   and read after: (a) tiny-ee in float32, 80 steps of the markov corpus
+   (batch 8 x 64, AdamW lr 1e-3, warmup 10 of 300: ``tests/conftest.py``'s
+   ``tiny_trained``) on the card and on the CPU from the same weights:
+   step 1's loss and gradient norm within 1e-5, the last losses within
+   1e-2, and on the card the last loss below 0.85 x the first; (b) one
+   train step of each of the JAX package's ten reduced families (MoE,
+   GLA / xLSTM, Mamba2, the encoder and the prefix-LM mask backward on
+   CUDA) on the card and on the CPU: every loss and the gradient norm
+   within 1e-4; (c) ee-llm-7b at full width (``DEPTH``'s 18 layers) in
+   float32 with float32 AdamW state, 6 steps of one 2 x 512 batch of copy
+   sequences: the loss falls; seconds a step, training tokens/s and peak
+   memory beside the card's name and power limit; (d) (c)'s parameters
+   written with ``save_checkpoint`` (the JAX package's format) and read
+   into a fresh model through ``launch/serve.py``'s ``--ckpt`` loader:
+   every tensor equal, and the same greedy streams of 2 clients at θ = 1
+   on a float16 wire and θ = 0 on an int8 wire, then the loaded model
+   through the batched engine on paged int8 KV with an int8 wire (the
+   paged int8 attention and page-write kernels); (e) ``python -m
+   repro_torch.launch.train --smoke --ckpt`` and then ``python -m
+   repro_torch.launch.serve --smoke --ckpt`` on paged int8 KV with an
+   int8 wire, as subprocesses: both exit 0 and the server prints its
+   agreement line;
+14. the kernel table as one JSON line (launches: phases 3 to 13; each
    kernel's other shapes under "shapes"), the ``nvidia-smi`` line, and
    the status line ``{"ok": true, "device": {...}}``.
 
 Phases 1 and 2's kernel rows run alone on the card.  Then the serving
 phases run in four processes at once, each group's phases in turn: 3-6
 here; 7 (started with phase 3's split θ); 8, 10 and 9; phase 2's small
-models, 11 and 12 (``GROUPS``).  Each process counts its own launches
-and the script adds them up; the groups' output follows phase 6's.
+models, 11 and 12 (``GROUPS``).  Phase 13 needs most of the card and
+runs in a fifth process once the other four have ended.  Each process
+counts its own launches and the script adds them up; the groups' output
+follows phase 6's.
 
 ``--profile`` adds ``torch.profiler`` windows over a few collaborative
 decode ticks of the sequential loop and of the batched engine on bf16 and
@@ -197,6 +222,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -3566,6 +3592,302 @@ def profile_runs(model, prompts, theta) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: training and checkpoints
+# ---------------------------------------------------------------------------
+# (a): tests/conftest.py's tiny_trained (batch 8 x 64, 80 steps)
+T_STEPS, T_BATCH, T_SEQ = 80, 8, 64
+# (c): ee-llm-7b at full width, DEPTH's depth, float32; (d): its serving
+F_STEPS, F_BATCH, F_SEQ, F_LR = 6, 2, 512, 3e-4
+F_CLIENTS, F_PROMPT, F_NEW = 2, 64, 16
+CKPT_DIR = ROOT / "artifacts"      # git-ignored: (d) and (e)'s checkpoints
+FAMILY_RTOL = 1e-4                 # (b): card against CPU, float32
+
+
+def train_steps(model, ocfg, batches) -> list:
+    """``make_train_step`` over ``batches`` (numpy); each step's metrics
+    as floats, and its host seconds under "s"."""
+    from repro_torch.training.optim import init_adamw
+    from repro_torch.training.train_step import make_train_step
+    step = make_train_step(model, ocfg)
+    state, out = init_adamw(model), []
+    for b in batches:
+        t0 = time.perf_counter()
+        batch = {k: torch.from_numpy(v).to(model.device)
+                 for k, v in b.items()}
+        batch["tokens"] = batch["tokens"].long()
+        state, mets = step(state, batch)
+        out.append({k: float(v) for k, v in mets.items()})  # synchronises
+        out[-1]["s"] = time.perf_counter() - t0
+    return out
+
+
+def step_times(run) -> str:
+    """A run's first step (it imports ``torch._dynamo`` for
+    ``torch.utils.checkpoint``, and on the card warms it up) and the
+    median of the others, ms."""
+    rest = np.median([r["s"] for r in run[1:]]) if len(run) > 1 else 0.0
+    return f"first step {run[0]['s'] * 1e3:.1f} ms, then {rest * 1e3:.2f} ms"
+
+
+def rel_err(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def check_train_tiny(dev) -> None:
+    """(a) tiny-ee, float32, 80 steps of the markov corpus on the card and
+    on the CPU from the same weights and batches."""
+    from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optim import AdamWConfig
+    cfg = tiny_ee_config()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    batches = list(SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=T_SEQ, batch_size=T_BATCH,
+        kind="markov", seed=SEED)).batches(T_STEPS))
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=300)
+    on_card = train_steps(gpu, ocfg, batches)
+    on_cpu = train_steps(cpu, ocfg, batches)
+    e_loss = rel_err(on_card[0]["loss"], on_cpu[0]["loss"])
+    e_norm = rel_err(on_card[0]["grad_norm"], on_cpu[0]["grad_norm"])
+    e_last = rel_err(on_card[-1]["loss"], on_cpu[-1]["loss"])
+    print(f"13 (a) tiny-ee {T_STEPS} steps of {T_BATCH}x{T_SEQ}: card loss "
+          f"{on_card[0]['loss']:.6f} -> {on_card[-1]['loss']:.6f} "
+          f"({step_times(on_card)}), CPU {on_cpu[0]['loss']:.6f} -> "
+          f"{on_cpu[-1]['loss']:.6f} ({step_times(on_cpu)}); step 1 rel err "
+          f"loss {e_loss:.2e} grad_norm {e_norm:.2e}, last loss "
+          f"{e_last:.2e}")
+    check(e_loss <= 1e-5 and e_norm <= 1e-5,
+          "13 (a): step 1 differs between the card and the CPU")
+    check(e_last <= 1e-2, "13 (a): the last losses differ")
+    check(on_card[-1]["loss"] < 0.85 * on_card[0]["loss"],
+          "13 (a): the loss did not fall below 0.85 x the first")
+
+
+def family_batch(cfg, seed) -> dict:
+    """2 x 16 tokens and labels, and whisper's frames or paligemma's
+    patches, numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    b, s = 2, 16
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "labels": rng.integers(0, cfg.vocab_size, (b, s)),
+             "mask": np.ones((b, s), np.float32)}
+    if cfg.is_encdec:
+        batch["frames"] = (rng.normal(size=(b, cfg.encoder_seq, cfg.d_model))
+                           * 0.1).astype(np.float32)
+    if cfg.vision_tokens:
+        batch["patches"] = (rng.normal(size=(b, cfg.vision_tokens,
+                                             cfg.d_model))
+                            * 0.1).astype(np.float32)
+    return batch
+
+
+def check_train_families(dev) -> None:
+    """(b) each of the JAX package's ten reduced families (2 layers,
+    d_model 256), float32: one train step on the card and on the CPU from
+    the same weights and batch; every loss and the gradient norm within
+    ``FAMILY_RTOL``."""
+    from repro_torch.configs.registry import ARCHS, get_smoke_config
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optim import AdamWConfig
+    ocfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)
+    for i, arch in enumerate(a for a in ARCHS if a != CFG.name):
+        cfg = get_smoke_config(arch)
+        cpu = build_model(cfg, device="cpu", seed=SEED)
+        gpu = build_model(cfg, device=dev, seed=SEED)
+        gpu.load_state_dict(cpu.state_dict())
+        batch = family_batch(cfg, SEED + i)
+        got = train_steps(gpu, ocfg, [batch])[0]
+        want = train_steps(cpu, ocfg, [batch])[0]
+        errs = {k: rel_err(got[k], want[k]) for k in want
+                if k not in ("lr", "s")
+                and (k != "aux_loss" or want[k] != 0.0)}
+        worst = max(errs, key=errs.get)
+        print(f"13 (b) {arch}: loss {got['loss']:.6f} (CPU "
+              f"{want['loss']:.6f}) aux {got['aux_loss']:.3e} grad_norm "
+              f"{got['grad_norm']:.6f}; largest rel err {errs[worst]:.2e} "
+              f"({worst})")
+        check((got["aux_loss"] == 0.0) == (want["aux_loss"] == 0.0),
+              f"13 (b) {arch}: an aux loss on one device only")
+        check(errs[worst] <= FAMILY_RTOL,
+              f"13 (b) {arch}: {worst} differs between the card and the CPU")
+
+
+def train_full(dev):
+    """(c) ee-llm-7b at full width and ``DEPTH``'s depth in float32 (the
+    JAX package trains in float32): ``F_STEPS`` steps on one batch of
+    copy sequences.  Returns (model, config)."""
+    from repro_torch import tracing
+    from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
+    from repro_torch.models.registry import build_model
+    from repro_torch.training.optim import AdamWConfig, init_adamw
+    from repro_torch.training.train_step import make_train_step
+    cfg = smoke_config(CFG.name)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"13 (c) model: {cfg.name} {depth_of(cfg)} d={cfg.d_model} "
+          f"heads {cfg.n_heads} of d={cfg.resolved_head_dim} d_ff="
+          f"{cfg.d_ff} V={cfg.vocab_size} exits {cfg.exit_layers}, "
+          f"{n_params / 1e9:.3f} B parameters in float32, initialised in "
+          f"{time.perf_counter() - t0:.1f} s")
+    # copy sequences draw no markov table (V x V float64: 8 GB here)
+    b = next(SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=F_SEQ, batch_size=F_BATCH,
+        kind="copy", seed=SEED)).batches(1))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    batch["tokens"] = batch["tokens"].long()
+    step = make_train_step(model, AdamWConfig(lr=F_LR, warmup_steps=1,
+                                              total_steps=F_STEPS))
+    state = init_adamw(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs, spans = [], [], []
+    for _ in range(F_STEPS):
+        t0 = time.perf_counter()
+        with tracing.timed("gradients", "optimizer") as sp:
+            state, mets = step(state, batch)
+            losses.append(float(mets["loss"]))       # synchronises
+        secs.append(time.perf_counter() - t0)
+        spans.append(sp)
+        check(np.isfinite(losses[-1]) and np.isfinite(
+            float(mets["grad_norm"])), "13 (c): a loss is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    tokens = F_BATCH * F_SEQ
+    s_step = float(np.median(secs[1:]))
+    # matmul work a step: forward, recompute under remat, backward
+    flops = 8 * n_params * tokens
+    print(f"13 (c) {F_STEPS} steps of {F_BATCH}x{F_SEQ} tokens: losses "
+          f"{[round(l, 4) for l in losses]}; s/step {[round(s, 3) for s in secs]} "
+          f"(median after the first {s_step:.3f} s, "
+          f"{tokens / s_step:.1f} training tokens/s, "
+          f"{flops / s_step / 1e12:.1f} TFLOP/s of 8*N*T); device s a step "
+          f"(spans): gradients "
+          f"{[round(sp['gradients'], 3) for sp in spans]}, optimizer "
+          f"{[round(sp['optimizer'], 3) for sp in spans]}; peak "
+          f"{peak / 2**30:.2f} GiB (max_memory_allocated) | {nvidia_smi()}")
+    check(losses[-1] < losses[0], "13 (c): the loss on the batch did not "
+          "fall")
+    del state, step
+    model.zero_grad(set_to_none=True)
+    free()
+    return model, cfg
+
+
+def check_checkpoint(model, cfg, dev) -> None:
+    """(d) (c)'s parameters through ``save_checkpoint`` and ``serve.py``'s
+    ``--ckpt`` loader into a fresh model (another seed): every tensor
+    equal, and the same greedy streams of 2 clients (64-token prompts, 16
+    new tokens) at θ = 1 on a float16 wire and at θ = 0 on an int8
+    wire; then the loaded model through the batched engine on int8 pages
+    (``launch.serve --kv-layout paged --kv-dtype int8 --wire int8``, in
+    this process, so its launches count)."""
+    from repro_torch.launch.serve import load_model
+    from repro_torch.training.checkpoint import save_checkpoint
+    CKPT_DIR.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase13-", dir=CKPT_DIR)
+    try:
+        path = os.path.join(tmp, cfg.name)
+        t0 = time.perf_counter()
+        save_checkpoint(path, model, cfg, extra={"steps": F_STEPS})
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(path + ".npz")
+        t0 = time.perf_counter()
+        fresh = load_model(cfg, device=dev, dtype=torch.float32,
+                           seed=SEED + 1, ckpt=path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        same = all(torch.equal(p, q) for p, q in zip(model.parameters(),
+                                                     fresh.parameters()))
+        print(f"13 (d) checkpoint: {nbytes} bytes written in {t_save:.1f} s "
+              f"({nbytes / t_save / 1e9:.2f} GB/s), read into a fresh model "
+              f"in {t_load:.1f} s; every tensor equal: {same}")
+        check(same, "13 (d): the loaded parameters differ")
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size, F_PROMPT)
+                   for _ in range(F_CLIENTS)]
+        for theta, wire in ((1.0, "float16"), (0.0, "int8")):
+            want = serve(model, prompts, "collm", theta, wire,
+                         max_new=F_NEW)
+            got = serve(fresh, prompts, "collm", theta, wire, max_new=F_NEW)
+            print(f"13 (d) theta={theta} {wire} wire: loaded == trained: "
+                  f"{got['tokens'] == want['tokens']}")
+            check(got["tokens"] == want["tokens"],
+                  f"13 (d): the loaded model's stream differs at theta="
+                  f"{theta}")
+        serve_batched(fresh, prompts, "13 (d) paged int8", "collm", 0.0,
+                      "int8", kv_dtype="int8", max_new=F_NEW)
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_launchers() -> None:
+    """(e) the entry points a user runs, as subprocesses: ``launch.train
+    --smoke --ckpt`` on the card, then ``launch.serve --ckpt`` on paged
+    int8 KV with an int8 wire."""
+    CKPT_DIR.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="phase13-", dir=CKPT_DIR)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    path = os.path.join(tmp, "ee-llm-7b-smoke")
+    cmds = [["repro_torch.launch.train", "--arch", CFG.name, "--smoke",
+             "--steps", "20", "--ckpt", path],
+            ["repro_torch.launch.serve", "--arch", CFG.name, "--smoke",
+             "--ckpt", path, "--kv-layout", "paged", "--kv-dtype", "int8",
+             "--wire", "int8"]]
+    try:
+        for cmd in cmds:
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", *cmd], cwd=ROOT,
+                               env=env, capture_output=True, text=True,
+                               timeout=300)
+            lines = r.stdout.splitlines()
+            keep = [l for l in lines if l.startswith(
+                ("step", "saved", "loaded", "agreement"))]
+            print(f"13 (e) {' '.join(cmd)}: exit {r.returncode} in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for line in keep:
+                print(f"    {line}")
+            check(r.returncode == 0, f"13 (e) {cmd[0]} failed: "
+                  f"{r.stderr[-2000:]}")
+        check(any(l.startswith("agreement vs cloud") for l in lines),
+              "13 (e): the server printed no agreement line")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_13(dev, ops) -> dict:
+    """Phase 13: training on the card, then the trained model's JAX-format
+    checkpoint served through the kernels."""
+    reset(ops)
+    t13 = time.perf_counter()
+    with torch.enable_grad():
+        check_train_tiny(dev)
+        t0 = lap(t13, "13 (a)")
+        check_train_families(dev)
+        t0 = lap(t0, "13 (b)")
+        model, cfg = train_full(dev)
+        t0 = lap(t0, "13 (c)")
+    check_checkpoint(model, cfg, dev)
+    del model
+    free()
+    t0 = lap(t0, "13 (d)")
+    check_launchers()
+    lap(t0, "13 (e)")
+    got = counted(ops)
+    print(f"phase 13 (training, checkpoints) launches: {got} in "
+          f"{time.perf_counter() - t13:.1f} s")
+    # the int8 wire packet comes from the exit_heads launch; the
+    # launchers' subprocesses count their own launches
+    for name in ("decode_attn", "exit_heads", "decode_attn_paged_int8",
+                 "quantize_kv_write"):
+        check(got[name] > 0, f"{name} was not launched in phase 13")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # the serving phases' groups, one process each
 # ---------------------------------------------------------------------------
 # After phase 2's timings, which have the card to themselves, the serving
@@ -3577,13 +3899,16 @@ def profile_runs(model, prompts, theta) -> None:
 # the parent adds them up.  The models of 8, 10 and 9 (up to 28 GiB a
 # phase) take turns in one process.
 GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
-          "small-11-12": "phase 2's small models, phases 11 and 12"}
+          "small-11-12": "phase 2's small models, phases 11 and 12",
+          "13": "phase 13"}
 # Each process's share of the card's memory, GiB, over the most its phases
 # hold at once (3-6 12.5, 7 10.2, 8 28.1, 12 7.2): a process keeps what it
 # frees cached for itself, and without a cap the groups together filled
 # the card and one ran out.  With these the four, and their CUDA contexts,
-# stay ~5 GiB below the card's 79.
-CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9}
+# stay ~5 GiB below the card's 79.  Phase 13 trains a float32 ee-llm-7b
+# (parameters, gradients and AdamW's two moments: 62.5 GB) and so runs
+# alone, after the others have ended.
+CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9, "13": 76}
 
 
 def cap_memory(group: str) -> None:
@@ -3775,6 +4100,8 @@ def run_group(group, dev, ops, theta, profile) -> dict:
                               profile=profile),
                      phase_of(12, (WHISPER, PALIGEMMA), serve_prefixed, dev,
                               ops))
+    if group == "13":
+        return phase_13(dev, ops)
     raise ValueError(f"no group {group!r}")
 
 
@@ -3911,11 +4238,16 @@ def main(argv=None) -> None:
         # with --profile every phase runs here: the profiles see no other
         if not args.profile:
             cap_memory("3-6")
-            groups.update((g, Group(g)) for g in GROUPS if g != "7")
+            groups.update((g, Group(g)) for g in GROUPS
+                          if g not in ("7", "13"))
         t3 = time.perf_counter()
         launches = phases_3_to_6(dev, ops, start_7, args.profile)
         print(f"phases 3-6: {time.perf_counter() - t3:.1f} s")
         for g in GROUPS:
+            if g == "13" and not args.profile:
+                # alone on the card: started once every other group ended
+                torch.cuda.empty_cache()
+                groups[g] = Group(g)
             launches = total(launches, run_group(g, dev, ops, theta[0], True)
                              if args.profile else groups[g].finish())
     finally:

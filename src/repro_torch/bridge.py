@@ -1,4 +1,4 @@
-"""Carry weights from the JAX package's parameter pytree to the port.
+"""Carry weights between the JAX package's parameter pytree and the port.
 
 The caller converts the pytree to numpy first (for example
 ``jax.tree.map(np.asarray, params)``); nothing here imports JAX.  The
@@ -18,19 +18,28 @@ a model of any dtype, as the port's ``MoE`` module holds it.  The recurrent bloc
 ``dt_bias`` and ``d_skip`` staying float32.  Zamba2's shared attention
 block (``params["shared"]``) becomes ``shared.*``; its segments' empty
 ``{}`` placeholders carry nothing.
+
+``params_to_jax`` is the inverse: the port's parameters as the JAX
+package's pytree of numpy arrays (segments stacked on their leading layer
+axis again, Zamba2's shared segments as ``{}``).  ``jax_layout`` alone
+states the layout: the pytree's skeleton, whose leaves are the port's
+tensors (a ``Stacked`` run of them for a leaf with a layer axis).  Both
+directions, and the JAX-format checkpoints of
+``repro_torch.training.checkpoint``, walk it with ``flatten`` and
+``treedef_str`` in ``jax.tree.flatten``'s order (dict keys sorted, tuples
+in order, an empty dict no leaf), ``treedef_str`` printing its
+``str(jax.tree.structure(...))``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import build_segments
-
-_TOP_LEVEL = {"embed", "segments", "shared", "final_norm", "lm_head",
-              "exit_norms", "encoder", "vis_proj"}
+from repro_torch.models.transformer import Model
 
 
 def _tensor(a: np.ndarray) -> torch.Tensor:
@@ -40,39 +49,165 @@ def _tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaves(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+# ---------------------------------------------------------------------------
+# the port -> the JAX package's pytree
+# ---------------------------------------------------------------------------
+class Stacked(tuple):
+    """A leaf of the JAX pytree that stacks one tensor a layer (a
+    segment's or the encoder's leading layer axis)."""
+
+
+Leaf = Union[torch.Tensor, Stacked]
+
+
+def _nest(tree: Dict[str, Any], path: str, leaf: Leaf) -> None:
+    *keys, last = path.split(".")
+    for key in keys:
+        tree = tree.setdefault(key, {})
+    tree[last] = leaf
+
+
+def _block_tree(blocks: Sequence[nn.Module], stacked: bool) -> Dict:
+    """The pytree of one block (``stacked=False``) or of a run of blocks
+    of one kind stacked on a leading layer axis."""
+    tree: Dict[str, Any] = {}
+    for name, w in blocks[0].named_parameters():
+        _nest(tree, name, Stacked(b.get_parameter(name) for b in blocks)
+              if stacked else w)
+    return tree
+
+
+def _norm_tree(norm) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+    if isinstance(norm, nn.ParameterDict):
+        return dict(norm.items())
+    return norm
+
+
+def jax_layout(model: nn.Module) -> Dict[str, Any]:
+    """The JAX package's parameter pytree for ``model`` (a
+    ``repro_torch.models.transformer.Model``), each leaf the port's
+    parameter or a ``Stacked`` run of them; nothing is copied."""
+    cfg = model.cfg
+    segments: List[Dict] = []
+    for seg in model.segments:
+        segments.append({} if seg.shared else _block_tree(
+            [model.layers[seg.start + j] for j in range(seg.length)], True))
+    tree: Dict[str, Any] = {"embed": model.embed,
+                            "segments": tuple(segments),
+                            "final_norm": _norm_tree(model.final_norm),
+                            "exit_norms": dict(model.exit_norms.items())}
+    if hasattr(model, "shared"):
+        tree["shared"] = _block_tree([model.shared], False)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = model.lm_head
+    if cfg.is_encdec:
+        tree["encoder"] = {
+            "layers": _block_tree(list(model.encoder.layers), True),
+            "norm": _norm_tree(model.encoder.norm)}
+    if cfg.vision_tokens:
+        tree["vis_proj"] = model.vis_proj
+    return tree
+
+
+def flatten(tree: Any) -> List[Any]:
+    """The leaves in ``jax.tree.flatten``'s order: dict keys sorted, tuples
+    in order; an empty dict has none."""
     if isinstance(tree, dict):
-        for key, sub in tree.items():
-            yield from _leaves(sub, f"{prefix}{key}.")
-    else:
-        yield prefix[:-1], tree
+        return [leaf for key in sorted(tree) for leaf in flatten(tree[key])]
+    if isinstance(tree, tuple) and not isinstance(tree, Stacked):
+        return [leaf for sub in tree for leaf in flatten(sub)]
+    return [tree]
+
+
+def _structure(tree: Any) -> str:
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{key!r}: {_structure(tree[key])}"
+                               for key in sorted(tree)) + "}"
+    if isinstance(tree, tuple) and not isinstance(tree, Stacked):
+        inner = ", ".join(_structure(sub) for sub in tree)
+        return f"({inner},)" if len(tree) == 1 else f"({inner})"
+    return "*"
+
+
+def treedef_str(tree: Any) -> str:
+    """``str(jax.tree.structure(tree))`` of a pytree of dicts, tuples and
+    leaves."""
+    return f"PyTreeDef({_structure(tree)})"
+
+
+def to_numpy(leaf: Leaf) -> np.ndarray:
+    """One leaf as the JAX package holds it: a parameter, or a ``Stacked``
+    run on a leading layer axis (stacked on the parameters' device, then
+    copied once).  bfloat16 (which numpy lacks) becomes float32."""
+    t = (torch.stack([w.detach() for w in leaf])
+         if isinstance(leaf, Stacked) else leaf.detach())
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def map_leaves(tree: Any, fn) -> Any:
+    """``tree`` with ``fn`` applied to every leaf (a ``Stacked`` run is one
+    leaf)."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn) for k, v in tree.items()}
+    if isinstance(tree, tuple) and not isinstance(tree, Stacked):
+        return tuple(map_leaves(v, fn) for v in tree)
+    return fn(tree)
+
+
+def check_config(model: nn.Module, cfg: Optional[ModelConfig]) -> None:
+    """Raise unless ``cfg`` is None or ``model``'s configuration."""
+    if cfg is not None and cfg != model.cfg:
+        raise ValueError(f"the model is {model.cfg.name}, not {cfg.name}")
+
+
+def params_to_jax(model: nn.Module, cfg: Optional[ModelConfig] = None
+                  ) -> Dict[str, Any]:
+    """The port's parameters -> the JAX package's params as numpy arrays
+    (the inverse of ``params_from_jax``); ``cfg``, when given, must be the
+    model's."""
+    check_config(model, cfg)
+    return map_leaves(jax_layout(model), to_numpy)
 
 
 def params_from_jax(np_params: Dict[str, Any],
                     cfg: ModelConfig) -> Dict[str, torch.Tensor]:
-    """JAX params as numpy arrays -> the port's state dict (CPU tensors)."""
-    extra = set(np_params) - _TOP_LEVEL
-    if extra:
-        raise ValueError(f"parameters {sorted(extra)} have no place in the "
-                         f"port's model")
-    state = {"embed": _tensor(np_params["embed"])}
-    for key in ("final_norm", "vis_proj", "lm_head"):
-        for path, w in _leaves(np_params.get(key, {}), f"{key}."):
-            state[path] = _tensor(w)
-    encoder = np_params.get("encoder", {})
-    for path, w in _leaves(encoder.get("norm", {}), "encoder.norm."):
-        state[path] = _tensor(w)
-    for path, stacked in _leaves(encoder.get("layers", {})):
-        for j in range(stacked.shape[0]):
-            state[f"encoder.layers.{j}.{path}"] = _tensor(stacked[j])
-    for layer, w in np_params["exit_norms"].items():
-        state[f"exit_norms.{layer}"] = _tensor(w)
-    for path, w in _leaves(np_params.get("shared", {})):
-        state[f"shared.{path}"] = _tensor(w)
-    for seg, tree in zip(build_segments(cfg), np_params["segments"]):
-        if seg.shared:
-            continue                      # an alias of params["shared"]
-        for path, stacked in _leaves(tree):
-            for j in range(seg.length):
-                state[f"layers.{seg.start + j}.{path}"] = _tensor(stacked[j])
+    """JAX params as numpy arrays -> the port's state dict (CPU tensors in
+    the leaves' dtypes), leaf by leaf along ``jax_layout`` of a ``cfg``
+    model on the meta device.  Raises unless the pytree and every leaf's
+    shape are that model's."""
+    model = Model(cfg, device="meta")
+    layout = jax_layout(model)
+    if treedef_str(np_params) != treedef_str(layout):
+        raise ValueError(f"the parameters are not {cfg.name}'s pytree")
+    names = {id(p): n for n, p in model.named_parameters()}
+    state = {}
+    for leaf, value in zip(flatten(layout), flatten(np_params)):
+        stacked = isinstance(leaf, Stacked)
+        targets, values = (leaf, value) if stacked else ((leaf,), (value,))
+        shape = ((len(leaf),) if stacked else ()) + tuple(targets[0].shape)
+        if tuple(value.shape) != shape:
+            raise ValueError(f"{names[id(targets[0])]}: a leaf of shape "
+                             f"{tuple(value.shape)} for {shape}")
+        for t, v in zip(targets, values):
+            state[names[id(t)]] = _tensor(v)
     return state
+
+
+@torch.no_grad()
+def load_leaf(leaf: Leaf, value: np.ndarray) -> None:
+    """Copy one JAX leaf into the port's tensors, cast to each tensor's
+    dtype (a ``Stacked`` leaf unstacks along its layer axis)."""
+    targets = leaf if isinstance(leaf, Stacked) else (leaf,)
+    values = value if isinstance(leaf, Stacked) else (value,)
+    if len(values) != len(targets):
+        raise ValueError(f"a leaf of {len(values)} layers for "
+                         f"{len(targets)}")
+    for t, v in zip(targets, values):
+        # numpy has no bfloat16: ml_dtypes' arrives as another type
+        src = _tensor(v) if v.dtype.name == "bfloat16" else torch.as_tensor(v)
+        if tuple(src.shape) != tuple(t.shape):
+            raise ValueError(f"leaf of shape {tuple(src.shape)} for a "
+                             f"parameter of shape {tuple(t.shape)}")
+        t.copy_(src)

@@ -318,9 +318,8 @@ class CoLLM:
                                               device=h1_seq.device),
                        enc_out=enc_out,
                        prefix_len=self.model.cfg.vision_tokens)
-        x, _, caches = self.model.run_segments(h1_seq, ctx, self.cloud_segs,
-                                               caches=caches,
-                                               collect_exits=False)
+        x, _, _, caches = self.model.run_segments(
+            h1_seq, ctx, self.cloud_segs, caches=caches, collect_exits=False)
         return self.model.logits(x[:, -1:]), caches
 
     # ------------------------------------------------------------------
@@ -367,9 +366,8 @@ class CoLLM:
         ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
                                               device=h1_seq.device),
                        valid_len=true_len)
-        x, _, caches = self.model.run_segments(h1_seq, ctx, self.cloud_segs,
-                                               caches=caches,
-                                               collect_exits=False)
+        x, _, _, caches = self.model.run_segments(
+            h1_seq, ctx, self.cloud_segs, caches=caches, collect_exits=False)
         logits = self.model.logits(x[:, true_len - 1:true_len])
         return logits, self.model.invalidate_cache_after(caches, true_len)
 

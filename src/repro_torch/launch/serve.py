@@ -7,7 +7,10 @@ synthetic prompts through the continuous-batching engine
         --dtype bfloat16 --kv-layout paged --kv-dtype int8
 
 Runs on ``--device cuda`` (the default; it fails when no card is present)
-or ``--device cpu``.  Weights are random, initialised from ``--seed``.
+or ``--device cpu``.  Weights are random, initialised from ``--seed``, or
+with ``--ckpt`` read from a checkpoint in the JAX package's format
+(``repro_torch.launch.train --ckpt`` writes one; so does the JAX
+package's trainer), cast to ``--dtype``.
 ``--arch`` is one of the dense decoders: ee-llm-7b, gemma3-12b (a
 1024-token sliding window in 40 of its 48 layers; prompts past 2048
 tokens take the chunked prefill path), command-r-35b, qwen1.5-110b or
@@ -94,8 +97,21 @@ from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
 from repro_torch.models.registry import build_model
 from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
 from repro_torch.serving.engine import ServingSystem, token_agreement
+from repro_torch.training.checkpoint import load_checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def load_model(cfg, *, device=None, dtype=torch.float32, seed: int = 0,
+               ckpt=None):
+    """``cfg`` on ``device`` in ``dtype``: initialised from ``seed``, then,
+    with ``ckpt``, its parameters read from that checkpoint (as the JAX
+    package's launcher initialises and then loads)."""
+    model = build_model(cfg, device=device, dtype=dtype, seed=seed)
+    if ckpt:
+        extra = load_checkpoint(ckpt, model, cfg)
+        print(f"loaded checkpoint {ckpt} {extra}")
+    return model
 
 
 def main(argv=None):
@@ -194,6 +210,8 @@ def main(argv=None):
                          "paged)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seeds the random weights and the prompts")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path (without .npz) to load after init")
     ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -251,8 +269,8 @@ def main(argv=None):
                  "--cloud-batch to use it")
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = build_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
-                        seed=args.seed)
+    model = load_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
+                       seed=args.seed, ckpt=args.ckpt)
     data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                       batch_size=1, seed=args.seed))
     prompts = [data.sample_tokens(args.prompt_len)

@@ -187,8 +187,12 @@ def _chunked_attention(q, k, v, qpos, kpos, *, causal, window, prefix_len,
                                   prefix_len)
             m_new = torch.maximum(m, logits.amax(-1))
             m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-            # in place: exp(-inf) is already the 0 JAX selects for masked
-            p = logits.sub_(m_safe[..., None]).exp_()
+            # exp(-inf) is already the 0 JAX selects for masked; in place
+            # unless autograd records (amax saved the logits)
+            if logits.requires_grad:
+                p = (logits - m_safe[..., None]).exp()
+            else:
+                p = logits.sub_(m_safe[..., None]).exp_()
             corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
             acc = acc * corr[..., None] + torch.einsum(
                 "bkgqs,bskd->bkgqd", p.to(v.dtype).float(), v[:, ks].float())

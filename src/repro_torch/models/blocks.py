@@ -2,7 +2,7 @@
 
     make_block(cfg, kind)                          -> parameters of ONE layer
     init_block(block, cfg, gen)                    -> the JAX distributions
-    block_forward(block, cfg, x, ctx, cache)       -> (x, cache)
+    block_forward(block, cfg, x, ctx, cache)       -> (x, aux, cache)
     block_decode(block, cfg, x, cache, ctx)        -> (x, cache)
     init_block_cache(cfg, batch, max_seq, window, kind=) -> cache of ONE layer
     init_block_cache_paged(cfg, num_pages, page_size, kind=, batch=) -> ditto
@@ -30,7 +30,7 @@ masked-out rows' KV and recurrent state as they were.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -236,17 +236,21 @@ def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
 
 def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
                   ctx: BlockCtx, cache: Optional[Cache] = None
-                  ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence forward; fills ``cache`` in place when given.  A
-    recurrent block starts from the state ``cache`` holds (as the JAX
-    package's ``state=cache``; its conv starts from zeros) and leaves the
-    state after ``x`` there, so ``x`` must be the exact prompt: a pad
-    would advance the state."""
+                  ) -> Tuple[torch.Tensor, Union[torch.Tensor, float],
+                             Optional[Cache]]:
+    """Full-sequence forward (training and prefill); fills ``cache`` in
+    place when given.  Returns (x, the block's auxiliary loss: the MoE
+    load-balance loss, a float32 scalar tensor, or 0.0 for any other
+    block, cache).  A recurrent block starts from the state ``cache``
+    holds (as the JAX package's ``state=cache``; its conv starts from
+    zeros) and leaves the state after ``x`` there, so ``x`` must be the
+    exact prompt: a pad would advance the state."""
+    aux = 0.0
     if block.kind in _RECURRENT:
         x, new = _RECURRENT[block.kind].forward(block, cfg, x, state=cache)
         if cache is not None:
             commit(cache, new)
-        return x, cache
+        return x, aux, cache
     h = _norm(x, block, cfg, "ln1")
     att, _ = attention_forward(
         block.attn, cfg, h, positions=ctx.positions, causal=ctx.causal,
@@ -265,10 +269,10 @@ def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
             build_cross_cache(block.cross, cfg, ctx.enc_out, cache["cross"])
     h2 = _norm(x, block, cfg, "ln2")
     if block.kind == MOE:
-        y, _ = moe_forward_local(block.moe, cfg, h2)
+        y, aux = moe_forward_local(block.moe, cfg, h2)
     else:
         y = _mlp(block.mlp, cfg, h2)
-    return x + y, cache
+    return x + y, aux, cache
 
 
 def block_decode(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,

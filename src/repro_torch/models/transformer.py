@@ -21,6 +21,12 @@ through ``vis_proj`` in front of the tokens, which attend to that prefix
 in both directions (the prefix-LM mask).  ``embed_inputs`` is the
 front-end of both; the serving engines take token prompts only, as the
 JAX package's do.
+
+Training runs ``forward_train`` (every head's logits) or
+``forward_train_hiddens`` (the hidden states the fused loss of
+``repro_torch.training.loss`` unembeds chunk by chunk): the whole stack
+with every block under activation checkpointing, and the MoE blocks'
+load-balance losses summed into ``aux_loss``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
 from repro_torch.models import cache_tree
@@ -112,6 +119,18 @@ def _init_final_norm(norm) -> None:
         norm["bias"].zero_()
     else:
         norm.zero_()                  # rms gains are (1 + scale)
+
+
+def _run_block(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,
+               ctx: BlockCtx, cache):
+    """``block_forward``, under activation checkpointing while autograd
+    records (training: the block's activations are recomputed in the
+    backward pass).  A block that writes a cache in place is never
+    recomputed."""
+    if cache is None and torch.is_grad_enabled():
+        return checkpoint(block_forward, block, cfg, x, ctx,
+                          use_reentrant=False)
+    return block_forward(block, cfg, x, ctx, cache=cache)
 
 
 def _apply_final_norm(norm, cfg: ModelConfig, x: torch.Tensor
@@ -240,7 +259,7 @@ class Model(nn.Module):
                        causal=False)
         with span("encode", x.device):
             for block in self.encoder.layers:
-                x, _ = block_forward(block, cfg, x, ctx)
+                x, _, _ = _run_block(block, cfg, x, ctx, None)
             return _apply_final_norm(self.encoder.norm, cfg, x)
 
     def embed_inputs(self, batch: Dict[str, torch.Tensor],
@@ -283,23 +302,29 @@ class Model(nn.Module):
                      seg_indices: Sequence[int],
                      caches: Optional[Caches] = None,
                      collect_exits: bool = True):
-        """Full-sequence execution of the given segments.
+        """Full-sequence execution of the given segments.  While autograd
+        records and no cache is given, each block runs under activation
+        checkpointing (``_run_block``).
 
-        Returns (x, exit_hiddens {1-based layer: hidden}, caches)."""
+        Returns (x, exit_hiddens {1-based layer: hidden}, the MoE blocks'
+        auxiliary losses summed (a float32 scalar tensor; 0.0 without a
+        MoE block), caches)."""
         cfg = self.cfg
         exit_set = set(cfg.exit_layers) if collect_exits else set()
         exit_hiddens: Dict[int, torch.Tensor] = {}
+        aux_total = 0.0
         with span("prefill", x.device):
             for si in seg_indices:
                 seg = self.segments[si]
                 sctx = dataclasses.replace(ctx, window=seg.window)
                 for j in range(seg.length):
                     cache = caches[si][j] if caches is not None else None
-                    x, _ = block_forward(self.block(si, j), cfg, x, sctx,
-                                         cache=cache)
+                    x, aux, _ = _run_block(self.block(si, j), cfg, x, sctx,
+                                           cache)
+                    aux_total = aux_total + aux
                 if seg.end in exit_set:
                     exit_hiddens[seg.end] = x
-        return x, exit_hiddens, caches
+        return x, exit_hiddens, aux_total, caches
 
     def decode_segments(self, x: torch.Tensor, ctx: BlockCtx,
                         seg_indices: Sequence[int], caches: Caches,
@@ -429,9 +454,34 @@ class Model(nn.Module):
         the encoder's output (what the edge uploads to the cloud once)."""
         seg_indices = seg_indices or self.all_segments()
         x, ctx = self.embed_inputs(batch, valid_len)
-        x, exit_hiddens, caches = self.run_segments(x, ctx, seg_indices,
-                                                    caches=caches)
+        x, exit_hiddens, _, caches = self.run_segments(x, ctx, seg_indices,
+                                                       caches=caches)
         return x, exit_hiddens, caches, ctx
+
+    def forward_train_hiddens(self, batch: Dict[str, torch.Tensor]
+                              ) -> Dict[str, Any]:
+        """Training forward that stops at the hidden states (no
+        unembedding): {"final": (B, S', d), "exits": {layer: (B, S', d)},
+        "aux_loss": float32 scalar, "prefix_len": P}, S' = P + S for a
+        vision prefix.  Pairs with ``multi_exit_loss_fused``."""
+        x, ctx = self.embed_inputs(batch)
+        x, exit_hiddens, aux, _ = self.run_segments(x, ctx,
+                                                    self.all_segments())
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+        return {"final": x, "exits": exit_hiddens, "aux_loss": aux,
+                "prefix_len": ctx.prefix_len}
+
+    def forward_train(self, batch: Dict[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+        """Full forward with every head's logits (multi-exit training):
+        {"logits": (B, S', V), "exit_logits": {layer: (B, S', V)},
+        "aux_loss", "prefix_len"}."""
+        out = self.forward_train_hiddens(batch)
+        return {"logits": self.logits(out["final"]),
+                "exit_logits": {l: self.exit_logits(l, h)
+                                for l, h in out["exits"].items()},
+                "aux_loss": out["aux_loss"],
+                "prefix_len": out["prefix_len"]}
 
     def _rows_pos(self, pos, b: int) -> torch.Tensor:
         """A scalar or per-row position as a (B,) int32 device tensor."""

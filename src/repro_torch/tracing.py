@@ -2,8 +2,10 @@
 
 ``span(name, device)`` marks a piece of work: the prefill of a partition
 (``prefill``), an encoder pass (``encode``), an sLSTM block's time loop
-(``slstm``), a decode block (``recurrent`` or ``attention``) and an exit
-pass (``exit``).  Under
+(``slstm``), a decode block (``recurrent`` or ``attention``), an exit
+pass (``exit``), and a train step's forward and backward passes
+(``gradients``, around the training forward's ``prefill``) and its
+AdamW update (``optimizer``).  Under
 ``torch.profiler`` it is a ``record_function`` range named ``PREFIX +
 name``, so a profile attributes the operators and kernels launched inside
 it to that work.  While ``timed(*names)`` is open, the spans it names also

@@ -141,7 +141,7 @@ def test_block_forward_and_decode(pair):
     jy, _, jc = jblocks.block_forward(
         jp, jcfg, "dense", jnp.asarray(x),
         jblocks.BlockCtx(positions=jnp.arange(10), window=w), cache=jc)
-    ty, tc = tblocks.block_forward(
+    ty, _, tc = tblocks.block_forward(
         tm.layers[1], tcfg, torch.from_numpy(x),
         tblocks.BlockCtx(positions=torch.arange(10), window=w), cache=tc)
     _close(ty, jy)
