@@ -191,15 +191,38 @@ exit code and no result line:
    repro_torch.launch.serve --smoke --ckpt`` on paged int8 KV with an
    int8 wire, as subprocesses: both exit 0 and the server prints its
    agreement line;
-14. the kernel table as one JSON line (launches: phases 3 to 13; each
-   kernel's other shapes under "shapes"), the ``nvidia-smi`` line, and
-   the status line ``{"ok": true, "device": {...}}``.
+14. the cloud mesh (``CollmConfig.cloud_mesh``): ranks started by
+   ``repro_torch.launch.mesh.spawn``, sharing the card over gloo (NCCL
+   when every rank has a card of its own), each holding its share of the
+   weights, with every rank's launch counters set to 0 before and read
+   after: (a) tiny-ee-tp (4 heads over 2) in float32 over meshes (1, 2),
+   (1, 4) and (2, 2): ``generate_multi`` on dense, paged and int8 pages
+   and with 4-token drafts, ``generate`` with prefix sharing and with a
+   recompute preemption, at a split θ: every rank's streams equal the
+   single-device card's and the CPU's, and every rank launches the ring,
+   both paged kernels, the int8 page writes and ``exit_heads``; (b)
+   ee-llm-7b at full width and depth (32 layers, bf16) over (1, 2): two
+   clients of 512 tokens, 32 new, split θ, dense and paged int8 KV
+   (agreement with the single device reported), θ = 1 in float32 (8 new
+   tokens) equal to the single device, tokens/s, each rank's parameter
+   bytes equal to ``estimate_param_bytes_per_device``; (c) command-r-35b
+   at full width and depth (40 layers, bf16) over (1, 2), after a
+   single-device run of the same weights in a process of its own: two
+   clients of 256 tokens, 16 new, cloud and collm at a split θ, dense and
+   paged KV: agreement, tokens/s, peak memory a rank, each collective's
+   calls and host time a token.  (a) runs beside phase 13, (b) and (c)
+   alone after it;
+15. the kernel table as one JSON line (launches: phases 3 to 14; each
+   kernel's other shapes under "shapes", phase 14's per-rank ones among
+   them), the ``nvidia-smi`` line, and the status line ``{"ok": true,
+   "device": {...}}``.
 
 Phases 1 and 2's kernel rows run alone on the card.  Then the serving
 phases run in four processes at once, each group's phases in turn: 3-6
 here; 7 (started with phase 3's split θ); 8, 10 and 9; phase 2's small
 models, 11 and 12 (``GROUPS``).  Phase 13 needs most of the card and
-runs in a fifth process once the other four have ended.  Each process
+runs in a fifth process once the other four have ended, with phase 14
+(a) beside it; phase 14 (b) and (c) follow alone.  Each process
 counts its own launches and the script adds them up; the groups' output
 follows phase 6's.
 
@@ -1752,6 +1775,52 @@ def check_prefixed_kernel_shapes(dev, gen, rows) -> None:
                      check_exit_quant(dev, gen, cases),
                      check_exit_heads(dev, gen)])
         del cases
+    torch.cuda.empty_cache()
+
+
+def rank_config(cfg, model: int):
+    """The shapes one rank of a model axis of ``model`` gives the kernels:
+    its query and KV heads (``head_split``) and its vocabulary slice."""
+    from repro_torch.launch.sharding import Axis
+    from repro_torch.models.attention import head_split
+    s = head_split(cfg, Axis(0, model))
+    return dataclasses.replace(
+        cfg, name=f"{cfg.name} rank of (1, {model})", n_heads=s.heads,
+        n_kv_heads=s.kv_heads, head_dim=cfg.resolved_head_dim,
+        vocab_size=cfg.vocab_size // model).validate()
+
+
+def check_mesh_kernel_shapes(dev, gen, rows) -> None:
+    """Phase 2 again at the shapes each rank of phase 14 gives the kernels:
+    ee-llm-7b over (1, 2) (16 of 32 heads, G = 1, d = 128; the exit heads
+    over a 16000 x 4096 slice), command-r-35b over (1, 2) (32 heads over
+    4, G = 8, d = 128; a 128000 x 8192 slice) and tiny-ee-tp over (1, 4)
+    (one head over one, d = 32): both attention kernels (128-token pages
+    for the two full-width models, 16 for tiny-ee-tp), the int8 page
+    writes of the rank's KV heads and, at full width, the exit kernels.
+    Each result is kept beside the ee-llm-7b row of its kernel under
+    "shapes", by label."""
+    from repro_torch.configs.registry import get_config
+    n_seq = N_FILLS[1] + MAX_NEW + 8
+    for name in (CFG_NAME_14B, COMMAND_R):
+        cfg = rank_config(get_config(name), 2)
+        with shapes_of(cfg, N_FILLS, n_seq, G_PAGE):
+            cases = exit_cases(dev, gen)
+            keep_shapes(rows, f"{cfg.name}: {cfg.n_heads} heads over "
+                        f"{cfg.n_kv_heads} of d={cfg.resolved_head_dim}; "
+                        f"V={cfg.vocab_size} d={cfg.d_model}",
+                        [check_decode_attn(dev, gen),
+                         *check_decode_attn_paged(dev, gen),
+                         check_kv_write(dev, gen),
+                         check_exit_quant(dev, gen, cases),
+                         check_exit_heads(dev, gen)])
+            del cases
+    cfg = rank_config(tiny_ee_tp_config(), 4)
+    with shapes_of(cfg, (40, 200), 256, PAGE_SIZE):
+        keep_shapes(rows, f"{cfg.name}: 1 head over 1 of d=32",
+                    [check_decode_attn(dev, gen),
+                     *check_decode_attn_paged(dev, gen),
+                     check_kv_write(dev, gen)])
     torch.cuda.empty_cache()
 
 
@@ -3888,6 +3957,570 @@ def phase_13(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the cloud mesh (ranks on torch.distributed)
+# ---------------------------------------------------------------------------
+MESHES_14A = ((1, 2), (1, 4), (2, 2))   # (a): tiny-ee-tp, float32
+COMMAND_R = "command-r-35b"              # (c), at full width and depth
+C_PROMPT, C_NEW = 256, 16                # (c): prompt tokens, new tokens
+B_F32_NEW = 8                            # (b): new tokens of the f32 check
+MESH_KERNELS = ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
+                "quantize_kv_write", "exit_heads")
+DEADLINE_14 = 420                        # seconds a spawn of ranks may take
+CFG_NAME_14B = "ee-llm-7b"               # (b), at full width and depth
+LOGIT_TOL_14 = 0.1                       # (b), (c): teacher-forced bf16
+                                         # logits, mesh against single
+                                         # device: max |diff| / max |logit|
+
+
+def wide_theta(stats) -> float:
+    """A threshold in the widest gap between the l_ee1 confidences of a
+    run's middle half: about half its ticks exit early, and rounding that
+    differs between the card, the CPU and the ranks' merged exit heads
+    moves no confidence across it."""
+    c = sorted(l1 for l1, _ in stats.confidences)
+    lo, hi = len(c) // 4, max(len(c) // 4 + 1, 3 * len(c) // 4)
+    i = max(range(lo, hi), key=lambda j: c[j + 1] - c[j])
+    return (c[i] + c[i + 1]) / 2
+
+
+def tiny_ee_tp_config():
+    """The JAX package's tensor-parallel test model (``tests/test_cloud_tp.py``):
+    tiny-ee's shape, 4 heads over 2 KV heads, so at model = 4 each rank
+    keeps one query head and ``wk`` / ``wv`` stay whole."""
+    return dataclasses.replace(tiny_ee_config(), name="tiny-ee-tp")
+
+
+def mesh_scenarios():
+    """Phase 14 (a)'s paths: name -> (how it runs, CollmConfig fields)."""
+    return {"dense": ("multi", {}),
+            "paged": ("multi", {"kv_layout": "paged"}),
+            "int8": ("multi", {"kv_layout": "paged", "kv_dtype": "int8"}),
+            "spec4": ("multi", {"speculative": True, "spec_k": 4}),
+            "prefix": ("prefix", dict(kv_layout="paged", page_size=8,
+                                      chunked_prefill=True,
+                                      prefix_share=True)),
+            "preempt": ("preempt", dict(kv_layout="paged",
+                                        preemption="recompute"))}
+
+
+def mesh_prompts():
+    rng = np.random.default_rng(SEED)
+    multi = [rng.integers(0, 256, n) for n in (7, 12, 9)]
+    sysp = rng.integers(0, 256, 20)
+    prefix = [np.concatenate([sysp, rng.integers(0, 256, n)]) for n in (5, 7)]
+    preempt = [rng.integers(0, 256, n) for n in (7, 9)]
+    return multi, prefix, preempt
+
+
+def mesh_scenario(model, theta, name, dims=None) -> tuple:
+    """One of ``mesh_scenarios`` on ``model`` (a rank's share under
+    ``dims``): (streams, exits, prefix-hit tokens, preemptions)."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    kind, ckw = mesh_scenarios()[name]
+    system = ServingSystem(model, CollmConfig(theta=theta, cloud_mesh=dims,
+                                              **ckw))
+    multi, prefix, preempt = mesh_prompts()
+    if kind == "multi":
+        r = system.generate_multi(multi, 8)
+    elif kind == "prefix":
+        r = system.generate(prefix, 8)
+    else:
+        r = system.generate(preempt, 8, num_slots=2,
+                            preempt_schedule=[(2, 0)])
+    st = r["stats"]
+    return (r["tokens"], st.exits_l1 + st.exits_l2, st.prefix_hit_tokens,
+            st.preemptions)
+
+
+def rank_setup():
+    """A rank's card, float32 products exact (as ``setup``)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def rank_14a(rank, world, dims, state, theta) -> dict:
+    """Phase 14 (a) on one rank of ``dims``: its share of tiny-ee-tp from
+    the whole model's ``state``, every path, its own launches."""
+    from repro_torch.launch.mesh import make_cloud_mesh
+    from repro_torch.models.transformer import Model
+    rank_setup()
+    mesh = make_cloud_mesh(dims)
+    model = Model(tiny_ee_tp_config(), device=mesh.device,
+                  axis=mesh.model_axis).load_whole(state)
+    ops = kernel_ops()
+    reset(ops)
+    runs = {name: mesh_scenario(model, theta, name, dims)
+            for name in mesh_scenarios()}
+    return {"runs": runs, "launches": counted(ops),
+            "mesh": mesh.describe(), "device": str(mesh.device)}
+
+
+def phase_14a(dev, ops) -> dict:
+    """Phase 14 (a): tiny-ee-tp in float32 over meshes (1, 2), (1, 4) and
+    (2, 2), ranks sharing the card: every path's streams equal the
+    single-device card's and the CPU's, at a split θ (exits fire, so the
+    merged exit heads decide), and every rank launches the ring, both
+    paged kernels, the int8 page writes and ``exit_heads``."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.transformer import Model
+    reset(ops)
+    t0 = time.perf_counter()
+    cfg = tiny_ee_tp_config()
+    cpu = Model(cfg, device="cpu").init(torch.Generator().manual_seed(SEED))
+    gpu = Model(cfg, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    full = ServingSystem(cpu, CollmConfig(theta=1.0)).generate_sequential(
+        mesh_prompts()[0], 8)
+    theta = wide_theta(full["stats"])
+    want = {name: mesh_scenario(cpu, theta, name)
+            for name in mesh_scenarios()}
+    one = {name: mesh_scenario(gpu, theta, name) for name in mesh_scenarios()}
+    check(one == want, "14 (a): the card's single-device runs differ from "
+          "the CPU's")
+    check(want["prefix"][2] > 0 and want["preempt"][3] == 1
+          and want["dense"][1] > 0,
+          "14 (a): no prefix hits, preemption or exits")
+    print(f"14 (a) tiny-ee-tp float32, theta {theta:.6f}: single device "
+          f"card == CPU in {len(want)} paths (exits {want['dense'][1]}, "
+          f"prefix hits {want['prefix'][2]})")
+    got = counted(ops)
+    state = cpu.state_dict()
+    for dims in MESHES_14A:
+        t1 = time.perf_counter()
+        outs = spawn(rank_14a, dims[0] * dims[1], device="cuda",
+                     timeout=DEADLINE_14, args=(dims, state, theta))
+        for rank, out in enumerate(outs):
+            check(out["runs"] == want,
+                  f"14 (a) {dims}: rank {rank}'s runs differ from the "
+                  f"single device's")
+            for name in MESH_KERNELS:
+                check(out["launches"][name] > 0,
+                      f"14 (a) {dims}: rank {rank} launched no {name}")
+            got = total(got, out["launches"])
+        print(f"14 (a) {outs[0]['mesh']} on {outs[0]['device']}...: "
+              f"{len(outs)} ranks x {len(want)} paths == single device; "
+              f"rank 0 launches {outs[0]['launches']} "
+              f"({time.perf_counter() - t1:.1f} s)")
+    print(f"phase 14 (a) launches: {got} in {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def timed_generate(system, prompts, max_new, **kw):
+    sync()
+    t0 = time.perf_counter()
+    r = system.generate(prompts, max_new, **kw)
+    sync()
+    r["seconds"] = time.perf_counter() - t0
+    return r
+
+
+def mesh_runs(model, prompts, max_new, theta, runs, dims=None) -> dict:
+    """``runs`` ({label: (mode, CollmConfig fields)}) of ``model`` at
+    ``theta`` with a float16 wire, each timed: {label: (streams,
+    tokens/s, exits, cloud requests)}."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    out = {}
+    for label, (mode, ckw) in runs.items():
+        system = ServingSystem(model, CollmConfig(theta=theta,
+                                                  cloud_mesh=dims, **ckw))
+        r = timed_generate(system, prompts, max_new, mode=mode,
+                           num_slots=len(prompts))
+        st = r["stats"]
+        out[label] = (r["tokens"], st.tokens / r["seconds"],
+                      st.exits_l1 + st.exits_l2, st.cloud_requests)
+    return out
+
+
+def ee_runs():
+    return {"dense": ("collm", {}),
+            "paged-int8": ("collm", dict(kv_layout="paged", kv_dtype="int8",
+                                         page_size=G_PAGE))}
+
+
+def f32_runs():
+    return {"dense": ("collm", {"wire_format": "float32"})}
+
+
+def rank_bytes(model) -> int:
+    """Device bytes behind the model's parameters (their storages: a
+    parameter that viewed a whole tensor would count it all)."""
+    return sum(p.untyped_storage().nbytes() for p in model.parameters())
+
+
+def estimate_bytes(cfg, dims, itemsize) -> float:
+    from repro_torch.bridge import param_leaves
+    from repro_torch.launch.sharding import (AXES, MeshShape,
+                                             estimate_param_bytes_per_device)
+    return estimate_param_bytes_per_device(
+        param_leaves(cfg, itemsize), MeshShape(dims, AXES), False,
+        cfg.resolved_head_dim)
+
+
+def forced(model, prompts, streams, logits=True) -> dict:
+    """Teacher-forced heads of ``model`` on a run's ``streams``: one
+    forward of each client's prompt and its stream but the last token,
+    read at the T positions that chose the stream's tokens.  On the CPU, a
+    list with one entry a client: "margin" (heads, T), each head's top-2
+    logit margin, the exit layers' heads first, then the final one;
+    "tok", "conf" (exits, T), the ``exit_heads`` kernel's merged token and
+    confidence; with ``logits``, "logits" (heads, T, V) in bf16 (what the
+    heads compute in).  Every rank of a mesh runs it (its collectives)."""
+    from repro_torch.core.exits import evaluate_exits
+    layers = tuple(sorted(model.cfg.exit_layers))
+    norms = torch.stack([model.exit_norms[str(l)] for l in layers])
+    out = {"margin": [], "tok": [], "conf": [], "logits": []}
+    with torch.no_grad():
+        for p, s in zip(prompts, streams):
+            seq = np.concatenate([np.asarray(p, np.int64),
+                                  np.asarray(s[:-1], np.int64)])
+            h = model.forward_train_hiddens(
+                {"tokens": torch.as_tensor(seq, device=model.device)[None]})
+            at = slice(len(p) - 1, len(seq))
+            hs = [h["exits"][l][0, at] for l in layers]
+            lg = torch.stack(
+                [model.exit_logits(l, x) for l, x in zip(layers, hs)]
+                + [model.logits(h["final"][0, at])]).to(torch.bfloat16)
+            top = lg.float().topk(2, dim=-1).values
+            out["margin"].append((top[..., 0] - top[..., 1]).cpu())
+            if logits:
+                out["logits"].append(lg.cpu())
+            decs, _ = evaluate_exits(hs, model.unembed_weight(), norms,
+                                     model.cfg.norm_eps,
+                                     axis=model.vocab_axis)
+            out["tok"].append(torch.stack([d.token for d in decs]).cpu())
+            out["conf"].append(torch.stack([d.confidence for d in decs])
+                               .float().cpu())
+    return out
+
+
+def head_names(cfg) -> list:
+    return [f"exit {l}" for l in sorted(cfg.exit_layers)] + ["final"]
+
+
+def hold_forced(label, cfg, ref, got) -> None:
+    """A rank's teacher-forced heads ``got`` against the single device's
+    ``ref`` on the same tokens (``forced``).  Each head's logits lie
+    within ``LOGIT_TOL_14`` of its largest |logit| (a vocabulary offset,
+    or a rank reading another rank's heads, moves them by about that
+    largest |logit|).  With e = that head's largest difference plus one
+    bf16 rounding of its largest logit (the kernel's logits are not
+    rounded to bf16), the exit kernel's merged log-confidence lies
+    within 2 e of the single device's (the max logit and the lse each
+    move at most e), and its token is the single device's wherever the
+    single device's top-2 margin exceeds 2 e."""
+    ref_l, got_l = (torch.cat(f["logits"], 1).float() for f in (ref, got))
+    ref_c, got_c = (torch.cat(f["conf"], 1).log() for f in (ref, got))
+    ref_t, got_t = (torch.cat(f["tok"], 1) for f in (ref, got))
+    margin = torch.cat(ref["margin"], 1)
+    v = ref_l.shape[-1]
+    for k, name in enumerate(head_names(cfg)):
+        big = ref_l[k].abs().max().item()
+        d = (got_l[k] - ref_l[k]).abs().max().item()
+        roll = (ref_l[k].roll(v // 2, -1) - ref_l[k]).abs().max().item()
+        line = (f"  {label} {name}: teacher-forced logits max |diff| "
+                f"{d:.6g} = {d / big:.6g} of max |logit| {big:.6g} (limit "
+                f"{LOGIT_TOL_14}; shifted by V/2: {roll / big:.6g})")
+        check(d <= LOGIT_TOL_14 * big,
+              f"14 {label} {name}: the mesh's logits differ from the "
+              f"single device's by {d / big:.4g} of the largest")
+        if k < len(cfg.exit_layers):
+            e = d + big * 2.0 ** -8
+            dlog = (got_c[k] - ref_c[k]).abs().max()
+            wide = margin[k] > 2 * e
+            same = got_t[k] == ref_t[k]
+            line += (f"; kernel max |diff log conf| {dlog.item():.6g} "
+                     f"(limit {2 * e:.6g}), tokens equal {int(same.sum())}/"
+                     f"{same.numel()}, at {int(wide.sum())} margins above "
+                     f"{2 * e:.6g}: {int(same[wide].sum())}")
+            check(dlog.item() <= 2 * e and bool(same[wide].all()),
+                  f"14 {label} {name}: the mesh's exit kernel differs from "
+                  f"the single device's")
+        print(line)
+
+
+def first_splits(label, cfg, theta, ref_runs, ref_forced, runs) -> None:
+    """For each stream of ``runs`` that differs from the single device's
+    (``ref_runs``), the single device's top-2 logit margins and exit
+    confidences at the first token that differs (``ref_forced``: ``forced``
+    on each of its runs' streams, through the model's float-KV forward
+    whatever the run's KV layout): near ties, or confidences near θ,
+    explain a bf16 split; wide margins would not."""
+    names = head_names(cfg)
+    for run, (toks, *_) in runs.items():
+        for c, (a, b) in enumerate(zip(toks, ref_runs[run][0])):
+            if a == b:
+                continue
+            i = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            f = ref_forced[run]
+            if i == len(b):         # the single device's stream ended
+                print(f"  {label} {run} client {c}: {len(a)} tokens for "
+                      f"the single device's {len(b)}")
+                continue
+            m = ", ".join(f"{n} {f['margin'][c][k, i].item():.4g}"
+                          for k, n in enumerate(names))
+            conf = ", ".join(f"{n} {f['conf'][c][k, i].item():.4f}"
+                             for k, n in enumerate(names[:-1]))
+            print(f"  {label} {run} client {c}: first differs at token {i} "
+                  f"({a[i] if i < len(a) else '-'} for {b[i]}); single "
+                  f"device's top-2 "
+                  f"margins {m}; exit confidences {conf} (theta "
+                  f"{theta:.6f})")
+
+
+def rank_14b(rank, world, cfg, prompts, theta, max_new, streams) -> dict:
+    """Phase 14 (b) on one rank of (1, 2): its share of ee-llm-7b (all 32
+    layers) in bf16 at ``theta`` on dense and paged int8 KV, its heads
+    teacher-forced on the single device's dense ``streams``, then in
+    float32 at θ = 1."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_cloud_mesh
+    from repro_torch.models.registry import build_model
+    rank_setup()
+    dims = (1, world)
+    mesh = make_cloud_mesh(dims)
+    ops = kernel_ops()
+    reset(ops)
+    sharding.reset_counts()
+    model = build_model(cfg, device=mesh.device, dtype=torch.bfloat16,
+                        seed=SEED, axis=mesh.model_axis)
+    out = {"mesh": mesh.describe(), "bytes": rank_bytes(model),
+           "estimate": estimate_bytes(cfg, dims, 2)}
+    out["bf16"] = mesh_runs(model, prompts, max_new, theta, ee_runs(), dims)
+    out["forced"] = forced(model, prompts, streams, logits=rank == 0)
+    del model
+    free()
+    model = build_model(cfg, device=mesh.device, dtype=torch.float32,
+                        seed=SEED, axis=mesh.model_axis)
+    out["f32"] = mesh_runs(model, prompts, B_F32_NEW, 1.0, f32_runs(), dims)
+    out["launches"] = counted(ops)
+    out["collectives"] = dict(sharding.COUNTS)
+    out["peak_gib"] = peak_gib()
+    return out
+
+
+def print_mesh_runs(label, runs) -> None:
+    for name, (toks, tps, exits, cloud) in runs.items():
+        print(f"  {label} {name}: {tps:.2f} tokens/s, exits {exits}, cloud "
+              f"requests {cloud}")
+
+
+def phase_14b(dev, ops) -> dict:
+    """Phase 14 (b): ee-llm-7b at full width and depth over (1, 2)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingSystem
+    t0 = time.perf_counter()
+    cfg = get_config(CFG_NAME_14B)
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, PROMPT_LEN)
+               for _ in range(CLIENTS)]
+    reset(ops)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    r = ServingSystem(model, CollmConfig(theta=1.0)).generate(
+        prompts, MAX_NEW, num_slots=CLIENTS)
+    theta = split_theta(r["stats"])
+    one = mesh_runs(model, prompts, MAX_NEW, theta, ee_runs())
+    one_forced = {name: forced(model, prompts, one[name][0],
+                               logits=name == "dense") for name in one}
+    del model
+    free()
+    model = build_model(cfg, device=dev, dtype=torch.float32, seed=SEED)
+    one32 = mesh_runs(model, prompts, B_F32_NEW, 1.0, f32_runs())
+    del model
+    free()
+    got = counted(ops)
+    print(f"14 (b) {cfg.name} {cfg.n_layers} layers d={cfg.d_model}, "
+          f"{CLIENTS} clients x {PROMPT_LEN} tokens, theta {theta:.6f}: "
+          f"single device")
+    print_mesh_runs("single", one)
+    print_mesh_runs("single f32 theta=1", one32)
+    outs = spawn(rank_14b, 2, device="cuda", timeout=DEADLINE_14,
+                 args=(cfg, prompts, theta, MAX_NEW, one["dense"][0]))
+    hold_forced("(b) dense", cfg, one_forced["dense"], outs[0]["forced"])
+    for rank, out in enumerate(outs):
+        print(f"14 (b) rank {rank} {out['mesh']}: parameters "
+              f"{out['bytes'] / 1e9:.3f} GB (estimate "
+              f"{out['estimate'] / 1e9:.3f} GB), peak {out['peak_gib']:.2f} "
+              f"GiB, collectives {out['collectives']}")
+        check(out["bytes"] == out["estimate"],
+              f"14 (b) rank {rank}: its parameters are not the estimate")
+        check(out["f32"]["dense"][0] == one32["dense"][0],
+              f"14 (b) rank {rank}: float32 theta=1 differs from the "
+              f"single device")
+        for name in ee_runs():
+            print(f"  rank {rank} {name}: agreement with the single device "
+                  f"{agreement(out['bf16'][name][0], one[name][0])}")
+        print_mesh_runs(f"rank {rank}", out["bf16"])
+        first_splits(f"(b) rank {rank}", cfg, theta, one, one_forced,
+                     out["bf16"])
+        for name in ("decode_attn", "decode_attn_paged_int8",
+                     "quantize_kv_write", "exit_heads"):
+            check(out["launches"][name] > 0,
+                  f"14 (b) rank {rank} launched no {name}")
+        got = total(got, out["launches"])
+    check(outs[0]["bf16"]["dense"][0] == outs[1]["bf16"]["dense"][0],
+          "14 (b): the ranks' streams differ")
+    print(f"14 (b) float32 theta=1 over (1, 2) == single device: True; "
+          f"{time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def c_runs():
+    return {"cloud dense": ("cloud", {}),
+            "cloud paged": ("cloud", dict(kv_layout="paged",
+                                          page_size=G_PAGE)),
+            "collm dense": ("collm", {}),
+            "collm paged": ("collm", dict(kv_layout="paged",
+                                          page_size=G_PAGE))}
+
+
+def c_config():
+    """command-r-35b at full width and depth (every cut: none)."""
+    from repro_torch.configs.registry import get_config
+    return get_config(COMMAND_R)
+
+
+def c_prompts(cfg):
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, cfg.vocab_size, C_PROMPT)
+            for _ in range(CLIENTS)]
+
+
+def rank_14c_single(rank, world, cfg, prompts, max_new) -> dict:
+    """Phase 14 (c)'s single-device run, in a process of its own: θ = 1
+    (equal to cloud) for the split θ, then ``c_runs`` at it."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServingSystem
+    rank_setup()
+    ops = kernel_ops()
+    reset(ops)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device="cuda", dtype=torch.bfloat16, seed=SEED)
+    sync()
+    init_s = time.perf_counter() - t0
+    r = ServingSystem(model, CollmConfig(theta=1.0)).generate(
+        prompts, max_new, num_slots=len(prompts))
+    theta = split_theta(r["stats"])
+    runs = mesh_runs(model, prompts, max_new, theta, c_runs())
+    check(r["tokens"] == runs["cloud dense"][0],
+          "14 (c): collm theta=1 differs from cloud on one device")
+    heads = {name: forced(model, prompts, runs[name][0],
+                          logits=name == "cloud dense") for name in runs}
+    return {"theta": theta, "runs": runs, "forced": heads,
+            "bytes": rank_bytes(model),
+            "init_s": init_s, "launches": counted(ops),
+            "peak_gib": peak_gib()}
+
+
+def rank_14c(rank, world, cfg, prompts, max_new, theta, streams) -> dict:
+    """Phase 14 (c) on one rank of (1, 2): its share of command-r-35b
+    (built one rank after the other, so that one rank's whole-parameter
+    draws never meet the other's), ``c_runs`` at ``theta``, the
+    collectives' counts and host seconds, then its heads teacher-forced
+    on the single device's cloud ``streams``."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.mesh import make_cloud_mesh, one_at_a_time
+    from repro_torch.models.registry import build_model
+    rank_setup()
+    dims = (1, world)
+    mesh = make_cloud_mesh(dims)
+    ops = kernel_ops()
+    t0 = time.perf_counter()
+    model = one_at_a_time(mesh, lambda: build_model(
+        cfg, device=mesh.device, dtype=torch.bfloat16, seed=SEED,
+        axis=mesh.model_axis))
+    init_s = time.perf_counter() - t0
+    reset(ops)
+    sharding.reset_counts()
+    runs = mesh_runs(model, prompts, max_new, theta, c_runs(), dims)
+    out = {"mesh": mesh.describe(), "runs": runs, "init_s": init_s,
+           "bytes": rank_bytes(model),
+           "estimate": estimate_bytes(cfg, dims, 2),
+           "launches": counted(ops),
+           "collectives": dict(sharding.COUNTS),
+           "collective_s": dict(sharding.SECONDS)}
+    out["forced"] = forced(model, prompts, streams, logits=rank == 0)
+    out["peak_gib"] = peak_gib()
+    return out
+
+
+def phase_14c(dev, ops) -> dict:
+    """Phase 14 (c): command-r-35b at full width over (1, 2)."""
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    cfg = c_config()
+    prompts = c_prompts(cfg)
+    (one,) = spawn(rank_14c_single, 1, device="cuda",
+                   timeout=DEADLINE_14, args=(cfg, prompts, C_NEW))
+    print(f"14 (c) {cfg.name} {cfg.n_layers} layers d={cfg.d_model} heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} V={cfg.vocab_size}: single device "
+          f"{one['bytes'] / 1e9:.2f} GB initialised in {one['init_s']:.1f} "
+          f"s, peak {one['peak_gib']:.2f} GiB, theta {one['theta']:.6f}")
+    print_mesh_runs("single", one["runs"])
+    got = one["launches"]
+    outs = spawn(rank_14c, 2, device="cuda", timeout=DEADLINE_14,
+                 args=(cfg, prompts, C_NEW, one["theta"],
+                       one["runs"]["cloud dense"][0]))
+    hold_forced("(c) cloud", cfg, one["forced"]["cloud dense"],
+                outs[0]["forced"])
+    tokens = sum(len(t) for t in outs[0]["runs"]["collm dense"][0])
+    for rank, out in enumerate(outs):
+        print(f"14 (c) rank {rank} {out['mesh']}: parameters "
+              f"{out['bytes'] / 1e9:.3f} GB (estimate "
+              f"{out['estimate'] / 1e9:.3f} GB), initialised in "
+              f"{out['init_s']:.1f} s, peak {out['peak_gib']:.2f} GiB")
+        check(out["bytes"] == out["estimate"],
+              f"14 (c) rank {rank}: its parameters are not the estimate")
+        for name in c_runs():
+            print(f"  rank {rank} {name}: agreement with the single device "
+                  f"{agreement(out['runs'][name][0], one['runs'][name][0])}")
+        print_mesh_runs(f"rank {rank}", out["runs"])
+        first_splits(f"(c) rank {rank}", cfg, one["theta"], one["runs"],
+                     one["forced"], out["runs"])
+        runs_tokens = sum(len(t) for r in out["runs"].values() for t in r[0])
+        per = {k: f"{out['collectives'][k] / runs_tokens:.1f} calls, "
+                  f"{out['collective_s'][k] / runs_tokens * 1e3:.3f} ms"
+               for k in out["collectives"]}
+        print(f"  rank {rank} collectives a token: {per}")
+        for name in ("decode_attn", "decode_attn_paged", "exit_heads"):
+            check(out["launches"][name] > 0,
+                  f"14 (c) rank {rank} launched no {name}")
+        got = total(got, out["launches"])
+    for name in c_runs():
+        check(outs[1]["runs"][name][0] == outs[0]["runs"][name][0],
+              f"14 (c) {name}: the ranks' streams differ")
+    check(tokens > 0, "14 (c): no tokens")
+    print(f"14 (c): {time.perf_counter() - t0:.1f} s")
+    return got
+
+
+def phase_14(dev, ops) -> dict:
+    """Phase 14 (b) and (c), alone on the card after phase 13 and (a)."""
+    t0 = time.perf_counter()
+    print(f"phase 14 card: {nvidia_smi()}")
+    got = total(phase_14b(dev, ops), phase_14c(dev, ops))
+    print(f"phase 14 (b, c) launches: {got} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # the serving phases' groups, one process each
 # ---------------------------------------------------------------------------
 # After phase 2's timings, which have the card to themselves, the serving
@@ -3900,7 +4533,8 @@ def phase_13(dev, ops) -> dict:
 # phase) take turns in one process.
 GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
           "small-11-12": "phase 2's small models, phases 11 and 12",
-          "13": "phase 13"}
+          "13": "phase 13", "14a": "phase 14 (a)",
+          "14": "phase 14 (b) and (c)"}
 # Each process's share of the card's memory, GiB, over the most its phases
 # hold at once (3-6 12.5, 7 10.2, 8 28.1, 12 7.2): a process keeps what it
 # frees cached for itself, and without a cap the groups together filled
@@ -3908,7 +4542,13 @@ GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
 # stay ~5 GiB below the card's 79.  Phase 13 trains a float32 ee-llm-7b
 # (parameters, gradients and AdamW's two moments: 62.5 GB) and so runs
 # alone, after the others have ended.
-CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9, "13": 76}
+# Phase 14 (a)'s ranks (tiny-ee-tp, 2-4 processes of ~0.5 GiB each) run
+# beside phase 13; (b) and (c) (command-r-35b: two ranks of 30.3 GB, and
+# before them one process of 60.6 GB) have the card to themselves after
+# both.  The caps hold the group processes; ranks are processes of their
+# own.
+CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9, "13": 76,
+           "14a": 2, "14": 76}
 
 
 def cap_memory(group: str) -> None:
@@ -4102,6 +4742,10 @@ def run_group(group, dev, ops, theta, profile) -> dict:
                               ops))
     if group == "13":
         return phase_13(dev, ops)
+    if group == "14a":
+        return phase_14a(dev, ops)
+    if group == "14":
+        return phase_14(dev, ops)
     raise ValueError(f"no group {group!r}")
 
 
@@ -4206,7 +4850,9 @@ def main(argv=None) -> None:
     check_recurrent_kernel_shapes(dev, gen, rows)
     part = lap(part, "phase 2, phase 11's shapes")
     check_prefixed_kernel_shapes(dev, gen, rows)
-    lap(part, "phase 2, phase 12's shapes")
+    part = lap(part, "phase 2, phase 12's shapes")
+    check_mesh_kernel_shapes(dev, gen, rows)
+    lap(part, "phase 2, phase 14's per-rank shapes")
     for r in rows:
         print_time(r["name"], r)
         for shape in ("b8", "b1", "chunk", "r16"):
@@ -4236,18 +4882,21 @@ def main(argv=None) -> None:
             groups["7"] = Group("7", split)
     try:
         # with --profile every phase runs here: the profiles see no other
+        late = ("13", "14a", "14")
         if not args.profile:
             cap_memory("3-6")
             groups.update((g, Group(g)) for g in GROUPS
-                          if g not in ("7", "13"))
+                          if g not in ("7",) + late)
         t3 = time.perf_counter()
         launches = phases_3_to_6(dev, ops, start_7, args.profile)
         print(f"phases 3-6: {time.perf_counter() - t3:.1f} s")
         for g in GROUPS:
-            if g == "13" and not args.profile:
-                # alone on the card: started once every other group ended
+            if g in late and g not in groups and not args.profile:
+                # 13 and 14 (a) once every earlier group ended, then 14
+                # (b, c) alone on the card
                 torch.cuda.empty_cache()
-                groups[g] = Group(g)
+                for start in (("13", "14a") if g == "13" else (g,)):
+                    groups[start] = Group(start)
             launches = total(launches, run_group(g, dev, ops, theta[0], True)
                              if args.profile else groups[g].finish())
     finally:

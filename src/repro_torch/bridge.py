@@ -32,13 +32,14 @@ in order, an empty dict no leaf), ``treedef_str`` printing its
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import Axis
 from repro_torch.models.transformer import Model
 
 
@@ -135,6 +136,32 @@ def treedef_str(tree: Any) -> str:
     return f"PyTreeDef({_structure(tree)})"
 
 
+def param_leaves(cfg: ModelConfig, itemsize: int = 4):
+    """(path names, shape, itemsize) of every leaf of ``cfg``'s JAX
+    pytree, stacked segments included, in ``flatten``'s order: what
+    ``launch.sharding.estimate_param_bytes_per_device`` takes.  Float32
+    leaves (MoE routers, Mamba2's) keep 4 bytes; the rest ``itemsize``."""
+    model = Model(cfg, device="meta")
+    out = []
+
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            for key in sorted(tree):
+                walk(tree[key], path + (str(key),))
+        elif isinstance(tree, tuple) and not isinstance(tree, Stacked):
+            for i, sub in enumerate(tree):
+                walk(sub, path + (str(i),))
+        else:
+            first = tree[0] if isinstance(tree, Stacked) else tree
+            shape = (((len(tree),) if isinstance(tree, Stacked) else ())
+                     + tuple(first.shape))
+            size = 4 if path[-1] in ("router", "a_log", "dt_bias",
+                                     "d_skip") else itemsize
+            out.append((path, shape, size))
+    walk(jax_layout(model), ())
+    return out
+
+
 def to_numpy(leaf: Leaf) -> np.ndarray:
     """One leaf as the JAX package holds it: a parameter, or a ``Stacked``
     run on a leading layer axis (stacked on the parameters' device, then
@@ -171,17 +198,25 @@ def params_to_jax(model: nn.Module, cfg: Optional[ModelConfig] = None
     return map_leaves(jax_layout(model), to_numpy)
 
 
-def params_from_jax(np_params: Dict[str, Any],
-                    cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
+                    mesh=None, rank: int = 0) -> Dict[str, torch.Tensor]:
     """JAX params as numpy arrays -> the port's state dict (CPU tensors in
     the leaves' dtypes), leaf by leaf along ``jax_layout`` of a ``cfg``
     model on the meta device.  Raises unless the pytree and every leaf's
-    shape are that model's."""
+    shape are that model's.  With ``mesh`` (a ``(data, model)`` pair) the
+    state dict of rank ``rank``'s share, for ``Model(cfg, axis=)`` at that
+    rank's model index: each leaf sliced in numpy, so no whole tensor is
+    made."""
     model = Model(cfg, device="meta")
     layout = jax_layout(model)
     if treedef_str(np_params) != treedef_str(layout):
         raise ValueError(f"the parameters are not {cfg.name}'s pytree")
     names = {id(p): n for n, p in model.named_parameters()}
+    shards = {}
+    if mesh is not None:
+        m = int(mesh[1])
+        shards = Model(cfg, device="meta",
+                       axis=Axis(rank % m, m)).shards
     state = {}
     for leaf, value in zip(flatten(layout), flatten(np_params)):
         stacked = isinstance(leaf, Stacked)
@@ -191,8 +226,31 @@ def params_from_jax(np_params: Dict[str, Any],
             raise ValueError(f"{names[id(targets[0])]}: a leaf of shape "
                              f"{tuple(value.shape)} for {shape}")
         for t, v in zip(targets, values):
-            state[names[id(t)]] = _tensor(v)
+            name = names[id(t)]
+            if name in shards:
+                v = np.asarray(v)[shards[name][1]]
+            state[name] = _tensor(v)
     return state
+
+
+def rank_cutter(model: nn.Module) -> Callable[[Leaf, np.ndarray],
+                                               np.ndarray]:
+    """``cut(leaf, value)``: the part of a whole JAX leaf ``value`` that
+    ``leaf`` of ``model`` holds, for a sharded ``Model`` (a cloud-mesh
+    rank's share) its slice, else ``value`` itself.  Build it once a
+    load: it maps the model's parameters to their names."""
+    shards = getattr(model, "shards", None) or {}
+    names = {id(p): n for n, p in model.named_parameters()} if shards else {}
+
+    def cut(leaf: Leaf, value: np.ndarray) -> np.ndarray:
+        first = leaf[0] if isinstance(leaf, Stacked) else leaf
+        name = names.get(id(first))
+        if name not in shards:
+            return value
+        sl = shards[name][1]
+        return value[((slice(None),) + sl) if isinstance(leaf, Stacked)
+                     else sl]
+    return cut
 
 
 @torch.no_grad()

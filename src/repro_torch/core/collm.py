@@ -37,8 +37,18 @@ PyTorch.  A sampler other than greedy asks for the exit logits too
 (``with_logits=True``), which the kernels never write.  KV
 caches are updated in place, so a masked step never writes a masked-out row
 (the JAX package computes every row and merges the old ones back).
-``CoLLM`` raises for any ``CollmConfig`` field that selects a feature not
-ported yet, naming its ROADMAP queue item (``UNPORTED_FIELDS``).
+
+With ``CollmConfig.cloud_mesh = (data, model)`` each rank of a
+``torch.distributed`` process group of data * model ranks runs these
+steps on its share of the model (``serving/mesh_exec.py``): the model
+axis splits the heads, the FFNs and the vocabulary, and the exit heads
+run on the rank's vocabulary slice, their decisions merged over the
+model group.  The data axis splits the rows of a pooled cloud cache
+whose batch it divides: the cloud steps (``cloud_step``, its masked and
+ring forms, ``full_step``, ``invalidate_rows_after``) run the column's
+rows and gather the replies; single-row prefills run whole in every
+column.  The edge steps run on the same split weights, every row in
+every column.
 
 An encoder-decoder (whisper) or vision-prefix (paligemma) model goes
 through ``edge_prefill`` with its frames or patches and ``cloud_prefill``
@@ -56,14 +66,12 @@ from repro_torch.core.exits import (ExitDecision, evaluate_exit,
                                     evaluate_exits, first_confident_exit)
 from repro_torch.core.transport import FORMATS, dequantize, quantize
 from repro_torch.kernels.exit_quant.ops import exit_quant
+from repro_torch.launch.mesh import check_pair
+from repro_torch.launch.sharding import merge_exits
 from repro_torch.models.blocks import BlockCtx
-from repro_torch.models.transformer import Caches, Model
+from repro_torch.models.transformer import Caches, Model, mesh_ready
+from repro_torch.serving.mesh_exec import mesh_context
 from repro_torch.tracing import span
-
-
-# CollmConfig fields the port refuses, with the ROADMAP queue-A item that
-# ports each: the cloud mesh (A.11)
-UNPORTED_FIELDS = {"cloud_mesh": "A.11"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,13 +148,14 @@ class CollmConfig:
     # cache their greedy first token, skipping prefill entirely.  Requires
     # chunked_prefill=True (suffix-only compute) and greedy sampling.
     prefix_share: bool = False
-    # Cloud execution mesh (docs/sharding.md): a (data, model) device grid,
-    # e.g. (2, 4), the cloud partition's jitted steps compile against —
-    # params placed via role-based NamedShardings, the pooled batch-major
-    # cloud KV via cache_shardings, residual/logits constraints baked into
-    # the cloud traces.  None (the default) keeps the single-device path:
-    # no mesh, no policy, plain jax.jit.  Needs prod(cloud_mesh) visible
-    # devices (locally: XLA_FLAGS=--xla_force_host_platform_device_count=N).
+    # Cloud execution mesh (serving/mesh_exec.py): a (data, model) grid of
+    # ranks, e.g. (2, 4), one process each in a torch.distributed process
+    # group of data * model ranks (launch/mesh.py ``spawn``).  Each rank
+    # holds its share of the weights by the role rules of
+    # launch/sharding.py (heads, d_ff and vocabulary over ``model``), its
+    # KV heads and its data column's rows of the pooled cloud caches; the
+    # blocks sum their partial products over the model group.  None (the
+    # default) keeps the single-device path: no mesh, no placement.
     cloud_mesh: Optional[Tuple[int, int]] = None
 
 
@@ -186,17 +195,22 @@ class CoLLM:
             raise ValueError("prefix_share=True requires chunked_prefill="
                              "True (suffix-only compute needs chunk-"
                              "granular admission)")
-        default = CollmConfig()
-        changed = {name: item for name, item in UNPORTED_FIELDS.items()
-                   if getattr(ccfg, name) != getattr(default, name)}
-        if changed:
-            raise NotImplementedError(
-                f"CollmConfig fields {sorted(changed)} select features that "
-                f"are not ported yet ("
-                + ", ".join(f"{n}: ROADMAP {i}"
-                            for n, i in sorted(changed.items())) + ")")
+        if ccfg.cloud_mesh is not None:
+            data, _ = check_pair(ccfg.cloud_mesh)
+            if not mesh_ready(cfg):
+                raise NotImplementedError(
+                    f"CollmConfig fields ['cloud_mesh'] select features that "
+                    f"are not ported yet for {cfg.name} (cloud_mesh: ROADMAP "
+                    f"A.11b: the mesh serves dense and MoE decoders)")
+            if data > 1 and ccfg.preemption == "swap":
+                raise NotImplementedError(
+                    "swap preemption over a data axis: a resumed stream may "
+                    "land in another column, whose pool lacks its pages "
+                    "(ROADMAP A.11b); use preemption='recompute'")
         self.model = model
         self.ccfg = ccfg
+        self.mesh_ctx = mesh_context(self)
+        self.model = self.mesh_ctx.place(model)
         self.l_ee1 = cfg.exit_layers[0]
         self.l_ee2 = cfg.exit_layers[-1]
         self.edge_segs = model.edge_segments(self.l_ee2)
@@ -209,7 +223,20 @@ class CoLLM:
         return self.model.init_cache(batch, max_seq, self.edge_segs)
 
     def init_cloud_cache(self, batch: int, max_seq: int) -> Caches:
-        return self.model.init_cache(batch, max_seq, self.cloud_segs)
+        """Dense cloud caches of ``batch`` rows; under a data axis that
+        divides ``batch``, only the column's rows (``RowCaches``)."""
+        return self._cloud_rows(batch, lambda b: self.model.init_cache(
+            b, max_seq, self.cloud_segs))
+
+    def init_main_cache(self, batch: int, max_seq: int) -> Caches:
+        """The undivided model's dense caches (the cloud-deployment
+        baseline), rows as ``init_cloud_cache``."""
+        return self._cloud_rows(batch, lambda b: self.model.init_cache(
+            b, max_seq))
+
+    def _cloud_rows(self, batch: int, init) -> Caches:
+        lo, hi = self.mesh_ctx.rows(batch)
+        return self.mesh_ctx.row_caches(init(hi - lo), batch)
 
     def init_edge_cache_paged(self, batch: int, num_pages: int,
                               page_size: int) -> Caches:
@@ -222,10 +249,26 @@ class CoLLM:
 
     def init_cloud_cache_paged(self, batch: int, num_pages: int,
                                page_size: int) -> Caches:
-        return self.model.init_paged_cache(num_pages, page_size,
-                                           self.cloud_segs,
-                                           kv_dtype=self.ccfg.kv_dtype,
-                                           batch=batch)
+        """A paged cloud pool for ``batch`` rows: whole in every data
+        column, each column writing only its rows' pages."""
+        return self.mesh_ctx.row_caches(self.model.init_paged_cache(
+            num_pages, page_size, self.cloud_segs,
+            kv_dtype=self.ccfg.kv_dtype, batch=batch), batch)
+
+    def init_main_cache_paged(self, batch: int, num_pages: int,
+                              page_size: int) -> Caches:
+        return self.mesh_ctx.row_caches(self.model.init_paged_cache(
+            num_pages, page_size, kv_dtype=self.ccfg.kv_dtype, batch=batch),
+            batch)
+
+    def _rows_of(self, caches: Caches, b: int) -> Tuple[int, int]:
+        """[lo, hi) of a ``b``-row step's rows that ``caches`` hold."""
+        rows = getattr(caches, "rows", None)
+        if rows is None:
+            return 0, b
+        if rows[2] != b:
+            raise ValueError(f"a step of {b} rows on a pool of {rows[2]}")
+        return rows[0], rows[1]
 
     # ------------------------------------------------------------------
     # exits
@@ -237,7 +280,8 @@ class CoLLM:
         the (B, V) exit logits a sampler draws from (plain PyTorch)."""
         m = self.model
         d = evaluate_exit(hidden, m.unembed_weight(),
-                          m.exit_norms[str(layer)], m.cfg.norm_eps)
+                          m.exit_norms[str(layer)], m.cfg.norm_eps,
+                          m.vocab_axis)
         if with_logits:
             h2 = hidden.reshape(hidden.shape[0], hidden.shape[-1])
             d = d._replace(logits=m.exit_logits(layer, h2))
@@ -262,7 +306,8 @@ class CoLLM:
                 [exit_h[l] for l in layers], m.unembed_weight(),
                 torch.stack([m.exit_norms[str(l)] for l in layers]),
                 m.cfg.norm_eps,
-                None if quant_layer is None else layers.index(quant_layer))
+                None if quant_layer is None else layers.index(quant_layer),
+                m.vocab_axis)
         decisions = {}
         for l, d in zip(layers, decs):
             if with_logits:
@@ -466,9 +511,11 @@ class CoLLM:
         m = self.model
         shape = hidden.shape
         h2 = hidden.reshape(shape[0], shape[-1]).contiguous()
-        conf, tok, _, q, s = exit_quant(h2, m.unembed_weight(),
-                                        m.exit_norms[str(self.l_ee1)],
-                                        eps=m.cfg.norm_eps)
+        w = m.unembed_weight()
+        conf, tok, lse, q, s = exit_quant(h2, w,
+                                          m.exit_norms[str(self.l_ee1)],
+                                          eps=m.cfg.norm_eps)
+        conf, tok, _ = merge_exits(conf, tok, lse, m.vocab_axis, w.shape[0])
         return conf, tok, {"data": q.reshape(shape),
                            "scale": s.reshape(*shape[:-1], 1)}
 
@@ -483,12 +530,19 @@ class CoLLM:
         mask=False keep their caches bit for bit, because the mask is the
         KV write mask (dense rows write their old entry back, paged rows
         write to the trash page), so no merge of old and new caches is
-        needed (JAX's ``_caches_where_rows``)."""
+        needed (JAX's ``_caches_where_rows``).  Under a data axis that
+        splits ``caches``' rows, the column runs its rows and the logits
+        of every row are gathered."""
+        b = next(iter(upload.values())).shape[0]
+        lo, hi = self._rows_of(caches, b)
+        upload, pos, block_tbl, write_mask = _take_rows(
+            (upload, pos, block_tbl, write_mask), lo, hi, b)
         hidden = dequantize(upload, self.model.dtype)
         x, _, caches = self.model.decode_from_hidden(
             hidden, caches, pos, self.cloud_segs, block_tbl=block_tbl,
             write_mask=write_mask)
-        return self.model.logits(x)[:, 0], caches
+        logits = self.model.logits(x)[:, 0]
+        return self.mesh_ctx.gather_rows(logits, lo, b), caches
 
     def invalidate_rows_after(self, caches: Caches, cut: torch.Tensor,
                               block_tbl: Optional[torch.Tensor] = None
@@ -502,6 +556,8 @@ class CoLLM:
         models)."""
         cut = torch.as_tensor(cut, dtype=torch.int32,
                               device=self.model.device)
+        lo, hi = self._rows_of(caches, cut.shape[0])
+        dense_cut = cut[lo:hi]
         for layers in caches.values():
             for c in layers:
                 if "self" not in c:
@@ -509,7 +565,7 @@ class CoLLM:
                 node = c["self"]
                 if "kp" not in node:
                     p = node["pos"]
-                    p.masked_fill_(p >= cut[:, None], -1)
+                    p.masked_fill_(p >= dense_cut[:, None], -1)
                     continue
                 p = node["pos"]
                 thr = torch.full((p.shape[0],), torch.iinfo(torch.int32).max,
@@ -576,11 +632,16 @@ class CoLLM:
 
     def full_step(self, token: torch.Tensor, caches: Caches, pos,
                   block_tbl: Optional[torch.Tensor] = None):
-        """Undivided model — the cloud-deployment baseline."""
+        """Undivided model — the cloud-deployment baseline (rows split
+        over a data axis as ``cloud_step``)."""
+        b = token.shape[0]
+        lo, hi = self._rows_of(caches, b)
+        token, pos, block_tbl = _take_rows((token, pos, block_tbl), lo, hi,
+                                           b)
         x, _, caches = self.model.decode_step(token, caches, pos,
                                               collect_exits=False,
                                               block_tbl=block_tbl)
-        logits = self.model.logits(x)[:, 0]
+        logits = self.mesh_ctx.gather_rows(self.model.logits(x)[:, 0], lo, b)
         return logits.argmax(dim=-1).to(torch.int32), logits, caches
 
     # ------------------------------------------------------------------
@@ -700,3 +761,19 @@ class CoLLM:
                 "confidences": {l: d.confidence
                                 for l, d in out.decisions.items()}}
         return next_token, info, new_state
+
+
+def _take_rows(items, lo: int, hi: int, b: int):
+    """Rows [lo, hi) of each of ``items`` (tensors or packet dicts with
+    the batch first, a scalar position or None passing as it is); fresh
+    copies, so the kernels get aligned operands."""
+    if (lo, hi) == (0, b):
+        return items
+
+    def take(x):
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.dim() > 0:
+            return x[lo:hi].clone()
+        return x
+    return tuple(take(x) for x in items)

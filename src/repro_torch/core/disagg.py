@@ -146,8 +146,8 @@ class TwoTierRuntime:
     ``cloud_device``, each with its own stream and caches; only quantized
     packets move between them.  Both tiers run ``model``'s weights, so
     both devices are the one it lives on (two devices need the cloud
-    partition's weights placed there, with the multi-device port,
-    ROADMAP A.11)."""
+    partition's weights placed on the second: ROADMAP A.11b, after the
+    cloud mesh of A.11a)."""
 
     def __init__(self, model: Model, ccfg: CollmConfig, edge_device,
                  cloud_device):
@@ -160,14 +160,15 @@ class TwoTierRuntime:
                     dev.index is not None and dev.index != model.device.index):
                 raise ValueError(f"a tier on {dev}, the model on "
                                  f"{model.device}: tiers on two devices need "
-                                 f"the multi-device port (ROADMAP A.11)")
+                                 f"the two-device runtime (ROADMAP A.11b)")
         self.collm = CoLLM(model, ccfg)
 
     def lower_tiers(self, batch: int, max_seq: int):
-        """AOT lowering of both tiers onto meshes (``launch/sharding.py``)
-        is the multi-device port's (ROADMAP A.11)."""
-        raise NotImplementedError("lower_tiers needs the tensor-parallel "
-                                  "cloud partition (ROADMAP A.11)")
+        """Lowering both tiers onto meshes of their own (the JAX package's
+        AOT ``lower_tiers``) comes with the two-device runtime (ROADMAP
+        A.11b)."""
+        raise NotImplementedError("lower_tiers needs the two-device "
+                                  "runtime (ROADMAP A.11b)")
 
     # -- live serving ------------------------------------------------------
     def build(self) -> None:

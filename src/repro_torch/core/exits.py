@@ -10,6 +10,10 @@ never writes the (B, V) logits: its decisions carry ``logits=None``, and
 greedy decoding needs only the token and the confidence.
 ``evaluate_exits`` does the same for every exit of a tick in one
 ``exit_heads`` launch, which reads the unembedding once for all of them.
+Under a model axis that splits the vocabulary (the cloud mesh), each
+rank's launch covers its slice of the unembedding, and the ranks' (conf,
+token, lse) are merged into the whole vocabulary's
+(``sharding.merge_exits``).
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels.exit_head.ops import exit_head, exit_heads
+from repro_torch.launch.sharding import Axis, merge_exits
 
 
 class ExitDecision(NamedTuple):
@@ -27,26 +32,33 @@ class ExitDecision(NamedTuple):
 
 
 def evaluate_exit(hidden: torch.Tensor, weight: torch.Tensor,
-                  norm_scale: torch.Tensor, eps: float) -> ExitDecision:
-    """hidden: (B, d) (or (B, 1, d)) at an exit; weight: (V, d) unembedding;
+                  norm_scale: torch.Tensor, eps: float,
+                  axis: Optional[Axis] = None) -> ExitDecision:
+    """hidden: (B, d) (or (B, 1, d)) at an exit; weight: (V, d) unembedding
+    (a rank's (V / M, d) slice under the vocabulary's ``axis``);
     norm_scale: (d,) the exit's read-out norm -> ExitDecision."""
     h = hidden.reshape(hidden.shape[0], hidden.shape[-1]).contiguous()
-    conf, tok, _ = exit_head(h, weight, norm_scale, eps=eps)
+    conf, tok, lse = exit_head(h, weight, norm_scale, eps=eps)
+    conf, tok, _ = merge_exits(conf, tok, lse, axis, weight.shape[0])
     return ExitDecision(token=tok, confidence=conf)
 
 
 def evaluate_exits(hiddens: Sequence[torch.Tensor], weight: torch.Tensor,
                    norm_scales: torch.Tensor, eps: float,
-                   quant_exit: Optional[int] = None
+                   quant_exit: Optional[int] = None,
+                   axis: Optional[Axis] = None
                    ) -> Tuple[List[ExitDecision], Optional[tuple]]:
     """The E exits of one tick in one ``exit_heads`` launch: ``hiddens``
     E hiddens of (B, d) (or (B, 1, d)), ``norm_scales`` (E, d) ->
     (one ExitDecision an exit, in order; the int8 packet (q (B, d),
-    scale (B, 1)) of exit ``quant_exit``'s raw rows, or None)."""
+    scale (B, 1)) of exit ``quant_exit``'s raw rows, or None).  ``axis``
+    as ``evaluate_exit``; the packet comes from the whole hidden row, the
+    same on every rank."""
     h = torch.stack([x.reshape(x.shape[0], x.shape[-1]) for x in hiddens])
     out = exit_heads(h, weight, norm_scales, eps, quant_exit)
-    decisions = [ExitDecision(token=tok, confidence=conf)
-                 for conf, tok in zip(out[0], out[1])]
+    conf, tok, _ = merge_exits(out[0], out[1], out[2], axis, weight.shape[0])
+    decisions = [ExitDecision(token=t, confidence=c)
+                 for c, t in zip(conf, tok)]
     return decisions, (None if quant_exit is None else out[3:])
 
 

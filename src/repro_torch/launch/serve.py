@@ -76,6 +76,16 @@ over the paged pool:
         --channel sim --arrival-rate 20 --slo-ttft 0.5 --slo-tpot 0.05 \
         --preemption swap --adaptive
 
+``--cloud-tp N`` (with ``--cloud-dp M``, default 1) serves through the
+cloud mesh (``CollmConfig.cloud_mesh = (M, N)``): the launcher builds the
+kernels, then starts M * N ranks (``launch.mesh.spawn``; NCCL when every
+rank has a card of its own, else gloo), each holding its share of the
+weights; rank 0 prints the report and a ``mesh=`` line, and every run
+ends by checking that all ranks emitted the same streams:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --device cpu --cloud-tp 2 --cloud-dp 2 --clients 4
+
 Prints the run's stats and, for the collm and standalone modes, the token
 agreement against the undivided model (``--mode cloud``).
 """
@@ -83,31 +93,37 @@ from __future__ import annotations
 
 import argparse
 import math
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import (ARCHS, get_config,
                                           get_smoke_config)
+from repro_torch.launch.mesh import make_cloud_mesh, one_at_a_time, spawn
 from repro_torch.core.collm import CollmConfig
 from repro_torch.core.netsim import NetworkParams
 from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
 from repro_torch.core.workload import ArrivalProcess, arrival_times
 from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
 from repro_torch.models.registry import build_model
+from repro_torch.models.transformer import mesh_ready
 from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
 from repro_torch.serving.engine import ServingSystem, token_agreement
 from repro_torch.training.checkpoint import load_checkpoint
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+MESH_TIMEOUT_S = 1800.0     # a mesh run's ranks, and each collective
 
 
 def load_model(cfg, *, device=None, dtype=torch.float32, seed: int = 0,
-               ckpt=None):
+               ckpt=None, axis=None):
     """``cfg`` on ``device`` in ``dtype``: initialised from ``seed``, then,
     with ``ckpt``, its parameters read from that checkpoint (as the JAX
-    package's launcher initialises and then loads)."""
-    model = build_model(cfg, device=device, dtype=dtype, seed=seed)
+    package's launcher initialises and then loads); under a cloud-mesh
+    rank's model ``axis``, that rank's share."""
+    model = build_model(cfg, device=device, dtype=dtype, seed=seed,
+                        axis=axis)
     if ckpt:
         extra = load_checkpoint(ckpt, model, cfg)
         print(f"loaded checkpoint {ckpt} {extra}")
@@ -174,6 +190,13 @@ def main(argv=None):
                     help="edge draft length: ship up to k provisional "
                          "tokens per verification request (needs "
                          "--speculative; 1 = classic speculative path)")
+    ap.add_argument("--cloud-tp", type=int, default=0,
+                    help="model-axis size of the cloud mesh: ranks that "
+                         "split the heads, FFNs and vocabulary (0 = single "
+                         "device)")
+    ap.add_argument("--cloud-dp", type=int, default=1,
+                    help="data-axis (batch) size of the cloud mesh "
+                         "(needs --cloud-tp)")
     ap.add_argument("--cloud-batch", action="store_true",
                     help="multi-client mode: one engine per client, cloud "
                          "requests coalesced by the shared CloudBatcher")
@@ -267,10 +290,46 @@ def main(argv=None):
     if args.adaptive and args.cloud_batch:
         ap.error("--adaptive drives the single-engine scheduler; drop "
                  "--cloud-batch to use it")
+    if args.cloud_dp != 1 and not args.cloud_tp:
+        ap.error("--cloud-dp sizes the data axis of the cloud mesh; "
+                 "needs --cloud-tp")
+    if args.cloud_tp < 0 or args.cloud_dp < 1:
+        ap.error("--cloud-tp / --cloud-dp must be positive")
+    if args.cloud_tp and not mesh_ready(arch_cfg):
+        ap.error(f"--arch {args.arch}: the cloud mesh serves dense and MoE "
+                 f"decoders (recurrent and hybrid models: ROADMAP A.11b)")
+    if not args.cloud_tp:
+        return serve(args)
+    world = args.cloud_dp * args.cloud_tp
+    if args.device == "cuda":
+        from repro_torch.kernels import _build
+        _build.build()          # once, before the ranks start
+    threads = (max(1, (os.cpu_count() or 1) // world)
+               if args.device == "cpu" else None)
+    return spawn(_serve_rank, world, device=args.device,
+                 timeout=MESH_TIMEOUT_S, args=(args,), threads=threads)[0]
 
+
+def _serve_rank(rank: int, world: int, args):
+    mesh = make_cloud_mesh((args.cloud_dp, args.cloud_tp),
+                           device="cpu" if args.device == "cpu" else None)
+    r = serve(args, mesh)
+    return r if rank == 0 else None
+
+
+def serve(args, mesh=None):
+    """One run of the parsed ``args``; under a cloud ``mesh``, this rank's
+    (rank 0 prints)."""
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
+    cloud_mesh = None if mesh is None else mesh.dims
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    model = load_model(cfg, device=args.device, dtype=DTYPES[args.dtype],
-                       seed=args.seed, ckpt=args.ckpt)
+    def build():
+        return load_model(cfg,
+                          device=args.device if mesh is None else mesh.device,
+                          dtype=DTYPES[args.dtype], seed=args.seed,
+                          ckpt=args.ckpt,
+                          axis=None if mesh is None else mesh.model_axis)
+    model = build() if mesh is None else one_at_a_time(mesh, build)
     data = SyntheticCorpus(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                       batch_size=1, seed=args.seed))
     prompts = [data.sample_tokens(args.prompt_len)
@@ -304,7 +363,7 @@ def main(argv=None):
         kv_dtype=args.kv_dtype, preemption=args.preemption,
         preempt_policy=args.preempt_policy,
         chunked_prefill=args.chunked_prefill,
-        prefix_share=args.prefix_share))
+        prefix_share=args.prefix_share, cloud_mesh=cloud_mesh))
     gen_kw = dict(num_slots=args.num_slots, num_pages=args.num_pages)
     if args.cloud_batch:
         multi_kw = dict(fleet_kw)
@@ -337,34 +396,36 @@ def main(argv=None):
         r = system.generate(prompts, args.max_new, mode=args.mode, **run_kw)
         slots = f"slots={r['num_slots']}"
     st = r["stats"]
-    print(f"mode={args.mode} theta={args.theta} wire={args.wire} "
+    if mesh is not None:
+        say(mesh.describe())
+    say(f"mode={args.mode} theta={args.theta} wire={args.wire} "
           f"backfill={args.backfill} device={model.device} "
           f"dtype={args.dtype} kv={args.kv_layout}/{args.kv_dtype} "
           f"{slots} channel={args.channel} cloud_batch={args.cloud_batch}")
-    print(f"tokens={st.tokens} exits@l1={st.exits_l1} exits@l2={st.exits_l2} "
+    say(f"tokens={st.tokens} exits@l1={st.exits_l1} exits@l2={st.exits_l2} "
           f"cloud_requests={st.cloud_requests} "
           f"request_rate={st.request_rate:.2%}")
-    print(f"upload={st.upload_bytes/1e3:.1f}KB edge_t={st.edge_time:.2f}s "
+    say(f"upload={st.upload_bytes/1e3:.1f}KB edge_t={st.edge_time:.2f}s "
           f"cloud_t={st.cloud_time:.2f}s")
     if args.preemption != "off":
-        print(f"preemptions={st.preemptions} policy={args.preempt_policy} "
+        say(f"preemptions={st.preemptions} policy={args.preempt_policy} "
               f"mode={args.preemption}")
     if args.chunked_prefill:
-        print(f"prefill_chunks={st.prefill_chunks} "
+        say(f"prefill_chunks={st.prefill_chunks} "
               f"prefix_hit_tokens={st.prefix_hit_tokens} "
               f"cow_copies={st.cow_copies}")
     if args.speculative and st.draft_tokens:
-        print(f"draft: k={args.spec_k} draft_tokens={st.draft_tokens} "
+        say(f"draft: k={args.spec_k} draft_tokens={st.draft_tokens} "
               f"accepted={st.accepted_tokens} "
               f"accept_rate={st.accepted_tokens / st.draft_tokens:.2%} "
               f"rewinds={st.spec_rewinds}")
     if args.channel == "sim":
-        print(f"virtual_t={r['virtual_time']:.3f}s "
+        say(f"virtual_t={r['virtual_time']:.3f}s "
               f"deadline_misses={st.deadline_misses} "
               f"fallbacks={st.fallbacks} stall={st.stall_s:.3f}s "
               f"overlap={st.overlap_s:.3f}s late_drops={r['late_drops']}")
     if fleet_kw:
-        print(f"fleet: ttft_p50={st.ttft_p(50) * 1e3:.1f}ms "
+        say(f"fleet: ttft_p50={st.ttft_p(50) * 1e3:.1f}ms "
               f"ttft_p99={st.ttft_p(99) * 1e3:.1f}ms "
               f"tpot_p50={st.token_lat_p(50) * 1e3:.1f}ms "
               f"tpot_p99={st.token_lat_p(99) * 1e3:.1f}ms "
@@ -372,12 +433,12 @@ def main(argv=None):
               f"preempt_rate={st.preemption_rate:.3f} "
               f"miss_rate={st.deadline_miss_rate:.3f}")
     if args.adaptive and r.get("adaptive") is not None:
-        print(f"adaptive: {r['adaptive']}")
+        say(f"adaptive: {r['adaptive']}")
     if "batcher" in r:
-        print(f"cloud batcher: {r['batcher']}")
+        say(f"cloud batcher: {r['batcher']}")
     if not args.cloud_batch:
         sched = next(iter(system._schedulers.values()))
-        print(f"kv_cache_bytes={sched.kv_cache_bytes()} "
+        say(f"kv_cache_bytes={sched.kv_cache_bytes()} "
               f"pool={r['pool_stats']}")
     if args.mode != "cloud":
         base_sys = system
@@ -388,14 +449,14 @@ def main(argv=None):
                 theta=args.theta, wire_format=args.wire,
                 kv_layout=args.kv_layout, page_size=args.page_size,
                 kv_dtype=args.kv_dtype, preemption=args.preemption,
-                preempt_policy=args.preempt_policy))
+                preempt_policy=args.preempt_policy, cloud_mesh=cloud_mesh))
         base = base_sys.generate(prompts, args.max_new, mode="cloud",
                                  **gen_kw)
         ags = [token_agreement(a, b)
                for a, b in zip(r["tokens"], base["tokens"])]
-        print(f"agreement vs cloud (LCS-F1): "
+        say(f"agreement vs cloud (LCS-F1): "
               f"{[round(float(a), 3) for a in ags]}")
-    print("content manager:", r["cm_stats"])
+    say("content manager:", r["cm_stats"])
     return r
 
 

@@ -28,7 +28,7 @@ sequence, where the JAX package keeps the pads (ROADMAP §C).
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +40,7 @@ from repro_torch.kernels.quantize.ops import (quantize_int8,
                                               quantize_kv_write)
 from repro_torch.kernels.quantize.ref import (page_slots, page_tiles,
                                               quantize_rows)
+from repro_torch.launch.sharding import Axis, reduce_model
 from repro_torch.models.common import apply_rope, dense_init_
 
 Cache = Dict[str, torch.Tensor]
@@ -50,23 +51,89 @@ _KV_CHUNK = 1024
 _TILE_ELEMS = 1 << 27     # float32 logits of one chunked / banded pass
 
 
+class HeadSplit(NamedTuple):
+    """A rank's share of one attention layer under a model axis.
+    ``heads`` query heads from ``h0`` and ``kv_heads`` KV heads from
+    ``k0`` are the rank's (what its cache keeps); ``kv_split`` says that
+    ``wk`` / ``wv`` are split too, else they are whole (the KV heads do
+    not divide the axis, as the JAX package's head-aligned rule has it)
+    and the rank keeps its KV heads of the projection.  ``axis`` is the
+    axis to sum ``wo``'s partial products over, or None when nothing is
+    split (the heads do not divide the axis: every rank computes the
+    whole layer)."""
+    heads: int
+    kv_heads: int
+    h0: int = 0
+    k0: int = 0
+    kv_split: bool = False
+    axis: Optional[Axis] = None
+
+
+def head_split(cfg: ModelConfig, axis: Optional[Axis] = None) -> HeadSplit:
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if axis is None or axis.size == 1 or h % axis.size:
+        return HeadSplit(h, kv)
+    hl = h // axis.size
+    h0 = axis.index * hl
+    g = h // kv
+    if hl % g and g % hl:
+        raise ValueError(f"{cfg.name}: {hl} query heads a rank over groups "
+                         f"of {g} give no whole GQA group a rank")
+    k0, k1 = h0 // g, (h0 + hl - 1) // g + 1
+    return HeadSplit(hl, k1 - k0, h0, k0, kv % axis.size == 0, axis)
+
+
 class Attention(nn.Module):
     """Projection weights of one attention layer, applied as ``x @ W``
-    (the JAX package's layout, so weights carry across unchanged)."""
+    (the JAX package's layout, so weights carry across unchanged).  Under
+    a model ``axis`` they are the rank's share (``head_split``): ``wq``
+    its heads' columns, ``wo`` their rows, ``wk`` / ``wv`` their KV
+    heads' columns or whole; the biases stay whole (1-D leaves are
+    replicated) and are sliced where they are added."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         d, hd = cfg.d_model, cfg.resolved_head_dim
         h, kv = cfg.n_heads, cfg.n_kv_heads
+        self.split = head_split(cfg, axis)
+        hl = self.split.heads
+        kvw = self.split.kv_heads if self.split.kv_split else kv
         kw = dict(device=device, dtype=dtype)
-        self.wq = nn.Parameter(torch.empty(d, h * hd, **kw))
-        self.wk = nn.Parameter(torch.empty(d, kv * hd, **kw))
-        self.wv = nn.Parameter(torch.empty(d, kv * hd, **kw))
-        self.wo = nn.Parameter(torch.empty(h * hd, d, **kw))
+        self.wq = nn.Parameter(torch.empty(d, hl * hd, **kw))
+        self.wk = nn.Parameter(torch.empty(d, kvw * hd, **kw))
+        self.wv = nn.Parameter(torch.empty(d, kvw * hd, **kw))
+        self.wo = nn.Parameter(torch.empty(hl * hd, d, **kw))
         if cfg.qkv_bias:
             self.bq = nn.Parameter(torch.empty(h * hd, **kw))
             self.bk = nn.Parameter(torch.empty(kv * hd, **kw))
             self.bv = nn.Parameter(torch.empty(kv * hd, **kw))
+
+
+def _q_bias(p: Attention, hd: int, dtype) -> torch.Tensor:
+    s = p.split
+    return p.bq[s.h0 * hd:(s.h0 + s.heads) * hd].to(dtype)
+
+
+def _kv_bias(p: Attention, w: torch.Tensor, hd: int, dtype) -> torch.Tensor:
+    s = p.split
+    if s.kv_split:
+        return w[s.k0 * hd:(s.k0 + s.kv_heads) * hd].to(dtype)
+    return w.to(dtype)
+
+
+def _keep_kv(p: Attention, k: torch.Tensor) -> torch.Tensor:
+    """(..., KV, d) projected KV heads -> the rank's (..., kv_heads, d)."""
+    s = p.split
+    if s.kv_split or k.shape[-2] == s.kv_heads:
+        return k
+    return k[..., s.k0:s.k0 + s.kv_heads, :].contiguous()
+
+
+def _out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    """The output projection of the rank's heads, summed over the model
+    group (its partial products add up to the whole layer's)."""
+    return reduce_model(o @ p.wo.to(o.dtype), p.split.axis)
 
 
 @torch.no_grad()
@@ -80,21 +147,28 @@ def init_attention(p: Attention, gen: torch.Generator) -> None:
             getattr(p, name).zero_()
 
 
+def _project_kv(p: Attention, cfg: ModelConfig, src: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k, v (B, S, kv_heads, d) of the rank's KV heads from ``src``."""
+    hd = cfg.resolved_head_dim
+    k = src @ p.wk.to(src.dtype)
+    v = src @ p.wv.to(src.dtype)
+    if cfg.qkv_bias:
+        k = k + _kv_bias(p, p.bk, hd, src.dtype)
+        v = v + _kv_bias(p, p.bv, hd, src.dtype)
+    return (_keep_kv(p, k.reshape(*k.shape[:2], -1, hd)),
+            _keep_kv(p, v.reshape(*v.shape[:2], -1, hd)))
+
+
 def _project_qkv(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                  kv_src: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    hd, h, kv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.resolved_head_dim
     q = x @ p.wq.to(x.dtype)
-    k = kv_src @ p.wk.to(x.dtype)
-    v = kv_src @ p.wv.to(x.dtype)
     if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        k = k + p.bk.to(x.dtype)
-        v = v + p.bv.to(x.dtype)
-    q = q.reshape(*q.shape[:2], h, hd)
-    k = k.reshape(*k.shape[:2], kv, hd)
-    v = v.reshape(*v.shape[:2], kv, hd)
-    return q, k, v
+        q = q + _q_bias(p, hd, x.dtype)
+    k, v = _project_kv(p, cfg, kv_src)
+    return q.reshape(*q.shape[:2], -1, hd), k, v
 
 
 # ---------------------------------------------------------------------------
@@ -250,10 +324,13 @@ def _banded_attention(q, k, v, qpos, kpos, *, window, scale,
 # ---------------------------------------------------------------------------
 def init_attn_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                     window: int = 0, kv_len: Optional[int] = None,
-                    device=None, dtype=torch.float32) -> Cache:
+                    device=None, dtype=torch.float32,
+                    kv_heads: Optional[int] = None) -> Cache:
+    """A dense ring of ``kv_heads`` KV heads (the configuration's, or a
+    rank's share under a model axis)."""
     s = kv_len if kv_len is not None else (min(max_seq, window) if window
                                            else max_seq)
-    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    kvh, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     return {
         "k": torch.zeros((batch, s, kvh, hd), device=device, dtype=dtype),
         "v": torch.zeros((batch, s, kvh, hd), device=device, dtype=dtype),
@@ -298,14 +375,16 @@ def quantize_kv_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def init_paged_attn_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                           *, device=None, dtype=torch.float32,
-                          kv_dtype: str = "float32") -> Cache:
+                          kv_dtype: str = "float32",
+                          kv_heads: Optional[int] = None) -> Cache:
     """Page-pool KV storage for ONE layer.  Physical page 0 is the trash
     page (writes of unmapped rows land there); ``pos = -1`` marks an empty
     page slot, so a freshly (re)allocated page is invisible to attention
     until it is written.  ``kv_dtype="int8"`` stores int8 pages with
     per-row absmax scales ``ks``/``vs`` (P+1, page_size, KV) float32;
-    ``"float32"`` keeps the pages in the model's dtype."""
-    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    ``"float32"`` keeps the pages in the model's dtype; ``kv_heads`` as
+    ``init_attn_cache``."""
+    kvh, hd = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     p = num_pages + 1                              # + trash page
     kw = dict(device=device)
     if kv_dtype == "int8":
@@ -433,27 +512,14 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                                    prefix_len=prefix_len, scale=scale)
     if cache is not None and not cross:
         cache = _cache_write(cache, k, v, positions, valid_len)
-    y = out.reshape(b, s, -1) @ p.wo.to(x.dtype)
-    return y, cache
+    return _out(p, out.reshape(b, s, -1)), cache
 
 
 def _project_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                     pos: torch.Tensor, use_rope: bool):
     """q (B,1,H,d), k/v (B,1,KV,d) of one new token per row, rotated to
     its per-row position."""
-    b = x.shape[0]
-    hd = cfg.resolved_head_dim
-    h, kvh = cfg.n_heads, cfg.n_kv_heads
-    q = x @ p.wq.to(x.dtype)
-    knew = x @ p.wk.to(x.dtype)
-    vnew = x @ p.wv.to(x.dtype)
-    if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
-        knew = knew + p.bk.to(x.dtype)
-        vnew = vnew + p.bv.to(x.dtype)
-    q = q.reshape(b, 1, h, hd)
-    knew = knew.reshape(b, 1, kvh, hd)
-    vnew = vnew.reshape(b, 1, kvh, hd)
+    q, knew, vnew = _project_qkv(p, cfg, x, x)
     if use_rope:
         q = apply_rope(q, pos[:, None], cfg.rope_theta)
         knew = apply_rope(knew, pos[:, None], cfg.rope_theta)
@@ -472,7 +538,7 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``write_mask`` (B,) bool is False keeps its ring bit for bit (its old
     entry is written back); its output is meaningless."""
     b = x.shape[0]
-    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    hd, h = cfg.resolved_head_dim, p.split.heads
     q, knew, vnew = _project_decode(p, cfg, x, pos, use_rope)
     size = cache["k"].shape[1]
     rows = torch.arange(b, device=x.device)
@@ -490,8 +556,7 @@ def decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     cache["pos"].index_put_((rows, slot), pnew)
     out = decode_attn(q.reshape(b, h, hd).contiguous(), cache["k"],
                       cache["v"], cache["pos"], pos, window=window)
-    y = out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
-    return y, cache
+    return _out(p, out.reshape(b, 1, h * hd)), cache
 
 
 def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -512,7 +577,7 @@ def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``pos = -1``.  Attention then runs through the ``decode_attn_paged``
     kernel over the table."""
     b = x.shape[0]
-    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    hd, h = cfg.resolved_head_dim, p.split.heads
     q, knew, vnew = _project_decode(p, cfg, x, pos, use_rope)
     if "ks" in cache:                              # quantize on write
         quantize_kv_write(cache, knew[:, 0], vnew[:, 0], pos, block_tbl,
@@ -527,8 +592,7 @@ def decode_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                             cache["vp"], cache["pos"], block_tbl, pos,
                             k_scale=cache.get("ks"), v_scale=cache.get("vs"),
                             window=window)
-    y = out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
-    return y, cache
+    return _out(p, out.reshape(b, 1, h * hd)), cache
 
 
 def chunk_rows(pos: torch.Tensor, block_tbl: torch.Tensor,
@@ -577,7 +641,7 @@ def chunk_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     over the gathered pages, plain XLA there, compute the same
     function)."""
     b, c, _ = x.shape
-    hd, h, kvh = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd, h, kvh = cfg.resolved_head_dim, p.split.heads, p.split.kv_heads
     ps = cache["kp"].shape[1]
     rows_pos, rows_tbl, rows_mask = chunk_rows(pos, block_tbl, write_mask,
                                                c)
@@ -602,8 +666,7 @@ def chunk_attention_paged(p: Attention, cfg: ModelConfig, x: torch.Tensor,
                             cache["kp"], cache["vp"], cache["pos"], rows_tbl,
                             rows_pos, k_scale=cache.get("ks"),
                             v_scale=cache.get("vs"), window=window)
-    y = out.reshape(b, c, h * hd) @ p.wo.to(x.dtype)
-    return y, cache
+    return _out(p, out.reshape(b, c, h * hd)), cache
 
 
 def build_cross_cache(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor,
@@ -613,14 +676,7 @@ def build_cross_cache(p: Attention, cfg: ModelConfig, enc_out: torch.Tensor,
     (B, Se, KV, d) projected from ``enc_out`` (B, Se, d) with their
     biases, and ``pos`` = 0..Se-1 in every row."""
     b, sk, _ = enc_out.shape
-    kvh, hd = cfg.n_kv_heads, cfg.resolved_head_dim
-    k = enc_out @ p.wk.to(enc_out.dtype)
-    v = enc_out @ p.wv.to(enc_out.dtype)
-    if cfg.qkv_bias:
-        k = k + p.bk.to(enc_out.dtype)
-        v = v + p.bv.to(enc_out.dtype)
-    k = k.reshape(b, sk, kvh, hd)
-    v = v.reshape(b, sk, kvh, hd)
+    k, v = _project_kv(p, cfg, enc_out)
     pos = torch.arange(sk, dtype=torch.int32, device=enc_out.device
                        ).expand(b, sk)
     if cache["k"].shape != k.shape:
@@ -642,10 +698,10 @@ def cross_decode_attention(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``valid = kpos >= 0``; the cache is read, never written, so a masked
     row leaves it as it is."""
     b = x.shape[0]
-    hd, h = cfg.resolved_head_dim, cfg.n_heads
+    hd, h = cfg.resolved_head_dim, p.split.heads
     q = x @ p.wq.to(x.dtype)
     if cfg.qkv_bias:
-        q = q + p.bq.to(x.dtype)
+        q = q + _q_bias(p, hd, x.dtype)
     out = decode_attn(q.reshape(b, h, hd).contiguous(), cache["k"],
                       cache["v"], cache["pos"], cur)
-    return out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype)
+    return _out(p, out.reshape(b, 1, h * hd))

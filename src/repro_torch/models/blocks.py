@@ -48,6 +48,7 @@ from repro_torch.models.attention import (Attention, attention_forward,
                                           decode_attention_paged,
                                           init_attention, init_attn_cache,
                                           init_paged_attn_cache)
+from repro_torch.launch.sharding import Axis, reduce_model
 from repro_torch.models.cache_tree import commit
 from repro_torch.models.common import dense_init_, layer_norm, rms_norm
 from repro_torch.models.moe import (MoE, init_moe, moe_forward_decode,
@@ -76,9 +77,20 @@ ATTN_KINDS = (DENSE, SHARED_ATTN, MOE)
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    """The gated-SiLU or GeLU FFN.  Under a model ``axis`` whose size
+    divides d_ff it is the rank's d_ff slice: ``w_gate`` / ``w_up`` /
+    ``w1`` its columns, ``w_down`` / ``w2`` its rows (column- then
+    row-parallel), its products summed over the model group; the 1-D
+    biases stay whole.  Otherwise it is whole on every rank."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
+        self.axis = axis if axis is not None and axis.size > 1 and \
+            f % axis.size == 0 else None
+        if self.axis is not None:
+            f //= self.axis.size
         kw = dict(device=device, dtype=dtype)
         if cfg.mlp_kind == "gelu":
             self.w1 = nn.Parameter(torch.empty(d, f, **kw))
@@ -100,17 +112,18 @@ class DecoderBlock(nn.Module):
     package's ``init_block``); encoder blocks pass False."""
 
     def __init__(self, cfg: ModelConfig, kind: str = DENSE, *, device,
-                 dtype, with_cross: Optional[bool] = None):
+                 dtype, with_cross: Optional[bool] = None,
+                 axis: Optional[Axis] = None):
         super().__init__()
         if kind not in ATTN_KINDS:
             raise ValueError(f"{kind!r} is not an attention block kind")
         kw = dict(device=device, dtype=dtype)
         self.kind = kind
-        self.attn = Attention(cfg, **kw)
+        self.attn = Attention(cfg, axis=axis, **kw)
         if kind == MOE:
-            self.moe = MoE(cfg, **kw)
+            self.moe = MoE(cfg, axis=axis, **kw)
         else:
-            self.mlp = MLP(cfg, **kw)
+            self.mlp = MLP(cfg, axis=axis, **kw)
         norms = ["ln1", "ln2"]
         if kind != MOE and (cfg.is_encdec if with_cross is None
                             else with_cross):
@@ -145,11 +158,13 @@ _RECURRENT = {
                        m2.mamba2_decode)}
 
 
-def make_block(cfg: ModelConfig, kind: str, *, device, dtype) -> nn.Module:
-    """The parameters of one layer of ``kind``."""
+def make_block(cfg: ModelConfig, kind: str, *, device, dtype,
+               axis: Optional[Axis] = None) -> nn.Module:
+    """The parameters of one layer of ``kind`` (a rank's share under a
+    model ``axis``; attention kinds only)."""
     if kind in _RECURRENT:
         return _RECURRENT[kind].module(cfg, device=device, dtype=dtype)
-    return DecoderBlock(cfg, kind, device=device, dtype=dtype)
+    return DecoderBlock(cfg, kind, device=device, dtype=dtype, axis=axis)
 
 
 @torch.no_grad()
@@ -188,39 +203,47 @@ def _norm(x: torch.Tensor, block: DecoderBlock, cfg: ModelConfig,
 
 def _mlp(p: MLP, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.mlp_kind == "gelu":
+        b1 = p.b1
+        if p.axis is not None:
+            b1 = b1[slice(*p.axis.block(b1.shape[0]))]
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p.w1.to(x.dtype) + p.b1.to(x.dtype), approximate="tanh")
-        return h @ p.w2.to(x.dtype) + p.b2.to(x.dtype)
+        h = F.gelu(x @ p.w1.to(x.dtype) + b1.to(x.dtype), approximate="tanh")
+        return reduce_model(h @ p.w2.to(x.dtype), p.axis) + p.b2.to(x.dtype)
     g = F.silu(x @ p.w_gate.to(x.dtype))
     u = x @ p.w_up.to(x.dtype)
-    return (g * u) @ p.w_down.to(x.dtype)
+    return reduce_model((g * u) @ p.w_down.to(x.dtype), p.axis)
 
 
 def _cross_cache(cfg: ModelConfig, kind: str, batch: int, device,
-                 dtype) -> Cache:
+                 dtype, kv_heads: Optional[int]) -> Cache:
     """The dense per-row cross entry of an encoder-decoder's decoder
     block ({} otherwise): ``encoder_seq`` keys, filled by a prefill."""
     if not cfg.is_encdec or kind == MOE:
         return {}
     return {"cross": init_attn_cache(cfg, batch, cfg.encoder_seq,
                                      kv_len=cfg.encoder_seq, device=device,
-                                     dtype=dtype)}
+                                     dtype=dtype, kv_heads=kv_heads)}
 
 
 def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      window: int, *, kind: str = DENSE, device=None,
-                     dtype=torch.float32) -> Cache:
+                     dtype=torch.float32,
+                     kv_heads: Optional[int] = None) -> Cache:
+    """One layer's dense cache; ``kv_heads``: the KV heads a rank keeps
+    under a model axis (default the configuration's)."""
     if kind in _RECURRENT:
         return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_attn_cache(cfg, batch, max_seq, window=window,
-                                    device=device, dtype=dtype),
-            **_cross_cache(cfg, kind, batch, device, dtype)}
+                                    device=device, dtype=dtype,
+                                    kv_heads=kv_heads),
+            **_cross_cache(cfg, kind, batch, device, dtype, kv_heads)}
 
 
 def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
                            *, kind: str = DENSE, batch: int = 0, device=None,
                            dtype=torch.float32,
-                           kv_dtype: str = "float32") -> Cache:
+                           kv_dtype: str = "float32",
+                           kv_heads: Optional[int] = None) -> Cache:
     """Paged variant: self-attention K/V lives in the shared page pool (no
     batch axis — rows address it through their block table);
     ``kv_dtype="int8"`` stores the pages quantized with per-row scales.
@@ -230,8 +253,9 @@ def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
         return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
     return {"self": init_paged_attn_cache(cfg, num_pages, page_size,
                                           device=device, dtype=dtype,
-                                          kv_dtype=kv_dtype),
-            **_cross_cache(cfg, kind, batch, device, dtype)}
+                                          kv_dtype=kv_dtype,
+                                          kv_heads=kv_heads),
+            **_cross_cache(cfg, kind, batch, device, dtype, kv_heads)}
 
 
 def block_forward(block: nn.Module, cfg: ModelConfig, x: torch.Tensor,

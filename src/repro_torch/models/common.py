@@ -86,7 +86,7 @@ def dense_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     ``x @ w``; drawn in float32, then cast to ``w``'s dtype."""
     draw = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                        device=w.device)
-    return w.copy_(draw / math.sqrt(w.shape[0]))
+    return w.copy_(draw.div_(math.sqrt(w.shape[0])))
 
 
 @torch.no_grad()
@@ -94,4 +94,4 @@ def embed_init_(w: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """N(0, 0.02) for a ``(vocab, d)`` embedding or read-out weight."""
     draw = torch.randn(w.shape, generator=gen, dtype=torch.float32,
                        device=w.device)
-    return w.copy_(draw * 0.02)
+    return w.copy_(draw.mul_(0.02))

@@ -21,30 +21,46 @@ its pairs with ``torch.matmul``, so an expert's weights are read once a
 call, and no weights are copied; the pairs' outputs are then weighted and
 summed over the slots in the JAX package's order.  The same code runs on
 the CPU and on the card (one host synchronisation a call, for the pair
-counts).  The ``shard_map`` dispatch of the JAX package waits for the
-tensor-parallel cloud (ROADMAP A.11).
+counts).
+
+Under a model axis (the cloud mesh) each rank holds the d_ff slice of
+every expert (``w_gate`` / ``w_up`` columns, ``w_down`` rows, the JAX
+package's rules) and the router whole: the routing, and so each
+expert's capacity over all tokens, is the same on every rank, and each
+rank runs its d_ff slice of every chosen expert; the experts' outputs
+are summed over the model group before the slots are weighted, where
+the JAX package's ``_moe_forward_shardmap`` ``psum``s them.  The
+auxiliary loss comes from the replicated routing.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import Axis, reduce_model
 from repro_torch.models.common import dense_init_
 
 
 class MoE(nn.Module):
     """Router (d, E) in float32, experts ``w_gate`` / ``w_up`` (E, d, f)
     and ``w_down`` (E, f, d) in the model's dtype; names follow the JAX
-    package's pytree (``moe.router``, ``moe.w_gate``, ...)."""
+    package's pytree (``moe.router``, ``moe.w_gate``, ...).  Under a
+    model ``axis`` whose size divides expert_d_ff, f is the rank's
+    slice."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff
+        self.axis = axis if axis is not None and axis.size > 1 and \
+            f % axis.size == 0 else None
+        if self.axis is not None:
+            f //= self.axis.size
         kw = dict(device=device, dtype=dtype)
         self.router = nn.Parameter(torch.empty(d, e, device=device,
                                                dtype=torch.float32))
@@ -101,6 +117,7 @@ def _experts(p: MoE, xf: torch.Tensor, experts: torch.Tensor,
         h = (F.silu(xe @ p.w_gate[ex].to(xf.dtype))
              * (xe @ p.w_up[ex].to(xf.dtype)))
         y.index_copy_(0, pairs, h @ p.w_down[ex].to(xf.dtype))
+    y = reduce_model(y, p.axis)         # the ranks' d_ff slices summed
     return (y.view(t, k, -1) * weights[..., None]).sum(1)
 
 

@@ -6,6 +6,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import Axis
 from repro_torch.models.transformer import Model
 
 
@@ -22,10 +23,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
 
 
 def build_model(cfg: ModelConfig, *, device=None, dtype=torch.float32,
-                seed: int = 0) -> Model:
+                seed: int = 0, axis: Optional[Axis] = None) -> Model:
     """Allocate ``cfg`` on ``device`` (default ``cuda``) in ``dtype`` and
-    initialise it from a ``torch.Generator`` seeded with ``seed``."""
+    initialise it from a ``torch.Generator`` seeded with ``seed``; under a
+    cloud-mesh rank's model ``axis``, that rank's share of the same
+    weights."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    return Model(cfg, device=dev, dtype=dtype).init(gen)
+    return Model(cfg, device=dev, dtype=dtype, axis=axis).init(gen)

@@ -27,9 +27,23 @@ Training runs ``forward_train`` (every head's logits) or
 ``repro_torch.training.loss`` unembeds chunk by chunk): the whole stack
 with every block under activation checkpointing, and the MoE blocks'
 load-balance losses summed into ``aux_loss``.
+
+Under a model ``axis`` (a rank of the cloud mesh, ``launch/mesh.py``) the
+model is that rank's share of the single-device model, split by the JAX
+package's rules (``launch/sharding.py``): the embedding (and ``lm_head``)
+over the vocabulary, the attention heads, the FFN's d_ff and the
+experts' d_ff; norms and routers whole.  ``embed_tokens`` goes through
+``embed_lookup``, ``logits`` / ``exit_logits`` through ``gather_vocab``,
+the blocks sum their row-parallel products (``reduce_model``), and the
+caches keep the rank's KV heads; activations stay whole between blocks.
+``init`` draws each parameter whole from the generator, one at a time,
+and keeps the rank's slice, so a rank holds exactly its share of the
+single-device model and never the whole model.  Dense and MoE decoders
+only (recurrent, hybrid and encoder-decoder models: ROADMAP A.11b).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -37,8 +51,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
+from repro_torch.configs.base import DENSE, MOE, SHARED_ATTN, ModelConfig
+from repro_torch.launch.sharding import Axis, embed_lookup, gather_vocab
 from repro_torch.models import cache_tree
+from repro_torch.models.attention import head_split
 from repro_torch.models.blocks import (ATTN_KINDS, BlockCtx, DecoderBlock,
                                        block_decode, block_forward,
                                        init_block, init_block_cache,
@@ -85,6 +101,13 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
                                     shared=kinds[start] == SHARED_ATTN))
             start = i
     return tuple(segs)
+
+
+def mesh_ready(cfg: ModelConfig) -> bool:
+    """Whether the cloud mesh serves ``cfg``: a decoder of dense and MoE
+    blocks, with neither encoder nor vision prefix."""
+    return (all(k in (DENSE, MOE) for k in cfg.block_kinds())
+            and not cfg.is_encdec and not cfg.vision_tokens)
 
 
 class Encoder(nn.Module):
@@ -150,19 +173,32 @@ class Model(nn.Module):
     ``exit_norms.<layer>``, ``encoder.layers.<i>.*`` and ``encoder.norm``
     (encoder-decoder only) and ``vis_proj`` (vision prefix only).  Every
     parameter is in ``dtype`` except the MoE routers and Mamba2's
-    ``a_log``, ``dt_bias`` and ``d_skip``, which stay float32."""
+    ``a_log``, ``dt_bias`` and ``d_skip``, which stay float32.  ``axis``:
+    the model axis of a cloud-mesh rank, whose share this model is."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32,
+                 axis: Optional[Axis] = None):
         super().__init__()
         self.cfg = cfg.validate()
         self.segments = build_segments(cfg)
         self.dtype = dtype
+        if axis is not None and axis.size == 1:
+            axis = None
+        if axis is not None and not mesh_ready(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: the cloud mesh serves dense and MoE decoders; "
+                f"recurrent, hybrid and encoder-decoder models on it are "
+                f"ROADMAP A.11b")
+        self.axis = axis
+        self.kv_heads = head_split(cfg, axis).kv_heads
         kw = dict(device=device, dtype=dtype)
         d, v = cfg.d_model, cfg.vocab_size
+        if axis is not None and v % axis.size == 0:
+            v //= axis.size
         self.embed = nn.Parameter(torch.empty(v, d, **kw))
         self.layers = nn.ModuleList(
             nn.Identity() if kind == SHARED_ATTN
-            else make_block(cfg, kind, device=device, dtype=dtype)
+            else make_block(cfg, kind, device=device, dtype=dtype, axis=axis)
             for kind in cfg.block_kinds())
         if any(s.shared for s in self.segments):
             self.shared = DecoderBlock(cfg, SHARED_ATTN, device=device,
@@ -178,10 +214,67 @@ class Model(nn.Module):
         self.exit_norms = nn.ParameterDict(
             {str(l): nn.Parameter(torch.empty(d, **kw))
              for l in cfg.exit_layers})
+        self.shards = self._shards()
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    # ------------------------------------------------------------------
+    # the rank's share
+    # ------------------------------------------------------------------
+    def _shards(self) -> Dict[str, Tuple[Tuple[int, ...], tuple]]:
+        """{name: (whole shape, the rank's slices)} of every parameter the
+        constructors split over the model axis: the one dimension in
+        which it is smaller than the single-device model's, of which the
+        rank keeps its ``axis.block`` (``tests/test_torch_sharding.py``
+        holds these against the JAX package's rules, leaf by leaf)."""
+        if self.axis is None:
+            return {}
+        whole = {n: tuple(p.shape) for n, p in
+                 Model(self.cfg, device="meta").named_parameters()}
+        out = {}
+        for name, p in self.named_parameters():
+            shape = whole[name]
+            split = [k for k, n in enumerate(shape) if n != p.shape[k]]
+            if not split:
+                continue
+            (dim,) = split
+            sl = [slice(None)] * len(shape)
+            sl[dim] = slice(*self.axis.block(shape[dim]))
+            out[name] = (shape, tuple(sl))
+        return out
+
+    @contextlib.contextmanager
+    def _whole(self, *params: torch.Tensor):
+        """Within the block, the split ones of ``params`` have their whole
+        shape (so an initializer draws what the single-device model
+        draws); on leaving, each keeps the rank's slice again."""
+        if not self.shards:
+            yield
+            return
+        names = {id(p): n for n, p in self.named_parameters()}
+        split = [(p, self.shards[names[id(p)]]) for p in params
+                 if names.get(id(p)) in self.shards]
+        for p, (shape, _) in split:
+            p.data = torch.empty(shape, dtype=p.dtype, device=p.device)
+        try:
+            yield
+        finally:
+            for p, (_, sl) in split:
+                # a copy: a slice's view would keep the whole tensor alive
+                p.data = p.data[sl].clone()
+
+    @torch.no_grad()
+    def load_whole(self, state: Dict[str, torch.Tensor]) -> "Model":
+        """Copy the rank's slice of each whole tensor of ``state`` (a
+        single-device model's ``state_dict``) into this model."""
+        for name, p in self.named_parameters():
+            w = state[name]
+            if name in self.shards:
+                w = w[self.shards[name][1]]
+            p.copy_(w)
+        return self
 
     # ------------------------------------------------------------------
     # init
@@ -192,15 +285,18 @@ class Model(nn.Module):
         distributions (random weights: the repository has no trained 7B
         checkpoint)."""
         cfg = self.cfg
-        embed_init_(self.embed, gen)
+        with self._whole(self.embed):
+            embed_init_(self.embed, gen)
         for block in self.layers:
             if not isinstance(block, nn.Identity):
-                init_block(block, cfg, gen)
+                with self._whole(*block.parameters()):
+                    init_block(block, cfg, gen)
         if hasattr(self, "shared"):
             init_block(self.shared, cfg, gen)
         _init_final_norm(self.final_norm)
         if not cfg.tie_embeddings:
-            embed_init_(self.lm_head, gen)
+            with self._whole(self.lm_head):
+                embed_init_(self.lm_head, gen)
         for w in self.exit_norms.values():
             w.zero_()
         if cfg.is_encdec:
@@ -214,20 +310,30 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # norms / heads
     # ------------------------------------------------------------------
+    @property
+    def vocab_axis(self) -> Optional[Axis]:
+        """The model axis when it splits the vocabulary, else None."""
+        if self.unembed_weight().shape[0] == self.cfg.vocab_size:
+            return None
+        return self.axis
+
     def unembed_weight(self) -> torch.Tensor:
-        """(V, d) read-out weight (tied or separate)."""
+        """(V, d) read-out weight (tied or separate); under a model axis
+        the rank's (V / M, d) vocabulary slice."""
         return self.embed if self.cfg.tie_embeddings else self.lm_head
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         w = self.unembed_weight()
         h = _apply_final_norm(self.final_norm, self.cfg, x)
-        return h @ w.to(x.dtype).T
+        return gather_vocab(h @ w.to(x.dtype).T, self.axis,
+                            self.cfg.vocab_size)
 
     def exit_logits(self, layer: int, x: torch.Tensor) -> torch.Tensor:
         """Full exit-head logits (the serving path takes the ``exit_head``
         kernel instead, which never writes them)."""
         h = rms_norm(x, self.exit_norms[str(layer)], self.cfg.norm_eps)
-        return h @ self.unembed_weight().to(x.dtype).T
+        return gather_vocab(h @ self.unembed_weight().to(x.dtype).T,
+                            self.axis, self.cfg.vocab_size)
 
     # ------------------------------------------------------------------
     # embedding front-ends
@@ -238,7 +344,8 @@ class Model(nn.Module):
         adds sinusoidal absolute positions from ``pos_offset``: an int or
         a per-row (B,) tensor of offsets (rows decode at their own
         positions)."""
-        x = self.embed[tokens].to(self.dtype)
+        x = embed_lookup(self.embed, tokens, self.axis,
+                         self.cfg.vocab_size).to(self.dtype)
         if not self.cfg.use_rope:
             s = tokens.shape[1]
             steps = torch.arange(s, device=x.device)
@@ -359,7 +466,8 @@ class Model(nn.Module):
         return {si: [init_block_cache(self.cfg, batch, max_seq,
                                       self.segments[si].window,
                                       kind=self.segments[si].kind,
-                                      device=self.device, dtype=self.dtype)
+                                      device=self.device, dtype=self.dtype,
+                                      kv_heads=self.kv_heads)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
@@ -386,7 +494,8 @@ class Model(nn.Module):
                                             kind=self.segments[si].kind,
                                             batch=batch, device=self.device,
                                             dtype=self.dtype,
-                                            kv_dtype=kv_dtype)
+                                            kv_dtype=kv_dtype,
+                                            kv_heads=self.kv_heads)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 

@@ -1,7 +1,8 @@
 """Cross-engine cloud batching, and the pooled-cache helpers of the batched
 engine.
 
-Port of ``repro.serving.cloud_batcher`` without the mesh (ROADMAP A.11):
+Port of ``repro.serving.cloud_batcher``; its pools follow the cloud mesh
+of ``serving/mesh_exec.py`` (a data column's rows, ``RowCaches``):
 
   * the admission scatters of a prefilled row into the pooled (dense or
     paged) caches, the page invalidation of retired streams, and the
@@ -73,12 +74,19 @@ def _put_row(f: torch.Tensor, r: torch.Tensor, j: int) -> torch.Tensor:
 
 
 def _scatter_row(full: Pytree, row: Pytree, j: int) -> Pytree:
-    """Insert a single-row cache tree into a batched pool at row j."""
+    """Insert a single-row cache tree into a batched pool at row j, in
+    place.  A pool of a data column's rows [lo, hi) (``RowCaches``) takes
+    only a row of its own."""
+    rows = getattr(full, "rows", None)
+    if rows is not None:
+        if not rows[0] <= j < rows[1]:
+            return full
+        j -= rows[0]
     if isinstance(full, torch.Tensor):
         return _put_row(full, row, j)
-    if isinstance(full, dict):
-        return {k: _scatter_row(full[k], row[k], j) for k in full}
-    return [_scatter_row(f, r, j) for f, r in zip(full, row)]
+    for k in (full if isinstance(full, dict) else range(len(full))):
+        _scatter_row(full[k], row[k], j)
+    return full
 
 
 def _scatter_row_paged(full: Pytree, row: Pytree, j: int,
@@ -91,11 +99,13 @@ def _scatter_row_paged(full: Pytree, row: Pytree, j: int,
     if isinstance(full, dict):
         if "kp" in full:
             return paged_scatter_prefill(full, row, pages)
-        return {k: _scatter_row_paged(full[k], row[k], j, pages)
-                for k in full}
+        for k in full:
+            _scatter_row_paged(full[k], row[k], j, pages)
+        return full
     if isinstance(full, list):
-        return [_scatter_row_paged(f, r, j, pages)
-                for f, r in zip(full, row)]
+        for f, r in zip(full, row):
+            _scatter_row_paged(f, r, j, pages)
+        return full
     return _put_row(full, row, j)
 
 

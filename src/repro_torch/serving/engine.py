@@ -604,9 +604,7 @@ class BatchScheduler:
         # and invalidates everything from the true length on)
         if mode == "cloud":
             self.main_caches = self._init_pool_cache(
-                self.model.init_cache,
-                lambda b, n, ps: self.model.init_paged_cache(
-                    n, ps, kv_dtype=self.ccfg.kv_dtype, batch=b))
+                collm.init_main_cache, collm.init_main_cache_paged)
             self._full_row0 = self.model.init_cache(1, row_seq)
         else:
             self.edge_caches = self._init_pool_cache(
@@ -2221,12 +2219,15 @@ def _fetch_decisions(decisions) -> Dict[int, tuple]:
 
 
 class ServingSystem:
-    """End-to-end multi-client co-inference on the model's device."""
+    """End-to-end multi-client co-inference on the model's device; under
+    ``CollmConfig.cloud_mesh`` on this rank's share of the model, every
+    run ending in a check that all ranks emitted the same streams."""
 
     def __init__(self, model: Model, ccfg: CollmConfig = CollmConfig()):
-        self.model = model
         self.ccfg = ccfg
         self.collm = CoLLM(model, ccfg)
+        # under a cloud mesh, this rank's share of ``model``
+        self.model = self.collm.model
         self.cloud = CloudServer(self.collm)
         self._schedulers: Dict[tuple, BatchScheduler] = {}
 
@@ -2313,6 +2314,7 @@ class ServingSystem:
                         slo_ttft_s=slo_ttft_s, slo_tpot_s=slo_tpot_s)
                 for i, p in enumerate(prompts)]
         results, stats = sched.run(reqs)
+        self.collm.mesh_ctx.check_streams(results)
         return {"tokens": results, "stats": _aggregate(stats),
                 "per_client": stats, "cm_stats": self.cloud.cm.stats(),
                 "num_slots": slots,
@@ -2396,6 +2398,7 @@ class ServingSystem:
             for k, j in enumerate(assign[e]):
                 tokens[j] = results[e][k]
                 flat[j] = stats[e][k]
+        self.collm.mesh_ctx.check_streams(tokens)
         ch_agg = ChannelStats()
         for s in scheds:
             for f in dataclasses.fields(ChannelStats):
@@ -2434,6 +2437,7 @@ class ServingSystem:
                                           channel=channel)
             results.append(toks)
             stats.append(st)
+        self.collm.mesh_ctx.check_streams(results)
         return {"tokens": results, "stats": _aggregate(stats),
                 "per_client": stats, "cm_stats": self.cloud.cm.stats()}
 

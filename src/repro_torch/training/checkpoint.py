@@ -25,7 +25,7 @@ import numpy as np
 from torch import nn
 
 from repro_torch.bridge import (check_config, flatten, jax_layout,
-                                load_leaf, to_numpy, treedef_str)
+                                load_leaf, rank_cutter, to_numpy, treedef_str)
 from repro_torch.configs.base import ModelConfig
 
 
@@ -33,8 +33,13 @@ def save_checkpoint(path: str, model: nn.Module,
                     cfg: Optional[ModelConfig] = None,
                     extra: Optional[Dict[str, Any]] = None) -> None:
     """Write ``model``'s parameters to ``<path>.npz`` and the manifest to
-    ``<path>.json`` (bfloat16 leaves as float32: numpy has no bfloat16)."""
+    ``<path>.json`` (bfloat16 leaves as float32: numpy has no bfloat16).
+    Refuses a cloud-mesh rank's share: its leaves are slices of the
+    whole model's."""
     check_config(model, cfg)
+    if getattr(model, "shards", None):
+        raise ValueError("save_checkpoint: the model is a cloud-mesh rank's "
+                         "share; save the whole model")
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     layout = jax_layout(model)
     leaves = flatten(layout)
@@ -57,9 +62,9 @@ def save_checkpoint(path: str, model: nn.Module,
 
 def load_checkpoint(path: str, model: nn.Module,
                     cfg: Optional[ModelConfig] = None) -> Dict[str, Any]:
-    """Read ``<path>`` into ``model``'s parameters in place; returns the
-    manifest's ``extra``.  Raises when the checkpoint's pytree is not the
-    model's."""
+    """Read ``<path>`` into ``model``'s parameters in place (a cloud-mesh
+    rank's share takes its slice of each leaf); returns the manifest's
+    ``extra``.  Raises when the checkpoint's pytree is not the model's."""
     check_config(model, cfg)
     layout = jax_layout(model)
     leaves = flatten(layout)
@@ -72,6 +77,7 @@ def load_checkpoint(path: str, model: nn.Module,
         if len(data.files) != len(leaves):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, "
                              f"the model has {len(leaves)}")
+        cut = rank_cutter(model)
         for i, leaf in enumerate(leaves):
-            load_leaf(leaf, data[f"leaf_{i}"])
+            load_leaf(leaf, cut(leaf, data[f"leaf_{i}"]))
     return manifest.get("extra", {})

@@ -323,10 +323,11 @@ def test_collm_rejects_unported_features():
                        exit_layers=(1,))
     model = Model(cfg, device="cpu")
     # the paged layout and chunked prefill on it are ported
-    # (tests/test_torch_batched.py, tests/test_torch_prefix.py); the cloud
-    # mesh is not
+    # (tests/test_torch_batched.py, tests/test_torch_prefix.py); so is the
+    # cloud mesh (tests/test_torch_cloud_tp.py), which needs a process
+    # group of data * model ranks
     CoLLM(model, CollmConfig(kv_layout="paged", chunked_prefill=True))
-    with pytest.raises(NotImplementedError, match="cloud_mesh"):
+    with pytest.raises(ValueError, match="cloud_mesh.*process group"):
         CoLLM(model, CollmConfig(cloud_mesh=(1, 1)))
     with pytest.raises(ValueError, match="paged"):
         CoLLM(model, CollmConfig(chunked_prefill=True))
