@@ -162,6 +162,20 @@ def param_leaves(cfg: ModelConfig, itemsize: int = 4):
     return out
 
 
+def port_leaves(cfg: ModelConfig, itemsize: int = 4):
+    """(the port's parameter name split at dots, whole shape, itemsize,
+    block kind or None) of every parameter of ``cfg``'s single-device
+    model: what ``launch.sharding.rank_param_bytes`` takes.  The leaves
+    that a bf16 model keeps in float32 keep 4 bytes, as ``param_leaves``."""
+    kinds = cfg.block_kinds()
+    meta = Model(cfg, device="meta", dtype=torch.bfloat16)
+    for name, p in meta.named_parameters():
+        names = tuple(name.split("."))
+        kind = kinds[int(names[1])] if names[0] == "layers" else None
+        size = 4 if p.dtype == torch.float32 else itemsize
+        yield names, tuple(p.shape), size, kind
+
+
 def to_numpy(leaf: Leaf) -> np.ndarray:
     """One leaf as the JAX package holds it: a parameter, or a ``Stacked``
     run on a leading layer axis (stacked on the parameters' device, then

@@ -82,6 +82,13 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.encoder_layers > 0
 
+    @property
+    def supports_long_decode(self) -> bool:
+        """Sub-quadratic decode: ssm, hybrid, or sliding-window dense."""
+        return self.arch_type in ("ssm", "hybrid") or (
+            self.sliding_window > 0 and self.local_global_pattern > 0
+        )
+
     def block_kinds(self) -> Tuple[str, ...]:
         """Per-layer block kind sequence for the *decoder* stack."""
         if self.arch_type == "moe":

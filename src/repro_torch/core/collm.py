@@ -69,7 +69,7 @@ from repro_torch.kernels.exit_quant.ops import exit_quant
 from repro_torch.launch.mesh import check_pair
 from repro_torch.launch.sharding import merge_exits
 from repro_torch.models.blocks import BlockCtx
-from repro_torch.models.transformer import Caches, Model, mesh_ready
+from repro_torch.models.transformer import Caches, Model
 from repro_torch.serving.mesh_exec import mesh_context
 from repro_torch.tracing import span
 
@@ -197,16 +197,13 @@ class CoLLM:
                              "granular admission)")
         if ccfg.cloud_mesh is not None:
             data, _ = check_pair(ccfg.cloud_mesh)
-            if not mesh_ready(cfg):
-                raise NotImplementedError(
-                    f"CollmConfig fields ['cloud_mesh'] select features that "
-                    f"are not ported yet for {cfg.name} (cloud_mesh: ROADMAP "
-                    f"A.11b: the mesh serves dense and MoE decoders)")
             if data > 1 and ccfg.preemption == "swap":
                 raise NotImplementedError(
-                    "swap preemption over a data axis: a resumed stream may "
-                    "land in another column, whose pool lacks its pages "
-                    "(ROADMAP A.11b); use preemption='recompute'")
+                    "CollmConfig fields ['cloud_mesh', 'preemption'] select "
+                    "a feature that is not ported yet (cloud_mesh: ROADMAP "
+                    "A.11b.2: swap preemption over a data axis, where a "
+                    "resumed stream may land in another column, whose pool "
+                    "lacks its pages); use preemption='recompute'")
         self.model = model
         self.ccfg = ccfg
         self.mesh_ctx = mesh_context(self)
@@ -250,16 +247,21 @@ class CoLLM:
     def init_cloud_cache_paged(self, batch: int, num_pages: int,
                                page_size: int) -> Caches:
         """A paged cloud pool for ``batch`` rows: whole in every data
-        column, each column writing only its rows' pages."""
-        return self.mesh_ctx.row_caches(self.model.init_paged_cache(
-            num_pages, page_size, self.cloud_segs,
-            kv_dtype=self.ccfg.kv_dtype, batch=batch), batch)
+        column, each column writing only its rows' pages; the dense per-row
+        entries (recurrent state, cross caches) hold the column's rows
+        only, as ``init_cloud_cache``'s do."""
+        return self._paged_rows(batch, num_pages, page_size, self.cloud_segs)
 
     def init_main_cache_paged(self, batch: int, num_pages: int,
                               page_size: int) -> Caches:
+        return self._paged_rows(batch, num_pages, page_size, None)
+
+    def _paged_rows(self, batch: int, num_pages: int, page_size: int,
+                    segs) -> Caches:
+        lo, hi = self.mesh_ctx.rows(batch)
         return self.mesh_ctx.row_caches(self.model.init_paged_cache(
-            num_pages, page_size, kv_dtype=self.ccfg.kv_dtype, batch=batch),
-            batch)
+            num_pages, page_size, segs, kv_dtype=self.ccfg.kv_dtype,
+            batch=hi - lo), batch)
 
     def _rows_of(self, caches: Caches, b: int) -> Tuple[int, int]:
         """[lo, hi) of a ``b``-row step's rows that ``caches`` hold."""
@@ -358,14 +360,20 @@ class CoLLM:
         mask of ``Model.prefill``), so the split model equals the
         undivided one.  Here the port departs from the JAX package, whose
         ``cloud_prefill`` builds its context without ``prefix_len`` and
-        so attends causally over the prefix in the cloud layers."""
+        so attends causally over the prefix in the cloud layers.  Under a
+        data axis that splits ``caches``' rows, the column prefills its
+        rows and the logits of every row are gathered."""
+        b = h1_seq.shape[0]
+        lo, hi = self._rows_of(caches, b)
+        h1_seq, enc_out = _take_rows((h1_seq, enc_out), lo, hi, b)
         ctx = BlockCtx(positions=torch.arange(h1_seq.shape[1],
                                               device=h1_seq.device),
                        enc_out=enc_out,
                        prefix_len=self.model.cfg.vision_tokens)
         x, _, _, caches = self.model.run_segments(
             h1_seq, ctx, self.cloud_segs, caches=caches, collect_exits=False)
-        return self.model.logits(x[:, -1:]), caches
+        return self.mesh_ctx.gather_rows(self.model.logits(x[:, -1:]), lo,
+                                         b), caches
 
     # ------------------------------------------------------------------
     # right-padded prefill (one admission of the batch scheduler)
@@ -512,12 +520,12 @@ class CoLLM:
         shape = hidden.shape
         h2 = hidden.reshape(shape[0], shape[-1]).contiguous()
         w = m.unembed_weight()
-        conf, tok, lse, q, s = exit_quant(h2, w,
-                                          m.exit_norms[str(self.l_ee1)],
-                                          eps=m.cfg.norm_eps)
-        conf, tok, _ = merge_exits(conf, tok, lse, m.vocab_axis, w.shape[0])
-        return conf, tok, {"data": q.reshape(shape),
-                           "scale": s.reshape(*shape[:-1], 1)}
+        out = exit_quant(h2, w, m.exit_norms[str(self.l_ee1)],
+                         eps=m.cfg.norm_eps)
+        conf, tok, _ = merge_exits(out.conf, out.tok, out.lse, out.mx,
+                                   m.vocab_axis, w.shape[0])
+        return conf, tok, {"data": out.q.reshape(shape),
+                           "scale": out.scale.reshape(*shape[:-1], 1)}
 
     def cloud_step(self, upload: Dict[str, torch.Tensor], caches: Caches,
                    pos, block_tbl: Optional[torch.Tensor] = None,

@@ -12,8 +12,8 @@ greedy decoding needs only the token and the confidence.
 ``exit_heads`` launch, which reads the unembedding once for all of them.
 Under a model axis that splits the vocabulary (the cloud mesh), each
 rank's launch covers its slice of the unembedding, and the ranks' (conf,
-token, lse) are merged into the whole vocabulary's
-(``sharding.merge_exits``).
+token, lse) are merged into the whole vocabulary's on the kernel's raw
+max logits (``sharding.merge_exits``).
 """
 from __future__ import annotations
 
@@ -38,8 +38,8 @@ def evaluate_exit(hidden: torch.Tensor, weight: torch.Tensor,
     (a rank's (V / M, d) slice under the vocabulary's ``axis``);
     norm_scale: (d,) the exit's read-out norm -> ExitDecision."""
     h = hidden.reshape(hidden.shape[0], hidden.shape[-1]).contiguous()
-    conf, tok, lse = exit_head(h, weight, norm_scale, eps=eps)
-    conf, tok, _ = merge_exits(conf, tok, lse, axis, weight.shape[0])
+    conf, tok, lse, mx = exit_head(h, weight, norm_scale, eps=eps)
+    conf, tok, _ = merge_exits(conf, tok, lse, mx, axis, weight.shape[0])
     return ExitDecision(token=tok, confidence=conf)
 
 
@@ -56,10 +56,11 @@ def evaluate_exits(hiddens: Sequence[torch.Tensor], weight: torch.Tensor,
     same on every rank."""
     h = torch.stack([x.reshape(x.shape[0], x.shape[-1]) for x in hiddens])
     out = exit_heads(h, weight, norm_scales, eps, quant_exit)
-    conf, tok, _ = merge_exits(out[0], out[1], out[2], axis, weight.shape[0])
+    conf, tok, _ = merge_exits(out.conf, out.tok, out.lse, out.mx, axis,
+                               weight.shape[0])
     decisions = [ExitDecision(token=t, confidence=c)
                  for c, t in zip(conf, tok)]
-    return decisions, (None if quant_exit is None else out[3:])
+    return decisions, (None if quant_exit is None else (out.q, out.scale))
 
 
 def select_exit_logits(decisions: Dict[int, ExitDecision], theta: float

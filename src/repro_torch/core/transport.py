@@ -8,6 +8,11 @@ is the beyond-paper format, quantized by the ``quantize`` kernel
 The recurrent-state packets (``quantize_tree``, ``dequantize_tree``,
 ``make_packet``, ``open_packet``) carry a state tree beside the hidden:
 every leaf quantized alone, an int8 leaf with its own float32 scales.
+A rank of the cloud mesh, whose state keeps its share of the heads,
+builds its packet from ``Model.whole_state(caches)``: an int8 row's scale
+is then the whole row's absmax (a rank's own would differ wherever its
+last dimension is split: a GLA ``m``, a Mamba2 conv tail), so the packet
+dequantizes to the single device's values and weighs its wire bytes.
 
 ``CloudChannel`` is the request path of both serving engines, in virtual
 time:

@@ -5,7 +5,8 @@
 // of each of E exits (row r reads exit r / B's norm scale):
 //   hn = h * rsqrt(mean(h^2) + eps) * (1 + ns[r / B])       (float32)
 //   logits = hn @ W^T over the (V, D) unembedding W
-//   lse = logsumexp(logits), conf = exp(max - lse), tok = argmax(logits)
+//   mx = max(logits), lse = logsumexp(logits), conf = exp(mx - lse),
+//   tok = argmax(logits)
 // without writing the (R, V) logits anywhere, and optionally the int8
 // packet q = clip(rint(h / scale), -127, 127), scale = max(absmax / 127,
 // 1e-12) of the B raw rows of one exit.
@@ -252,6 +253,7 @@ struct ExitArgs {
   float* conf;
   int* tok;
   float* lse;
+  float* mx;           // each row's raw max logit
 };
 
 // Tensor-core helpers of the bf16 path at R > 8 (mma.sync m16n8k16, bf16
@@ -682,6 +684,7 @@ exit_heads_kernel(const __grid_constant__ CUtensorMap wmap, const ExitArgs p) {
     if (lane == 0) {
       const float ls = bm + logf(bl);
       p.lse[r] = ls;
+      p.mx[r] = bm;
       p.conf[r] = expf(bm - ls);
       p.tok[r] = ba;
     }
@@ -772,8 +775,9 @@ cudaError_t exit_heads_launch_t(int device, const void* h, const void* w,
                                 const void* ns, float eps, int E, int B,
                                 int V, int D, int quant_exit, int8_t* q,
                                 float* qscale, float* ws, int cap,
-                                float* conf, int* tok, float* lse, int stages,
-                                int per_sm, cudaStream_t st, int* grid) {
+                                float* conf, int* tok, float* lse, float* mx,
+                                int stages, int per_sm, cudaStream_t st,
+                                int* grid) {
   const int R = E * B;
   if (E < 1 || B < 1 || R > kExitMaxRows || V < 1 || D < 8 || D % 8 ||
       cap < 1 || quant_exit >= E || (quant_exit >= 0 && (!q || !qscale)))
@@ -811,7 +815,7 @@ cudaError_t exit_heads_launch_t(int device, const void* h, const void* w,
   if (cr != CUDA_SUCCESS) return cudaErrorInvalidValue;
   ExitArgs a{h, ns, eps, R, B, V, D, stages, quant_exit, q, qscale, ws,
              reinterpret_cast<unsigned*>(ws + (size_t)kExitPartials * cap),
-             cap, conf, tok, lse};
+             cap, conf, tok, lse, mx};
   int g = 0;
   if (!grid) grid = &g;
   if (R == 1) return exit_heads_rt<T, 1>(device, sms, map, a, per_sm, st, grid);
@@ -830,7 +834,8 @@ inline int exit_heads_entry(int device, int dtype, const void* hidden,
                             float eps, int E, int B, int V, int D,
                             int quant_exit, void* q, void* qscale, void* ws,
                             int cap, void* conf, void* tok, void* lse,
-                            int stages, int per_sm, void* stream, int* grid) {
+                            void* mx, int stages, int per_sm, void* stream,
+                            int* grid) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -838,12 +843,12 @@ inline int exit_heads_entry(int device, int dtype, const void* hidden,
     err = exit_heads_launch_t<float>(
         device, hidden, weight, norm_scales, eps, E, B, V, D, quant_exit,
         (int8_t*)q, (float*)qscale, (float*)ws, cap, (float*)conf, (int*)tok,
-        (float*)lse, stages, per_sm, st, grid);
+        (float*)lse, (float*)mx, stages, per_sm, st, grid);
   else if (dtype == kBF16)
     err = exit_heads_launch_t<__nv_bfloat16>(
         device, hidden, weight, norm_scales, eps, E, B, V, D, quant_exit,
         (int8_t*)q, (float*)qscale, (float*)ws, cap, (float*)conf, (int*)tok,
-        (float*)lse, stages, per_sm, st, grid);
+        (float*)lse, (float*)mx, stages, per_sm, st, grid);
   else
     err = cudaErrorInvalidValue;
   return err;

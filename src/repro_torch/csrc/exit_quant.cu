@@ -11,13 +11,14 @@
 #include "exit_common.cuh"
 
 // hidden (B, D), weight (V, D), norm_scale (D,); q (B, D) int8, scale (B, 1)
-// f32; ws, cap, conf, tok, lse as exit_heads_launch in exit_head.cu.
+// f32; ws, cap, conf, tok, lse, mx as exit_heads_launch in exit_head.cu.
 extern "C" int exit_quant_launch(int device, int dtype, const void* hidden,
                                  const void* weight, const void* norm_scale,
                                  float eps, int B, int V, int D, void* q,
                                  void* scale, void* ws, int cap, void* conf,
-                                 void* tok, void* lse, void* stream) {
+                                 void* tok, void* lse, void* mx,
+                                 void* stream) {
   return rt::exit_heads_entry(device, dtype, hidden, weight, norm_scale, eps,
                               1, B, V, D, 0, q, scale, ws, cap, conf, tok,
-                              lse, 0, 0, stream, nullptr);
+                              lse, mx, 0, 0, stream, nullptr);
 }

@@ -10,18 +10,19 @@ on each wrapper counts its kernel launches."""
 from __future__ import annotations
 
 from ctypes import POINTER, c_float, c_int, c_void_p
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.exit_head.ref import exit_head_ref, exit_heads_ref
+from repro_torch.kernels.exit_head.ref import (ExitHeads, ExitPacket,
+                                               exit_head_ref, exit_heads_ref)
 
 MAX_ROWS = 16           # rows (exits x slots) of one launch
 WS_BLOCKS = 1024        # partial slots of the workspace: blocks a launch
 _PARTIALS = 3 * MAX_ROWS  # floats a block slot: (max, sum-exp, argmax) a row
 _ARGTYPES = ([c_int, c_int] + [c_void_p] * 3 + [c_float] + [c_int] * 5
-             + [c_void_p] * 3 + [c_int] + [c_void_p] * 3 + [c_int] * 2
+             + [c_void_p] * 3 + [c_int] + [c_void_p] * 4 + [c_int] * 2
              + [c_void_p, POINTER(c_int)])
 
 _workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -67,13 +68,15 @@ def launch(op: str, hidden: torch.Tensor, weight: torch.Tensor,
            scale: Optional[torch.Tensor] = None, *, stages: int = 0,
            per_sm: int = 0, grid: Optional[c_int] = None):
     """One launch of the C entry ``exit_heads_launch`` of library ``op``
-    over ``e`` exits of hidden (e * B, d); returns (conf, tok, lse), each
-    (e * B,).  ``stages`` / ``per_sm`` set the ring depth and the blocks a
-    SM (0: the defaults); ``grid`` receives the blocks launched."""
+    over ``e`` exits of hidden (e * B, d); returns (conf, tok, lse, mx),
+    each (e * B,), mx each row's raw max logit.  ``stages`` / ``per_sm``
+    set the ring depth and the blocks a SM (0: the defaults); ``grid``
+    receives the blocks launched."""
     exit_operands(op, hidden, weight, norm_scales, e)
     r, d = hidden.shape
-    out = torch.empty((3, r), device=hidden.device, dtype=torch.int32)
-    outs = (out[0].view(torch.float32), out[1], out[2].view(torch.float32))
+    out = torch.empty((4, r), device=hidden.device, dtype=torch.int32)
+    outs = (out[0].view(torch.float32), out[1], out[2].view(torch.float32),
+            out[3].view(torch.float32))
     null = c_void_p(None)
     fn = _build.function(op, "exit_heads_launch", _ARGTYPES)
     _build.check(op, fn(
@@ -88,10 +91,10 @@ def launch(op: str, hidden: torch.Tensor, weight: torch.Tensor,
 
 
 def exit_head(hidden: torch.Tensor, weight: torch.Tensor,
-              norm_scale: torch.Tensor, *, eps: float = 1e-5):
+              norm_scale: torch.Tensor, *, eps: float = 1e-5) -> ExitHeads:
     """(B,d) hidden + (V,d) unembedding + (d,) exit-norm scale ->
-    (confidence (B,) f32, token (B,) int32, logsumexp (B,) f32).  More
-    than ``MAX_ROWS`` rows take one launch per ``MAX_ROWS``."""
+    ``ExitHeads`` of shape (B,).  More than ``MAX_ROWS`` rows take one
+    launch per ``MAX_ROWS``."""
     if hidden.device.type == "cpu":
         return exit_head_ref(hidden, weight, norm_scale, eps)
     ns = norm_scale.reshape(1, -1)
@@ -101,8 +104,8 @@ def exit_head(hidden: torch.Tensor, weight: torch.Tensor,
                             ns, 1, eps))
         exit_head.launches += 1
     if len(parts) == 1:
-        return parts[0]
-    return tuple(torch.cat(p) for p in zip(*parts))
+        return ExitHeads(*parts[0])
+    return ExitHeads(*(torch.cat(p) for p in zip(*parts)))
 
 
 exit_head.launches = 0
@@ -110,12 +113,14 @@ exit_head.launches = 0
 
 def exit_heads(hiddens: torch.Tensor, weight: torch.Tensor,
                norm_scales: torch.Tensor, eps: float = 1e-5,
-               quant_exit: Optional[int] = None):
+               quant_exit: Optional[int] = None
+               ) -> Union[ExitHeads, ExitPacket]:
     """The exit heads of E exits over B slots in one launch: hiddens
-    (E, B, d), weight (V, d), norm_scales (E, d) -> (conf (E, B) f32,
-    tok (E, B) int32, lse (E, B) f32), plus (q int8 (B, d), scale f32
-    (B, 1)), the int8 packet of exit ``quant_exit``'s raw rows, when it is
-    given.  E * B above ``MAX_ROWS`` takes one launch per slice of slots."""
+    (E, B, d), weight (V, d), norm_scales (E, d) -> ``ExitHeads`` of shape
+    (E, B); with ``quant_exit``, an ``ExitPacket`` that also holds the
+    int8 packet of that exit's raw rows, q int8 (B, d) and scale f32
+    (B, 1).  E * B above ``MAX_ROWS`` takes one launch per slice of
+    slots."""
     e, b, d = hiddens.shape
     if quant_exit is not None and not 0 <= quant_exit < e:
         raise ValueError(f"exit_heads: quant_exit {quant_exit} is not one "
@@ -139,10 +144,12 @@ def exit_heads(hiddens: torch.Tensor, weight: torch.Tensor,
             None if q is None else q[b0:b0 + nb],
             None if scale is None else scale[b0:b0 + nb]))
         exit_heads.launches += 1
-    conf, tok, lse = (torch.cat([p[i].reshape(e, -1) for p in parts], dim=1)
-                      if len(parts) > 1 else parts[0][i].reshape(e, b)
-                      for i in range(3))
-    return (conf, tok, lse) if q is None else (conf, tok, lse, q, scale)
+    conf, tok, lse, mx = (
+        torch.cat([p[i].reshape(e, -1) for p in parts], dim=1)
+        if len(parts) > 1 else parts[0][i].reshape(e, b) for i in range(4))
+    if q is None:
+        return ExitHeads(conf, tok, lse, mx)
+    return ExitPacket(conf, tok, lse, q, scale, mx)
 
 
 exit_heads.launches = 0

@@ -107,7 +107,6 @@ from repro_torch.core.transport import AsyncSimChannel, CloudServicePoint
 from repro_torch.core.workload import ArrivalProcess, arrival_times
 from repro_torch.data.synthetic import DataConfig, SyntheticCorpus
 from repro_torch.models.registry import build_model
-from repro_torch.models.transformer import mesh_ready
 from repro_torch.serving.adaptive import AdaptiveConfig, ResumeCostModel
 from repro_torch.serving.engine import ServingSystem, token_agreement
 from repro_torch.training.checkpoint import load_checkpoint
@@ -295,9 +294,6 @@ def main(argv=None):
                  "needs --cloud-tp")
     if args.cloud_tp < 0 or args.cloud_dp < 1:
         ap.error("--cloud-tp / --cloud-dp must be positive")
-    if args.cloud_tp and not mesh_ready(arch_cfg):
-        ap.error(f"--arch {args.arch}: the cloud mesh serves dense and MoE "
-                 f"decoders (recurrent and hybrid models: ROADMAP A.11b)")
     if not args.cloud_tp:
         return serve(args)
     world = args.cloud_dp * args.cloud_tp

@@ -23,11 +23,53 @@ heads of its query heads, not a sequence shard, in its caches, and keeps
 activations replicated between blocks: the JAX package's
 sequence-parallel residual (``ShardingPolicy``) is a layout choice of
 GSPMD with no effect on results, so it has no counterpart here.  What a
-rank keeps of a full tensor is ``rank_slices``.
+rank keeps of a full tensor is ``rank_slices``, except where the port
+departs from the rules (``param_share``, ``cache_share``; the rule
+functions themselves stay the JAX package's).  A recurrent block is split
+by its heads (whole on every rank where the axis does not divide them);
+GSPMD's one contiguous block of a packed dimension would give one rank
+``xi`` and the other ``z``, so the port keeps each part's share instead:
+
+  * mLSTM ``w_up`` (d, 2 di): the ``xi`` half whole (it feeds every head's
+    q, k, v and gates through (di, di) products), the rank's heads of the
+    ``z`` half (rule: 2 di in one block); ``conv`` (W, di): whole (rule: di
+    split); ``w_if`` (di, 2 h): the rank's heads of both gate halves
+    (rule: rows split); ``b_if`` (2 h): the same (rule: whole);
+    ``head_norm`` (h, hd): the rank's heads (rule: hd split).  ``wq`` /
+    ``wk`` / ``wv`` (columns) and ``w_down`` (rows) follow the rule.
+  * sLSTM ``wz wi wf wo`` (d, d): the rank's heads' columns (rule: rows);
+    ``rz ri rf ro`` (h, hd, hd): the rank's heads (rule: the first hd);
+    ``b_*`` (d): the rank's heads (rule: whole); ``head_norm`` as mLSTM's;
+    ``ffn_up`` (d, 2 f_ff): whole (rule: columns; ``f_ff = int(4d/3)``
+    divides no model axis, so ``ffn_down`` is whole by the rule too).
+  * Mamba2 ``w_in`` (d, 2 di + 2 n + h), packed ``[z | x | B | C | dt]``:
+    the rank's heads of ``z``, ``x`` and ``dt``, ``B`` and ``C`` whole
+    (every head reads them; rule: one block); ``conv`` (W, di + 2 n) and
+    ``conv_bias``: the rank's ``x`` channels and the whole B, C (rule:
+    one block, and whole); ``a_log`` / ``dt_bias`` / ``d_skip`` (h) and
+    ``gate_norm`` (di): the rank's heads (rule: whole).  ``w_out`` (rows)
+    follows the rule.
+  * caches: dense and cross K/V keep the rank's KV heads (rule: the
+    sequence over ``model``); a recurrent state (GLA ``S`` / ``n`` /
+    ``m``, sLSTM ``c`` / ``n`` / ``m`` / ``h``) keeps the rank's heads
+    (rule: the largest non-batch dimension, inside a head for ``S`` and
+    the sLSTM states); the mLSTM conv tail is whole, Mamba2's keeps the
+    rank's ``x`` channels beside the whole B, C.  Paged pools follow the
+    rule on a ``(1, M)`` mesh (KV heads over ``model``); over a data axis
+    the pool stays whole in every column (ROADMAP A.11b.2).
+
+Everything else of the four families follows the rules: the shared
+attention block's and the encoder's attention and FFN, cross-attention,
+``vis_proj`` (columns; its output is gathered), whisper's odd vocabulary
+(whole: 51865 divides no axis).  ``rank_param_bytes`` is a rank's bytes
+under these shares, ``estimate_param_bytes_per_device`` the rules'.
 
 The collectives take an ``Axis`` (a rank's place on one mesh axis and
 its process group) and are the identity without one, so the
-single-device model runs the same code.  They use only ``all_reduce``:
+single-device model runs the same code; each is counted under a kind
+of its own (``COUNTS``, ``SECONDS``), and none is called inside a
+per-token loop (the sLSTM gathers its heads once a call, after its time
+loop).  They use only ``all_reduce``:
 over NCCL on the cards' tensors, over gloo (ranks that share one card,
 or the CPU) on host tensors, a card's tensor staged through host memory
 (``Axis.staged``).  Sums are taken in float32.
@@ -309,6 +351,121 @@ def rank_slices(spec: Spec, shape: Sequence[int], mesh,
 
 
 # --------------------------------------------------------------------------
+# where the port's shares depart from the rules
+# --------------------------------------------------------------------------
+_RECURRENT_KINDS = ("mlstm", "slstm", "mamba2")
+_SLSTM_GATES = ("z", "i", "f", "o")
+
+
+def recurrent_dims(kind: str, cfg) -> Tuple[int, int, int, int]:
+    """(inner width, heads, head dim, state size) of a recurrent block of
+    ``kind``: the models' ``mlstm_dims``, ``slstm_dims``, ``mamba2_dims``
+    (imported here, since the models import this module)."""
+    from repro_torch.models.mamba2 import mamba2_dims
+    from repro_torch.models.xlstm import mlstm_dims, slstm_dims
+    if kind == "mlstm":
+        return mlstm_dims(cfg) + (0,)
+    if kind == "slstm":
+        h, hd = slstm_dims(cfg)
+        return cfg.d_model, h, hd, 0
+    di, n, h, hp = mamba2_dims(cfg)
+    return di, h, hp, n
+
+
+def head_share(heads: int, axis: Optional["Axis"]
+               ) -> Tuple[int, int, Optional["Axis"]]:
+    """(first head, heads, axis) of a rank's share of a recurrent block's
+    ``heads`` heads: the axis's block when the heads divide it, else every
+    head and no axis (the block is whole on every rank)."""
+    if axis is None or axis.size == 1 or heads % axis.size:
+        return 0, heads, None
+    lo, hi = axis.block(heads)
+    return lo, hi - lo, axis
+
+
+def param_share(kind: Optional[str], name: str, shape: Sequence[int], cfg,
+                m: int) -> Optional[Tuple[int, ...]]:
+    """The local shape a rank of a model axis of ``m`` keeps of parameter
+    ``name`` (its last name) of whole ``shape`` in a block of ``kind``,
+    where the port departs from ``param_pspec``; None where it keeps the
+    rule's share.  A recurrent block whose heads the axis does not divide
+    is whole on every rank."""
+    if kind not in _RECURRENT_KINDS:
+        return None
+    shape = tuple(shape)
+    di, h, hd, n = recurrent_dims(kind, cfg)
+    if h % m:
+        return shape
+    hl = h // m
+    if kind == "mlstm":
+        out = {"w_up": (shape[0], di + di // m), "conv": shape,
+               "w_if": (di, 2 * hl), "b_if": (2 * hl,),
+               "head_norm": (hl, hd)}
+    elif kind == "slstm":
+        out = {"head_norm": (hl, hd), "ffn_up": shape}
+        for g in _SLSTM_GATES:
+            out.update({"w" + g: (di, di // m), "r" + g: (hl, hd, hd),
+                        "b_" + g: (di // m,)})
+    else:
+        out = {"w_in": (shape[0], 2 * di // m + 2 * n + hl),
+               "conv": (shape[0], di // m + 2 * n),
+               "conv_bias": (di // m + 2 * n,), "a_log": (hl,),
+               "dt_bias": (hl,), "d_skip": (hl,), "gate_norm": (di // m,)}
+    return out.get(name)
+
+
+def cache_share(kind: str, name: str, shape: Sequence[int], cfg,
+                m: int) -> Tuple[int, ...]:
+    """The local shape a rank of a model axis of ``m`` keeps of one cache
+    leaf ``name`` of whole ``shape`` of a layer of ``kind``: an attention
+    layer's (dense, cross or paged) K/V and int8 scales its KV heads
+    (``head_split``'s), its markers whole; a recurrent state its heads
+    (dimension 1, batch first), a conv tail whole (mLSTM: ``xi`` is whole)
+    or its ``x`` channels beside the whole B and C (Mamba2)."""
+    shape = list(shape)
+    if kind in _RECURRENT_KINDS:
+        di, h, _, n = recurrent_dims(kind, cfg)
+        if h % m:
+            return tuple(shape)
+        if name == "conv":
+            if kind == "mamba2":
+                shape[-1] = di // m + 2 * n
+        else:
+            shape[1] = h // m
+        return tuple(shape)
+    if name == "pos":
+        return tuple(shape)
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % m == 0:
+        local = kv // m if kv % m == 0 else max(1, (h // m) // (h // kv))
+        shape[-1 if name in ("ks", "vs") else -2] = local
+    return tuple(shape)
+
+
+def rank_param_bytes(leaves: Iterable[tuple], mesh, cfg) -> float:
+    """Bytes of parameters a rank of ``mesh``'s model axis holds of
+    ``cfg``'s model (no FSDP, head-aligned): ``leaves`` yields (the port's
+    parameter name split at dots, whole shape, itemsize, block kind or
+    None); a leaf's share is ``param_share``'s where the port departs from
+    the rules, else ``layer_pspec``'s."""
+    m = _axis_size(mesh, "model")
+    total = 0.0
+    for names, shape, itemsize, kind in leaves:
+        local = param_share(kind, names[-1], shape, cfg, m)
+        if local is None:
+            spec = layer_pspec(names, shape, mesh,
+                               head_dim=cfg.resolved_head_dim)
+            sl = rank_slices(spec, shape, mesh,
+                             {a: 0 for a in mesh.axis_names})
+            local = [len(range(*s.indices(k))) for s, k in zip(sl, shape)]
+        n = 1
+        for k in local:
+            n *= k
+        total += n * itemsize
+    return total
+
+
+# --------------------------------------------------------------------------
 # collectives
 # --------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -331,7 +488,7 @@ class Axis:
 # collective calls made by this process, by kind, and the host seconds
 # spent in them (``reset_counts`` zeroes both)
 _KINDS = ("reduce_model", "embed_lookup", "gather_vocab", "merge_exits",
-          "gather_rows")
+          "gather_rows", "gather_heads", "sum_squares")
 COUNTS = dict.fromkeys(_KINDS, 0)
 SECONDS = dict.fromkeys(_KINDS, 0.0)
 
@@ -397,21 +554,17 @@ def gather_vocab(logits: torch.Tensor, axis: Optional[Axis],
 
 
 def merge_exits(conf: torch.Tensor, tok: torch.Tensor, lse: torch.Tensor,
-                axis: Optional[Axis], vocab_local: int):
+                mx: torch.Tensor, axis: Optional[Axis], vocab_local: int):
     """Merge the exit heads of each rank's vocabulary slice: (conf, tok,
-    lse), each (E, B), of the local slice -> the same of the whole
-    vocabulary on every rank.  A row's max logit is log(conf) + lse; the
-    global lse is the logsumexp of the ranks' lse; the token is the
-    local argmax plus its rank's offset, the lowest rank winning a tie;
-    conf = exp(max - lse).  One sum over the group carries every rank's
-    three numbers a row.  The rebuilt max logit carries about one ulp of
-    the lse in rounding (near 1e-6 at lse 12 in float32), while a single
-    device compares the raw logits: where two ranks' slices tie closer
-    than that, the merged token can differ from the single device's
-    (ROADMAP §C)."""
+    lse, mx), each (E, B), of the local slice (``mx`` the exit kernel's
+    raw max logit) -> (conf, tok, lse) of the whole vocabulary on every
+    rank.  The ranks compare their raw max logits, as a single device
+    compares its logits, the lowest rank winning a tie (its tokens come
+    first); the token is that rank's argmax plus its offset; the global
+    lse is the logsumexp of the ranks' lse; conf = exp(max - lse).  One
+    sum over the group carries every rank's three numbers a row."""
     if not _live(axis):
         return conf, tok, lse
-    mx = torch.log(conf) + lse
     parts = torch.zeros((axis.size, 3) + tuple(conf.shape),
                         dtype=torch.float32, device=conf.device)
     parts[axis.index, 0] = mx
@@ -422,6 +575,32 @@ def merge_exits(conf: torch.Tensor, tok: torch.Tensor, lse: torch.Tensor,
     glse = torch.logsumexp(parts[:, 1], dim=0)
     token = parts[:, 2].gather(0, who[None])[0].to(torch.int32)
     return torch.exp(best - glse), token, glse
+
+
+def gather_heads(x: torch.Tensor, axis: Optional[Axis], index: slice,
+                 n: int, dim: int = -1) -> torch.Tensor:
+    """A rank's entries ``index`` of a tensor whose dimension ``dim`` is
+    ``n`` whole -> the whole tensor on every rank: a zero buffer, each
+    rank writes its entries, the model group sums (exact).  Without a live
+    axis, or with ``x`` whole already, it is ``x``."""
+    dim %= x.dim()
+    if not _live(axis) or x.shape[dim] == n:
+        return x
+    shape = list(x.shape)
+    shape[dim] = n
+    full = torch.zeros(shape, dtype=torch.float32, device=x.device)
+    full[(slice(None),) * dim + (index,)] = x
+    return _all_reduce(full, axis, "gather_heads").to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:
+    """The float32 sum of squares over the last dimension of ``x`` (keepdim),
+    summed over the model group: a norm over a dimension the ranks split
+    (each rank's partial sum, one sum over the group)."""
+    ss = x.float().square().sum(-1, keepdim=True)
+    if not _live(axis):
+        return ss
+    return _all_reduce(ss, axis, "sum_squares")
 
 
 def gather_rows(x: torch.Tensor, axis: Optional[Axis], lo: int,

@@ -94,7 +94,7 @@ class MLP(nn.Module):
         kw = dict(device=device, dtype=dtype)
         if cfg.mlp_kind == "gelu":
             self.w1 = nn.Parameter(torch.empty(d, f, **kw))
-            self.b1 = nn.Parameter(torch.empty(f, **kw))
+            self.b1 = nn.Parameter(torch.empty(cfg.d_ff, **kw))
             self.w2 = nn.Parameter(torch.empty(f, d, **kw))
             self.b2 = nn.Parameter(torch.empty(d, **kw))
         else:
@@ -127,7 +127,7 @@ class DecoderBlock(nn.Module):
         norms = ["ln1", "ln2"]
         if kind != MOE and (cfg.is_encdec if with_cross is None
                             else with_cross):
-            self.cross = Attention(cfg, **kw)
+            self.cross = Attention(cfg, axis=axis, **kw)
             norms.append("lnx")
         parts = ("_scale", "_bias") if cfg.norm_type == "layernorm" else (
             "_scale",)
@@ -161,9 +161,10 @@ _RECURRENT = {
 def make_block(cfg: ModelConfig, kind: str, *, device, dtype,
                axis: Optional[Axis] = None) -> nn.Module:
     """The parameters of one layer of ``kind`` (a rank's share under a
-    model ``axis``; attention kinds only)."""
+    model ``axis``)."""
     if kind in _RECURRENT:
-        return _RECURRENT[kind].module(cfg, device=device, dtype=dtype)
+        return _RECURRENT[kind].module(cfg, device=device, dtype=dtype,
+                                       axis=axis)
     return DecoderBlock(cfg, kind, device=device, dtype=dtype, axis=axis)
 
 
@@ -227,12 +228,15 @@ def _cross_cache(cfg: ModelConfig, kind: str, batch: int, device,
 
 def init_block_cache(cfg: ModelConfig, batch: int, max_seq: int,
                      window: int, *, kind: str = DENSE, device=None,
-                     dtype=torch.float32,
-                     kv_heads: Optional[int] = None) -> Cache:
+                     dtype=torch.float32, kv_heads: Optional[int] = None,
+                     axis: Optional[Axis] = None) -> Cache:
     """One layer's dense cache; ``kv_heads``: the KV heads a rank keeps
-    under a model axis (default the configuration's)."""
+    under a model axis (default the configuration's); ``axis``: that
+    model axis, whose share of a recurrent block's heads the state
+    keeps."""
     if kind in _RECURRENT:
-        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
+        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype,
+                                      axis=axis)
     return {"self": init_attn_cache(cfg, batch, max_seq, window=window,
                                     device=device, dtype=dtype,
                                     kv_heads=kv_heads),
@@ -243,14 +247,16 @@ def init_block_cache_paged(cfg: ModelConfig, num_pages: int, page_size: int,
                            *, kind: str = DENSE, batch: int = 0, device=None,
                            dtype=torch.float32,
                            kv_dtype: str = "float32",
-                           kv_heads: Optional[int] = None) -> Cache:
+                           kv_heads: Optional[int] = None,
+                           axis: Optional[Axis] = None) -> Cache:
     """Paged variant: self-attention K/V lives in the shared page pool (no
     batch axis — rows address it through their block table);
     ``kv_dtype="int8"`` stores the pages quantized with per-row scales.
     Recurrent state and the cross entry stay dense per row (``batch``
-    rows)."""
+    rows); ``kv_heads``, ``axis`` as ``init_block_cache``."""
     if kind in _RECURRENT:
-        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype)
+        return _RECURRENT[kind].cache(cfg, batch, device=device, dtype=dtype,
+                                      axis=axis)
     return {"self": init_paged_attn_cache(cfg, num_pages, page_size,
                                           device=device, dtype=dtype,
                                           kv_dtype=kv_dtype,

@@ -32,6 +32,13 @@ def map_tensors(tree: Tree, fn: Callable,
     return tree
 
 
+def map_named(tree: Tree, fn: Callable[[str, torch.Tensor], Any]) -> Tree:
+    """A tree of nested dicts rebuilt with ``fn(key, leaf)`` applied to
+    every tensor, ``key`` the leaf's own key (``"S"``, ``"conv"``, ...)."""
+    return {k: map_named(v, fn) if isinstance(v, dict) else fn(k, v)
+            for k, v in tree.items()}
+
+
 def commit(cache: Tree, new: Tree,
            mask: Optional[torch.Tensor] = None) -> Tree:
     """Write the ``new`` state tree into ``cache`` in place; with ``mask``

@@ -31,15 +31,19 @@ load-balance losses summed into ``aux_loss``.
 Under a model ``axis`` (a rank of the cloud mesh, ``launch/mesh.py``) the
 model is that rank's share of the single-device model, split by the JAX
 package's rules (``launch/sharding.py``): the embedding (and ``lm_head``)
-over the vocabulary, the attention heads, the FFN's d_ff and the
-experts' d_ff; norms and routers whole.  ``embed_tokens`` goes through
-``embed_lookup``, ``logits`` / ``exit_logits`` through ``gather_vocab``,
-the blocks sum their row-parallel products (``reduce_model``), and the
-caches keep the rank's KV heads; activations stay whole between blocks.
-``init`` draws each parameter whole from the generator, one at a time,
-and keeps the rank's slice, so a rank holds exactly its share of the
-single-device model and never the whole model.  Dense and MoE decoders
-only (recurrent, hybrid and encoder-decoder models: ROADMAP A.11b).
+over the vocabulary, the attention heads (self, cross, the shared block's
+and the encoder's), the FFN's d_ff, the experts' d_ff, the recurrent
+blocks' heads and ``vis_proj``'s columns; norms and routers whole.  Where
+the port's share departs from the rules (the packed projections of the
+recurrent blocks) ``launch/sharding.py`` lists it.  ``embed_tokens`` goes
+through ``embed_lookup``, ``logits`` / ``exit_logits`` through
+``gather_vocab``, the blocks sum their row-parallel products
+(``reduce_model``), the patches' projection is gathered
+(``gather_heads``), and the caches keep the rank's KV heads and
+recurrent heads; activations stay whole between blocks.  ``init`` draws
+each parameter whole from the generator, one at a time, and keeps the
+rank's share, so a rank holds exactly its share of the single-device
+model and never the whole model.
 """
 from __future__ import annotations
 
@@ -51,8 +55,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import DENSE, MOE, SHARED_ATTN, ModelConfig
-from repro_torch.launch.sharding import Axis, embed_lookup, gather_vocab
+from repro_torch.configs.base import DENSE, SHARED_ATTN, ModelConfig
+from repro_torch.launch.sharding import (Axis, embed_lookup, gather_heads,
+                                         gather_vocab)
 from repro_torch.models import cache_tree
 from repro_torch.models.attention import head_split
 from repro_torch.models.blocks import (ATTN_KINDS, BlockCtx, DecoderBlock,
@@ -103,23 +108,17 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
     return tuple(segs)
 
 
-def mesh_ready(cfg: ModelConfig) -> bool:
-    """Whether the cloud mesh serves ``cfg``: a decoder of dense and MoE
-    blocks, with neither encoder nor vision prefix."""
-    return (all(k in (DENSE, MOE) for k in cfg.block_kinds())
-            and not cfg.is_encdec and not cfg.vision_tokens)
-
-
 class Encoder(nn.Module):
     """Whisper's encoder: ``layers.<i>`` dense blocks without cross
     attention and the final ``norm`` (``scale`` and ``bias`` under a layer
     norm)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         self.layers = nn.ModuleList(
             DecoderBlock(cfg, DENSE, device=device, dtype=dtype,
-                         with_cross=False)
+                         with_cross=False, axis=axis)
             for _ in range(cfg.encoder_layers))
         self.norm = _final_norm_params(cfg, device=device, dtype=dtype)
 
@@ -184,11 +183,6 @@ class Model(nn.Module):
         self.dtype = dtype
         if axis is not None and axis.size == 1:
             axis = None
-        if axis is not None and not mesh_ready(cfg):
-            raise NotImplementedError(
-                f"{cfg.name}: the cloud mesh serves dense and MoE decoders; "
-                f"recurrent, hybrid and encoder-decoder models on it are "
-                f"ROADMAP A.11b")
         self.axis = axis
         self.kv_heads = head_split(cfg, axis).kv_heads
         kw = dict(device=device, dtype=dtype)
@@ -202,12 +196,15 @@ class Model(nn.Module):
             for kind in cfg.block_kinds())
         if any(s.shared for s in self.segments):
             self.shared = DecoderBlock(cfg, SHARED_ATTN, device=device,
-                                       dtype=dtype)
+                                       dtype=dtype, axis=axis)
         self.final_norm = _final_norm_params(cfg, **kw)
         if cfg.is_encdec:
-            self.encoder = Encoder(cfg, **kw)
+            self.encoder = Encoder(cfg, axis=axis, **kw)
         if cfg.vision_tokens:
-            self.vis_proj = nn.Parameter(torch.empty(d, d, **kw))
+            # column-parallel; its columns are gathered (embed_inputs)
+            dv = d // axis.size if axis is not None and d % axis.size == 0 \
+                else d
+            self.vis_proj = nn.Parameter(torch.empty(d, dv, **kw))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(v, d, **kw))
         # per-exit read-out norms; the heads share the unembedding
@@ -224,15 +221,21 @@ class Model(nn.Module):
     # the rank's share
     # ------------------------------------------------------------------
     def _shards(self) -> Dict[str, Tuple[Tuple[int, ...], tuple]]:
-        """{name: (whole shape, the rank's slices)} of every parameter the
+        """{name: (whole shape, the rank's index)} of every parameter the
         constructors split over the model axis: the one dimension in
         which it is smaller than the single-device model's, of which the
-        rank keeps its ``axis.block`` (``tests/test_torch_sharding.py``
-        holds these against the JAX package's rules, leaf by leaf)."""
+        rank keeps its ``axis.block`` (a slice), or the positions its
+        module's ``shares`` names (a list: a packed projection's parts).
+        ``tests/test_torch_sharding.py`` holds these against the JAX
+        package's rules and ``sharding.param_share``, leaf by leaf."""
         if self.axis is None:
             return {}
         whole = {n: tuple(p.shape) for n, p in
                  Model(self.cfg, device="meta").named_parameters()}
+        shares = {}
+        for prefix, mod in self.named_modules():
+            for leaf, share in getattr(mod, "shares", {}).items():
+                shares[f"{prefix}.{leaf}" if prefix else leaf] = share
         out = {}
         for name, p in self.named_parameters():
             shape = whole[name]
@@ -241,7 +244,10 @@ class Model(nn.Module):
                 continue
             (dim,) = split
             sl = [slice(None)] * len(shape)
-            sl[dim] = slice(*self.axis.block(shape[dim]))
+            if name in shares:
+                dim, sl[dim] = shares[name]
+            else:
+                sl[dim] = slice(*self.axis.block(shape[dim]))
             out[name] = (shape, tuple(sl))
         return out
 
@@ -292,7 +298,8 @@ class Model(nn.Module):
                 with self._whole(*block.parameters()):
                     init_block(block, cfg, gen)
         if hasattr(self, "shared"):
-            init_block(self.shared, cfg, gen)
+            with self._whole(*self.shared.parameters()):
+                init_block(self.shared, cfg, gen)
         _init_final_norm(self.final_norm)
         if not cfg.tie_embeddings:
             with self._whole(self.lm_head):
@@ -301,10 +308,12 @@ class Model(nn.Module):
             w.zero_()
         if cfg.is_encdec:
             for block in self.encoder.layers:
-                init_block(block, cfg, gen)
+                with self._whole(*block.parameters()):
+                    init_block(block, cfg, gen)
             _init_final_norm(self.encoder.norm)
         if cfg.vision_tokens:
-            dense_init_(self.vis_proj, gen)
+            with self._whole(self.vis_proj):
+                dense_init_(self.vis_proj, gen)
         return self
 
     # ------------------------------------------------------------------
@@ -387,6 +396,11 @@ class Model(nn.Module):
         elif cfg.vision_tokens:
             vis = batch["patches"].to(self.dtype) @ self.vis_proj.to(
                 self.dtype)
+            dv = self.vis_proj.shape[1]
+            vis = gather_heads(vis, self.axis,
+                               slice(*self.axis.block(cfg.d_model))
+                               if dv < cfg.d_model else slice(None),
+                               cfg.d_model)
             x = torch.cat([vis, self.embed_tokens(tokens)], dim=1)
             prefix = vis.shape[1]
         else:
@@ -467,7 +481,7 @@ class Model(nn.Module):
                                       self.segments[si].window,
                                       kind=self.segments[si].kind,
                                       device=self.device, dtype=self.dtype,
-                                      kv_heads=self.kv_heads)
+                                      kv_heads=self.kv_heads, axis=self.axis)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
@@ -495,7 +509,8 @@ class Model(nn.Module):
                                             batch=batch, device=self.device,
                                             dtype=self.dtype,
                                             kv_dtype=kv_dtype,
-                                            kv_heads=self.kv_heads)
+                                            kv_heads=self.kv_heads,
+                                            axis=self.axis)
                      for _ in range(self.segments[si].length)]
                 for si in seg_indices}
 
@@ -521,6 +536,22 @@ class Model(nn.Module):
                 if "self" in c:
                     c["self"]["pos"][:, true_len:] = -1
         return caches
+
+    def whole_state(self, caches: Caches) -> Caches:
+        """The recurrent state in ``caches`` as the single-device model
+        holds it ({segment: [state of each layer]}, recurrent segments
+        only): under a model axis each leaf the rank keeps a share of is
+        gathered over the group (``gather_heads``), so a state packet built
+        from it (``transport.make_packet``) dequantizes to the single
+        device's values and weighs what the single device's does."""
+        out = {}
+        for si, layers in caches.items():
+            if self.segments[si].kind in ATTN_KINDS:
+                continue
+            out[si] = [cache_tree.map_named(
+                c, self.block(si, j).whole_state_leaf)
+                for j, c in enumerate(layers)]
+        return out
 
     def reset_state(self, caches: Caches) -> Caches:
         """Zero the recurrent state of ``caches`` in place: a prefill into

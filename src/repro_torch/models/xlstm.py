@@ -10,6 +10,22 @@ package's pytree.  The recurrent state is float32 in a model of any
 dtype; the conv state is in the model's dtype.  Caches are written in
 place (``cache_tree.commit``): a decode row whose write mask is False
 keeps its state bit for bit.
+
+Under a model ``axis`` (a rank of the cloud mesh) each block is the rank's
+share of its heads (``sharding.head_share``; whole on every rank when the
+heads do not divide the axis).  mLSTM: the columns of ``wq`` / ``wk`` /
+``wv``, both gate columns of its heads in ``w_if`` / ``b_if``, their rows
+of ``head_norm``, the ``z`` half of ``w_up`` and the rows of ``w_down``,
+whose partial products the model group sums.  The ``xi`` half of
+``w_up`` and the conv stay whole on every rank: ``xi`` feeds every head's
+q, k, v and gates through (di, di) products, so a rank computes it whole
+(``(d + W) * di`` parameters a rank beside its share) instead of
+gathering it.  sLSTM: the columns of ``wz wi wf wo``, ``rz ri rf ro`` on
+their head axis, ``b_*`` and ``head_norm``; the block has no output
+projection, so its heads' outputs are gathered (``gather_heads``) once a
+call, after the time loop, and its FFN is whole on every rank
+(``f_ff = int(4d/3)`` divides no model axis of 2 or 4).  The states keep
+the rank's heads.
 """
 from __future__ import annotations
 
@@ -21,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.sharding import (Axis, gather_heads, head_share,
+                                         reduce_model)
 from repro_torch.models import gla
 from repro_torch.models.cache_tree import commit
 from repro_torch.models.common import dense_init_, rms_norm
@@ -77,25 +95,57 @@ def mlstm_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
     return di, h, di // h
 
 
-class MLSTMBlock(nn.Module):
-    kind = "mlstm"
+def _span(lo: int, hi: int) -> list:
+    return list(range(lo, hi))
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+
+def _whole_state_leaf(block: nn.Module, name: str,
+                      t: torch.Tensor) -> torch.Tensor:
+    """The single-device model's state leaf ``name`` from the rank's
+    ``t`` (batch first, heads second): its heads gathered over the model
+    group; an mLSTM's conv tail (of the whole ``xi``) is whole already."""
+    if block.axis is None or name == "conv":
+        return t
+    return gather_heads(t, block.axis,
+                        slice(block.h0, block.h0 + block.heads),
+                        block.heads * block.axis.size, dim=1)
+
+
+class MLSTMBlock(nn.Module):
+    """``heads`` heads from ``h0`` (all of them without a model axis);
+    ``shares``: the parameters the rank keeps at positions that are not
+    one block of one dimension (``Model`` reads them)."""
+    kind = "mlstm"
+    whole_state_leaf = _whole_state_leaf
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         d = cfg.d_model
         di, h, hd = mlstm_dims(cfg)
+        self.h0, hl, self.axis = head_share(h, axis)
+        self.heads, self.hd = hl, hd
+        dl = hl * hd
         conv_w = cfg.ssm.conv_width if cfg.ssm else 4
         kw = dict(device=device, dtype=dtype)
         self.norm = nn.Parameter(torch.empty(d, **kw))
-        self.w_up = nn.Parameter(torch.empty(d, 2 * di, **kw))
+        self.w_up = nn.Parameter(torch.empty(d, di + dl, **kw))
         self.conv = nn.Parameter(torch.empty(conv_w, di, **kw))
-        self.wq = nn.Parameter(torch.empty(di, di, **kw))
-        self.wk = nn.Parameter(torch.empty(di, di, **kw))
-        self.wv = nn.Parameter(torch.empty(di, di, **kw))
-        self.w_if = nn.Parameter(torch.empty(di, 2 * h, **kw))
-        self.b_if = nn.Parameter(torch.empty(2 * h, **kw))
-        self.head_norm = nn.Parameter(torch.empty(h, hd, **kw))
-        self.w_down = nn.Parameter(torch.empty(di, d, **kw))
+        self.wq = nn.Parameter(torch.empty(di, dl, **kw))
+        self.wk = nn.Parameter(torch.empty(di, dl, **kw))
+        self.wv = nn.Parameter(torch.empty(di, dl, **kw))
+        self.w_if = nn.Parameter(torch.empty(di, 2 * hl, **kw))
+        self.b_if = nn.Parameter(torch.empty(2 * hl, **kw))
+        self.head_norm = nn.Parameter(torch.empty(hl, hd, **kw))
+        self.w_down = nn.Parameter(torch.empty(dl, d, **kw))
+        self.shares = {}
+        if self.axis is not None:
+            g0, g1 = self.h0, self.h0 + hl
+            gates = _span(g0, g1) + _span(h + g0, h + g1)
+            self.shares = {"w_up": (1, _span(0, di) + _span(di + g0 * hd,
+                                                            di + g1 * hd)),
+                           "w_if": (1, gates), "b_if": (0, gates)}
+
 
 
 @torch.no_grad()
@@ -112,18 +162,19 @@ def init_mlstm_block(p: MLSTMBlock, gen: torch.Generator) -> None:
     p.head_norm.zero_()
 
 
-def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device,
-                     dtype) -> Cache:
+def init_mlstm_cache(cfg: ModelConfig, batch: int, *, device, dtype,
+                     axis: Optional[Axis] = None) -> Cache:
     di, h, hd = mlstm_dims(cfg)
+    hl = head_share(h, axis)[1]
     conv_w = cfg.ssm.conv_width if cfg.ssm else 4
-    return {"gla": gla.init_gla_state(batch, h, hd, hd, device=device),
+    return {"gla": gla.init_gla_state(batch, hl, hd, hd, device=device),
             "conv": torch.zeros((batch, conv_w - 1, di), device=device,
                                 dtype=dtype)}
 
 
 def _mlstm_qkv_gates(p: MLSTMBlock, cfg: ModelConfig, xi: torch.Tensor,
                      xc: torch.Tensor):
-    di, h, hd = mlstm_dims(cfg)
+    h, hd = p.heads, p.hd
     b, s, _ = xi.shape
 
     def heads(t):
@@ -143,18 +194,18 @@ def mlstm_forward(p: MLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
                   state: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence mLSTM block, x: (B,S,d), from ``state``'s GLA state
     (zero when None).  Returns (out, the state after x)."""
-    di, h, hd = mlstm_dims(cfg)
+    di = mlstm_dims(cfg)[0]
     b, s, _ = x.shape
     xn = rms_norm(x, p.norm, cfg.norm_eps)
-    xi, z = (xn @ p.w_up.to(x.dtype)).chunk(2, -1)
+    xi, z = (xn @ p.w_up.to(x.dtype)).split([di, p.heads * p.hd], -1)
     xc = F.silu(causal_conv1d(xi, p.conv))
     q, k, v, lf, li = _mlstm_qkv_gates(p, cfg, xi, xc)
     chunk = cfg.ssm.chunk_size if cfg.ssm else 256
     y, gnew = gla.chunked_gla(q, k, v, lf, li, normalize=True, chunk=chunk,
                               state=state["gla"] if state else None)
     y = per_head_rmsnorm(y, p.head_norm, cfg.norm_eps)
-    y = y.transpose(1, 2).reshape(b, s, di) * F.silu(z)
-    out = x + y @ p.w_down.to(x.dtype)
+    y = y.transpose(1, 2).reshape(b, s, -1) * F.silu(z)
+    out = x + reduce_model(y @ p.w_down.to(x.dtype), p.axis)
     return out, {"gla": gnew, "conv": conv_tail(xi, p.conv.shape[0])}
 
 
@@ -163,17 +214,17 @@ def mlstm_decode(p: MLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Cache]:
     """x: (B,1,d); ``cache`` updated in place (rows outside
     ``write_mask`` kept)."""
-    di, h, hd = mlstm_dims(cfg)
+    di = mlstm_dims(cfg)[0]
     xn = rms_norm(x, p.norm, cfg.norm_eps)
-    xi, z = (xn @ p.w_up.to(x.dtype)).chunk(2, -1)
+    xi, z = (xn @ p.w_up.to(x.dtype)).split([di, p.heads * p.hd], -1)
     yc, conv_state = conv_decode_step(xi, cache["conv"], p.conv)
     q, k, v, lf, li = _mlstm_qkv_gates(p, cfg, xi, F.silu(yc))
     y1, gnew = gla.gla_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                                    lf[:, :, 0], li[:, :, 0], cache["gla"],
                                    normalize=True)
     y = per_head_rmsnorm(y1[:, :, None], p.head_norm, cfg.norm_eps)
-    y = y.transpose(1, 2).reshape(x.shape[0], 1, di).to(x.dtype) * F.silu(z)
-    out = x + y @ p.w_down.to(x.dtype)
+    y = y.transpose(1, 2).reshape(x.shape[0], 1, -1).to(x.dtype) * F.silu(z)
+    out = x + reduce_model(y @ p.w_down.to(x.dtype), p.axis)
     commit(cache, {"gla": gnew, "conv": conv_state}, write_mask)
     return out, cache
 
@@ -190,21 +241,29 @@ _SLSTM_GATES = ("z", "i", "f", "o")
 
 
 class SLSTMBlock(nn.Module):
+    """``heads`` heads from ``h0`` (all of them without a model axis)."""
     kind = "slstm"
+    whole_state_leaf = _whole_state_leaf
 
-    def __init__(self, cfg: ModelConfig, *, device, dtype):
+    def __init__(self, cfg: ModelConfig, *, device, dtype,
+                 axis: Optional[Axis] = None):
         super().__init__()
         d = cfg.d_model
         h, hd = slstm_dims(cfg)
+        self.h0, hl, self.axis = head_share(h, axis)
+        self.heads, self.hd = hl, hd
         f_ff = int(d * 4 / 3)
         kw = dict(device=device, dtype=dtype)
         self.norm = nn.Parameter(torch.empty(d, **kw))
         for g in _SLSTM_GATES:
-            setattr(self, "w" + g, nn.Parameter(torch.empty(d, d, **kw)))
-            setattr(self, "r" + g, nn.Parameter(torch.empty(h, hd, hd, **kw)))
-            setattr(self, "b_" + g, nn.Parameter(torch.empty(d, **kw)))
-        self.head_norm = nn.Parameter(torch.empty(h, hd, **kw))
+            setattr(self, "w" + g,
+                    nn.Parameter(torch.empty(d, hl * hd, **kw)))
+            setattr(self, "r" + g, nn.Parameter(torch.empty(hl, hd, hd,
+                                                            **kw)))
+            setattr(self, "b_" + g, nn.Parameter(torch.empty(hl * hd, **kw)))
+        self.head_norm = nn.Parameter(torch.empty(hl, hd, **kw))
         self.norm2 = nn.Parameter(torch.empty(d, **kw))
+
         self.ffn_up = nn.Parameter(torch.empty(d, 2 * f_ff, **kw))
         self.ffn_down = nn.Parameter(torch.empty(f_ff, d, **kw))
 
@@ -226,8 +285,9 @@ def init_slstm_block(p: SLSTMBlock, gen: torch.Generator) -> None:
 
 
 def init_slstm_cache(cfg: ModelConfig, batch: int, *, device,
-                     dtype=None) -> Cache:
+                     dtype=None, axis: Optional[Axis] = None) -> Cache:
     h, hd = slstm_dims(cfg)
+    h = head_share(h, axis)[1]
     return {k: torch.zeros((batch, h, hd), device=device)
             for k in ("c", "n", "m", "h")}
 
@@ -270,15 +330,25 @@ def _slstm_ffn(p: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor
     return x + (F.silu(g) * u) @ p.ffn_down.to(x.dtype)
 
 
+def _slstm_out(p: SLSTMBlock, hs: torch.Tensor, d: int) -> torch.Tensor:
+    """(B, heads, S, hd) normed head outputs -> (B, S, d): the rank's
+    heads' columns, gathered over the model group."""
+    b, _, s, _ = hs.shape
+    y = hs.transpose(1, 2).reshape(b, s, -1)
+    hd = p.hd
+    return gather_heads(y, p.axis, slice(p.h0 * hd, (p.h0 + p.heads) * hd),
+                        d)
+
+
 def slstm_forward(p: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
                   state: Optional[Cache] = None) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence sLSTM block (a time loop over S), from ``state``
     (zero when None).  Returns (out, the state after x)."""
-    h, hd = slstm_dims(cfg)
+    h, hd = p.heads, p.hd
     b, s, d = x.shape
     with span("slstm", x.device):
         xn = rms_norm(x, p.norm, cfg.norm_eps)
-        st = state or init_slstm_cache(cfg, b, device=x.device)
+        st = state or init_slstm_cache(cfg, b, device=x.device, axis=p.axis)
         pre = _slstm_inputs(p, xn)
         rec = {g: getattr(p, "r" + g).float() for g in _SLSTM_GATES}
         hs = []
@@ -288,20 +358,19 @@ def slstm_forward(p: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
                                     st, h, hd)
             hs.append(h_out)
         hs = per_head_rmsnorm(torch.stack(hs, 2), p.head_norm, cfg.norm_eps)
-        x = x + hs.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+        x = x + _slstm_out(p, hs, d).to(x.dtype)
         return _slstm_ffn(p, cfg, x), st
 
 
 def slstm_decode(p: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
                  cache: Cache, write_mask: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Cache]:
-    h, hd = slstm_dims(cfg)
     b, _, d = x.shape
     xn = rms_norm(x, p.norm, cfg.norm_eps)
     pre = {g: v[:, 0] for g, v in _slstm_inputs(p, xn).items()}
     rec = {g: getattr(p, "r" + g).float() for g in _SLSTM_GATES}
-    h_out, new = _slstm_cell(rec, pre, cache, h, hd)
+    h_out, new = _slstm_cell(rec, pre, cache, p.heads, p.hd)
     hs = per_head_rmsnorm(h_out[:, :, None], p.head_norm, cfg.norm_eps)
-    x = x + hs[:, :, 0].reshape(b, 1, d).to(x.dtype)
+    x = x + _slstm_out(p, hs, d).to(x.dtype)
     commit(cache, new, write_mask)
     return _slstm_ffn(p, cfg, x), cache

@@ -89,13 +89,18 @@ def _scatter_row(full: Pytree, row: Pytree, j: int) -> Pytree:
     return full
 
 
-def _scatter_row_paged(full: Pytree, row: Pytree, j: int,
+def _scatter_row_paged(full: Pytree, row: Pytree, j: Optional[int],
                        pages: np.ndarray) -> Pytree:
     """Paged admission scatter: self-attention K/V of the prefilled row is
     written into its allocated physical pages (``pages``: one id per
     logical prompt page, -1 entries redirect to the trash page); any other
     cache leaf is a dense per-row scatter at row j exactly like the dense
-    layout."""
+    layout.  A pool of a data column's rows [lo, hi) (``RowCaches``)
+    writes every row's pages (the pool is whole in every column) and
+    only its own rows' dense entries (``j`` None: not this column's)."""
+    rows = getattr(full, "rows", None)
+    if rows is not None:
+        j = j - rows[0] if rows[0] <= j < rows[1] else None
     if isinstance(full, dict):
         if "kp" in full:
             return paged_scatter_prefill(full, row, pages)
@@ -106,7 +111,7 @@ def _scatter_row_paged(full: Pytree, row: Pytree, j: int,
         for f, r in zip(full, row):
             _scatter_row_paged(f, r, j, pages)
         return full
-    return _put_row(full, row, j)
+    return full if j is None else _put_row(full, row, j)
 
 
 def _reset_pages_tree(caches: Pytree, pages) -> Pytree:

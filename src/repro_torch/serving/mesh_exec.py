@@ -16,7 +16,9 @@ One ``MeshContext`` per ``CoLLM`` owns
     those rows, and the replies are gathered to every rank
     (``sharding.gather_rows``); a batch it does not divide runs whole in
     every column.  Paged pools have no batch axis and stay whole in every
-    column; each column writes only its rows' pages;
+    column; each column writes only its rows' pages, and a paged tree's
+    dense per-row entries (recurrent state, cross caches: batch first)
+    hold the column's rows only;
   * ``check_streams``: a run under a mesh ends by gathering every rank's
     token streams and raising if any differ.
 

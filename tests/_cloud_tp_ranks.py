@@ -11,6 +11,7 @@ import torch
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.collm import CoLLM, CollmConfig
+from repro_torch.core.exits import evaluate_exits
 from repro_torch.launch import sharding as tsh
 from repro_torch.launch.mesh import make_cloud_mesh
 from repro_torch.models import moe as tmoe
@@ -77,6 +78,33 @@ def exit_probe(model):
     return torch.randn((2, 3, model.cfg.d_model), generator=g)
 
 
+TIE_TOKENS = (10, 84)       # on the model axis' ranks 0 and 1 at (2, 4)
+
+
+def tie_probe(eps):
+    """Two exits of two rows and a whole (256, 128) unembedding whose best
+    logits, of ``TIE_TOKENS``, lie on two ranks' vocabulary slices one
+    float32 step apart, far closer than a step of the lse: row 0's higher
+    one on the lower rank, row 1's on the higher.  Each row is one-hot
+    (row b on column b), and a token's logit is its weight there times the
+    row's normed 1, a single rounding in any order of summation; every
+    other logit is 0.  Returns (hiddens (E, B, d), weight (V, d), norm
+    scales (E, d))."""
+    d, v = TP_CFG.d_model, TP_CFG.vocab_size
+    h = torch.zeros((2, 2, d))
+    h[:, 0, 0] = h[:, 1, 1] = 1.0
+    hn = float(torch.rsqrt(torch.tensor(1.0 / d) + eps))
+    lo = torch.tensor(0.5 / hn, dtype=torch.float32)
+    low = lo * torch.tensor(hn, dtype=torch.float32)
+    hi = lo
+    while hi * torch.tensor(hn, dtype=torch.float32) <= low:
+        hi = torch.nextafter(hi, torch.tensor(1.0))
+    w = torch.zeros((v, d))
+    a, b = TIE_TOKENS
+    w[a, 0], w[b, 0], w[a, 1], w[b, 1] = hi, lo, lo, hi
+    return h, w, torch.zeros((2, d))
+
+
 def tp_rank(rank, world, dims, np_params):
     """Everything the tiny-ee-tp tests read, from one rank of ``dims``."""
     mesh = make_cloud_mesh(dims, device="cpu")
@@ -115,6 +143,13 @@ def tp_rank(rank, world, dims, np_params):
     dec = system.collm.exit_decisions({1: exit_probe(model)[0],
                                        2: exit_probe(model)[1]})
     out["exits"] = {l: (d.token, d.confidence) for l, d in dec.items()}
+    # the same merge on two slices whose best logits nearly tie
+    h, w, ns = tie_probe(TP_CFG.norm_eps)
+    axis = mesh.model_axis
+    lo, hi = axis.block(w.shape[0])
+    decs, _ = evaluate_exits(list(h), w[lo:hi], ns, TP_CFG.norm_eps,
+                             axis=axis)
+    out["tie_exits"] = [(d.token, d.confidence) for d in decs]
     # the refusals that need a process group
     try:
         CoLLM(model, CollmConfig(cloud_mesh=(1, 2)))

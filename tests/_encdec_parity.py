@@ -31,11 +31,9 @@ from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
 from repro.core.exits import \
     first_confident_exit as jfirst_confident_exit  # noqa: E402
 from repro.models.registry import build_model as jbuild  # noqa: E402
+from _cloud_tp_family_ranks import compose_stream  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs.base import ModelConfig as TModelConfig  # noqa: E402
-from repro_torch.core import transport  # noqa: E402
-from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
-from repro_torch.core.exits import first_confident_exit  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 
 MAX_NEW = 16
@@ -46,11 +44,11 @@ MODES = {"cloud": None, "collm-float16": ("split", "float16"),
          "collm-int8": (0.0, "int8"), "standalone": ("split", "float16")}
 
 
-def jax_config(name):
+def jax_config(name, vocab=None):
     cfg = jreduced(jget_config(name), n_layers=4)
     return dataclasses.replace(
-        cfg, exit_layers=(1, 2),
-        encoder_layers=min(2, cfg.encoder_layers)).validate()
+        cfg, exit_layers=(1, 2), encoder_layers=min(2, cfg.encoder_layers),
+        vocab_size=vocab or cfg.vocab_size).validate()
 
 
 def _randomize(tree, rng):
@@ -75,8 +73,8 @@ class Arch:
     same weights, a prompt with its frames or patches, the split θ, and
     JAX runs computed once."""
 
-    def __init__(self, name):
-        self.jcfg = jax_config(name)
+    def __init__(self, name, vocab=None):
+        self.jcfg = jax_config(name, vocab)
         self.jm = jbuild(self.jcfg)
         rng = np.random.default_rng(1)
         self.np_params = _randomize(
@@ -160,74 +158,15 @@ def _tick(st, decisions, l_ee1, l_ee2, theta, exited):
         st["exits_l1" if c12[0] >= theta else "exits_l2"] += 1
 
 
-@torch.no_grad()
 def port_stream(arch, mode, theta=None, wire=None):
     """One greedy stream of ``MAX_NEW`` tokens of ``arch.batch`` through
-    the port's calls: ``cloud`` is ``Model.prefill`` + ``full_step``;
-    ``collm-*`` is ``edge_prefill``, ``Model.encode`` uploaded once,
-    ``cloud_prefill``, then ``edge_step`` and, below θ, ``cloud_step``
-    (the JAX package's ``generate_sequential``); ``standalone`` is
-    ``edge_prefill`` + ``standalone_step``.  Returns the tokens, exits,
-    cloud requests, upload and ``enc_out`` bytes, and each edge tick's
-    exit confidences."""
+    the port's calls (``_cloud_tp_family_ranks.compose_stream``): the
+    tokens, exits, cloud requests, upload and ``enc_out`` bytes, and each
+    edge tick's exit confidences."""
     if theta is None:
         theta, wire = _mode(arch, mode)
-    m, cfg = arch.tm, arch.tcfg
-    batch = {k: torch.as_tensor(v) for k, v in arch.batch.items()}
-    max_seq = MAX_SEQ
-    st = _stats()
-    collm = CoLLM(m, CollmConfig(theta=theta, wire_format=wire))
-    if mode == "cloud":
-        caches = m.init_cache(1, max_seq)
-        x, _, caches, _ = m.prefill(batch, caches)
-        tok = m.logits(x[:, -1:])[:, 0].argmax(-1).to(torch.int32)
-        pos = x.shape[1]
-        st["tokens"].append(int(tok[0]))
-        for _ in range(MAX_NEW - 1):
-            tok, _, caches = collm.full_step(tok[:, None], caches, pos)
-            st["tokens"].append(int(tok[0]))
-            pos += 1
-        return st
-    ecache = collm.init_edge_cache(1, max_seq)
-    decisions, h1, ecache = collm.edge_prefill(batch, ecache)
-    pos = h1.shape[1]
-    tok, exited, _ = first_confident_exit(decisions, theta)
-    if mode == "standalone":
-        tok = decisions[collm.l_ee2].token
-        for _ in range(MAX_NEW - 1):
-            st["tokens"].append(int(tok[0]))
-            tok, _, ecache = collm.standalone_step(tok[:, None], ecache, pos)
-            st["exits_l2"] += 1
-            pos += 1
-        st["tokens"].append(int(tok[0]))
-        return st
-    enc = m.encode(batch["frames"]) if cfg.is_encdec else None
-    ccache = collm.init_cloud_cache(1, max_seq)
-    plogits, ccache = collm.cloud_prefill(h1, ccache, enc_out=enc)
-    st["upload_bytes"] += transport.hidden_wire_bytes(cfg.d_model, wire,
-                                                      seq=h1.shape[1])
-    if enc is not None:
-        st["enc_bytes"] = transport.hidden_wire_bytes(cfg.d_model, wire,
-                                                      seq=enc.shape[1])
-    if not bool(exited[0]):
-        st["cloud_requests"] += 1
-        tok = plogits[:, 0].argmax(-1).to(torch.int32)
-    st["tokens"].append(int(tok[0]))
-    for _ in range(MAX_NEW - 1):
-        out = collm.edge_step(tok[:, None], ecache, pos)
-        _tick(st, out.decisions, collm.l_ee1, collm.l_ee2, theta,
-              bool(out.exited[0]))
-        st["upload_bytes"] += transport.StatePacket(
-            hidden=out.upload, pos=torch.tensor(pos)).nbytes()
-        if bool(out.exited[0]):
-            tok = out.token
-        else:
-            logits, ccache = collm.cloud_step(out.upload, ccache, pos)
-            st["cloud_requests"] += 1
-            tok = logits.argmax(-1).to(torch.int32)
-        st["tokens"].append(int(tok[0]))
-        pos += 1
-    return st
+    return compose_stream(arch.tm, arch.batch, mode, theta, wire, MAX_NEW,
+                          MAX_SEQ)
 
 
 def jax_stream(arch, mode):

@@ -146,9 +146,11 @@ class _OtherChannel(CloudChannel):
 
 # still refused: CollmConfig field -> (config kwargs, ROADMAP item, the
 # arch it is refused for; None: the small dense model).  The cloud mesh
-# serves dense and MoE decoders; a recurrent model on it waits for A.11b.
+# serves every family; swap preemption over its data axis waits for
+# A.11b.2.
 REFUSED_CONFIG = {
-    "cloud_mesh": (dict(cloud_mesh=(1, 1)), "A.11b", "xlstm-350m"),
+    "cloud_mesh": (dict(cloud_mesh=(2, 1), kv_layout="paged",
+                        preemption="swap"), "A.11b.2", None),
 }
 
 

@@ -36,8 +36,9 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _cloud_tp_ranks import (SCENARIOS, THETA, TP_CFG,  # noqa: E402
-                             exit_probe, moe_rank, run_scenario, tp_rank)
+from _cloud_tp_ranks import (SCENARIOS, THETA, TIE_TOKENS,  # noqa: E402
+                             TP_CFG, exit_probe, moe_rank, run_scenario,
+                             tie_probe, tp_rank)
 from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
 from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
 from repro.launch import sharding as jsh  # noqa: E402
@@ -47,6 +48,7 @@ from repro.serving.engine import ServingSystem as JServingSystem  # noqa: E402
 from repro_torch.bridge import param_leaves, params_from_jax  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
+from repro_torch.kernels.exit_head.ops import exit_heads  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
@@ -55,6 +57,12 @@ from repro_torch.serving.engine import ServingSystem  # noqa: E402
 MESH = (2, 4)
 MOE_MESH = (1, 2)
 DEADLINE_S = 240
+
+
+def exit_logits_ref(h, w, eps):
+    """The exit head's float32 logits of one row at a zero norm scale."""
+    hn = h * torch.rsqrt(h.square().mean() + eps)
+    return hn @ w.T
 
 
 class FakeMesh:
@@ -171,7 +179,10 @@ def test_tp_second_fleet_places_nothing(tp_run):
 
 def test_tp_exit_heads_merge_to_the_whole_vocabulary(tp, tp_run):
     """The exit heads of each rank's quarter of the vocabulary, merged,
-    give the single-device token and confidence of every row."""
+    give the single-device token and confidence of every row; also where
+    two ranks' best logits lie one float32 step apart, closer than a step
+    of the lse, in either order (``tie_probe``): the ranks merge on the
+    kernel's raw max logit, as the single device compares its logits."""
     collm = CoLLM(tp["model"], CollmConfig())
     h = exit_probe(tp["model"])
     want = collm.exit_decisions({1: h[0], 2: h[1]})
@@ -181,6 +192,21 @@ def test_tp_exit_heads_merge_to_the_whole_vocabulary(tp, tp_run):
             assert torch.equal(tok, d.token)
             torch.testing.assert_close(conf, d.confidence, rtol=1e-5,
                                        atol=1e-7)
+    h, w, ns = tie_probe(TP_CFG.norm_eps)
+    single = exit_heads(h, w, ns, TP_CFG.norm_eps)
+    logits = [exit_logits_ref(x, w, TP_CFG.norm_eps) for x in h[0]]
+    lse = torch.logsumexp(logits[0], -1)
+    for row, best in enumerate(TIE_TOKENS):
+        tied = logits[row][list(TIE_TOKENS)]
+        assert int(logits[row].argmax()) == best
+        assert 0 < float(tied.max() - tied.min()) < float(
+            np.spacing(np.float32(lse)))
+    assert single[1].tolist() == [list(TIE_TOKENS)] * 2
+    for out in tp_run:
+        for e, (tok, conf) in enumerate(out["tie_exits"]):
+            assert torch.equal(tok, single[1][e])
+            torch.testing.assert_close(conf, single[0][e], rtol=1e-6,
+                                       atol=0)
 
 
 def test_tp_moe_layer_and_streams_match_jax(ranks):
@@ -227,15 +253,17 @@ def test_single_device_default_is_inert(tp):
 
 
 def test_cloud_mesh_refusals(tp, tp_run):
-    """A bad pair, no process group, a world of the wrong size, and a
-    recurrent model each raise."""
+    """A bad pair, no process group, a world of the wrong size, and swap
+    preemption over a data axis each raise (a recurrent model no longer
+    does: ``tests/test_torch_cloud_tp_families.py``)."""
     with pytest.raises(ValueError, match="pair"):
         ServingSystem(tp["model"], CollmConfig(cloud_mesh=(0, 4)))
     with pytest.raises(ValueError, match="process group"):
         ServingSystem(tp["model"], CollmConfig(cloud_mesh=MESH))
     with pytest.raises(NotImplementedError, match="A.11b"):
         ServingSystem(Model(get_smoke_config("xlstm-350m"), device="cpu"),
-                      CollmConfig(cloud_mesh=(1, 2)))
+                      CollmConfig(cloud_mesh=(2, 1), kv_layout="paged",
+                                  preemption="swap"))
     for out in tp_run:
         assert "needs 2 ranks but the process group has 8" in \
             out["wrong_world"]

@@ -122,7 +122,7 @@ def test_exit_heads_match_pallas_per_exit():
         ties = ((40, v - 20), (7, 9))    # across tiles; inside one tile
         h, w, ns = _heads_inputs(2, b, d, v, seed=b * v + d, ties=ties)
         got = exit_heads(T(h), T(w), T(ns))
-        assert [x.shape for x in got] == [(2, b)] * 3
+        assert [x.shape for x in got] == [(2, b)] * 4
         for i in range(2):
             want = _jax_exit(h[i], w, ns[i], bv)
             _check_exit([x[i] for x in got], want)

@@ -29,14 +29,15 @@ from repro.configs.registry import ARCHS as JARCHS  # noqa: E402
 from repro.configs.registry import get_config as jget_config  # noqa: E402
 from repro.launch import sharding as jsh  # noqa: E402
 from repro.models.registry import build_model as jbuild  # noqa: E402
-from repro_torch.bridge import param_leaves, params_to_jax  # noqa: E402
+from repro_torch.bridge import (param_leaves, params_to_jax,  # noqa: E402
+                                port_leaves)
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.configs.registry import ARCHS, get_config  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import (make_cloud_mesh,  # noqa: E402
                                      make_debug_mesh, pod_submeshes, spawn)
 from repro_torch.models.attention import head_split  # noqa: E402
-from repro_torch.models.transformer import Model, mesh_ready  # noqa: E402
+from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.training.checkpoint import save_checkpoint  # noqa: E402
 
 
@@ -50,6 +51,16 @@ class FakeMesh:
     @property
     def shape(self):
         return dict(zip(self.axis_names, self.devices.shape))
+
+
+FAMILIES = ("xlstm-350m", "zamba2-1.2b", "whisper-medium", "paligemma-3b")
+RECURRENT_KINDS = ("mlstm", "slstm", "mamba2")
+
+
+def _follows_rules(cfg) -> bool:
+    """Whether every parameter of ``cfg``'s rank shares is the rules' (a
+    model without recurrent blocks, whose packed projections depart)."""
+    return not set(cfg.block_kinds()) & set(RECURRENT_KINDS)
 
 
 MESHES = [FakeMesh((16, 16), ("data", "model")),
@@ -105,12 +116,15 @@ def _Path(names):
 
 def test_cache_pspec_equals_jax():
     """Dense caches of every configuration at batches 1, 8 and 32, and the
-    paged float32 and int8 pools of the attention decoders."""
+    paged float32 and int8 pools of the attention decoders, of zamba2 (its
+    shared block's pool beside the per-row Mamba2 state) and of whisper
+    (beside its per-row cross caches)."""
     n = 0
     for arch in sorted(ARCHS):
         jm = jbuild(jget_config(arch), param_dtype=jnp.bfloat16)
         trees = [(b, jm.cache_specs(b, 4096)) for b in (1, 8, 32)]
-        if get_config(arch).arch_type in ("dense", "moe"):
+        if get_config(arch).arch_type in ("dense", "moe") or arch in (
+                "zamba2-1.2b", "whisper-medium"):
             for kv in ("float32", "int8"):
                 trees.append((8, jax.eval_shape(
                     lambda: jm.init_paged_cache(8, 63, 16, kv_dtype=kv))))
@@ -196,7 +210,7 @@ def test_head_aligned_rule_and_rank_slices():
         assert (cover == 1).all() or (cover == 4).all(), name
     # the slices a sharded model keeps are the rules', leaf by leaf
     cfgs = [TP_CFG] + [get_config(a) for a in sorted(ARCHS)
-                       if mesh_ready(get_config(a))]
+                       if _follows_rules(get_config(a))]
     for cfg in cfgs:
         whole = dict(Model(cfg, device="meta").named_parameters())
         for size in (2, 4):
@@ -222,6 +236,83 @@ def test_head_aligned_rule_and_rank_slices():
                       vocab_size=64, exit_layers=(1,)).validate()
     with pytest.raises(ValueError, match="GQA group"):
         head_split(odd, tsh.Axis(0, 2))
+
+
+def _kind(cfg, names):
+    return cfg.block_kinds()[int(names[1])] if names[0] == "layers" \
+        else None
+
+
+def _rule_local(names, shape, mesh, cfg):
+    sl = tsh.rank_slices(tsh.layer_pspec(names, shape, mesh,
+                                         head_dim=cfg.resolved_head_dim),
+                         shape, mesh, {"data": 0, "model": 0})
+    return tuple(len(range(*s.indices(n))) for s, n in zip(sl, shape))
+
+
+def _walk(tree, path=()):
+    """(path of keys, tensor) of every leaf of a cache tree."""
+    if isinstance(tree, torch.Tensor):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (str(k),))
+    else:
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (str(i),))
+
+
+def test_family_shares_follow_the_departure_list():
+    """xlstm-350m, zamba2-1.2b, whisper-medium and paligemma-3b at model
+    axes of 2 and 4, first and last rank (meta device): each parameter's
+    shape is ``sharding.param_share``'s where the port departs from the
+    rules, else the rules' share; each dense and paged cache leaf is
+    ``cache_share``'s; a rank's bytes are ``rank_param_bytes``, which is
+    the JAX package's estimate plus the departures' differences."""
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        hd = cfg.resolved_head_dim
+        whole = Model(cfg, device="meta", dtype=torch.bfloat16)
+        shapes = {n: tuple(p.shape) for n, p in whole.named_parameters()}
+        caches = {"dense": whole.init_cache(2, 64),
+                  "paged": whole.init_paged_cache(8, 16, batch=2)}
+        for size in (2, 4):
+            mesh = tsh.MeshShape((1, size), tsh.AXES)
+            delta = 0
+            departed = set()
+            for rank in (0, size - 1):
+                m = Model(cfg, device="meta", dtype=torch.bfloat16,
+                          axis=tsh.Axis(rank, size))
+                for name, p in m.named_parameters():
+                    names = tuple(name.split("."))
+                    shape = shapes[name]
+                    rule = _rule_local(names, shape, mesh, cfg)
+                    local = tsh.param_share(_kind(cfg, names), names[-1],
+                                            shape, cfg, size)
+                    assert tuple(p.shape) == (local or rule), \
+                        (arch, size, name)
+                    if rank == 0 and local is not None and local != rule:
+                        departed.add(name)
+                        delta += (np.prod(local) - np.prod(rule)) \
+                            * p.element_size()
+                for layout, tree in caches.items():
+                    mine = (m.init_cache(2, 64) if layout == "dense"
+                            else m.init_paged_cache(8, 16, batch=2))
+                    want = dict(_walk(tree))
+                    for path, t in _walk(mine):
+                        kind = m.segments[int(path[0])].kind
+                        assert tuple(t.shape) == tsh.cache_share(
+                            kind, path[-1], want[path].shape, cfg, size), \
+                            (arch, size, layout, path)
+                got = sum(p.numel() * p.element_size()
+                          for p in m.parameters())
+                assert got == tsh.rank_param_bytes(
+                    port_leaves(cfg, itemsize=2), mesh, cfg), (arch, size)
+            jax_est = jsh.estimate_param_bytes_per_device(
+                _jax_specs(arch), FakeMesh((1, size), ("data", "model")),
+                False, hd)
+            assert got == jax_est + delta, (arch, size)
+            assert bool(departed) == (not _follows_rules(cfg)), arch
 
 
 def test_mesh_checks_over_gloo_ranks():
