@@ -229,7 +229,26 @@ exit code and no result line:
    its bf16 logits to the single device's own bf16 error), tokens/s and
    each collective's calls and host time a token.  (a) runs beside phase 13,
    (b), (c) and (d) alone after it;
-15. the kernel table as one JSON line (launches: phases 3 to 14; each
+15. the tiers on two devices (``TwoTierRuntime`` with the edge tier on
+   the host CPU and the cloud tier on the card, each a partition model of
+   its own, with the launch counters set to 0 before each run and read
+   after): (a) a reduced ee-llm-7b (4 layers, exits 1 and 2, float32):
+   θ = 1.1 on a float32 wire equals ``CoLLM.full_step``'s greedy stream,
+   and at a split θ on a float16 and an int8 wire, the prompt uploaded
+   whole and in slices, the streams and channel rows equal both tiers'
+   on the CPU; (b) ee-llm-7b at full width and depth, the edge (layers
+   1-16, the exits, float32) on the CPU, the cloud (layers 9-32 and the
+   head, bf16) on the card, one client of 256 tokens and 16 new: θ = 1.1
+   on a float32 wire, the split θ on a float16 wire and on an int8 wire
+   with the upload in 64-token slices, and θ = 0 (every token exits on
+   the edge): tokens/s, edge tick and cloud round trip, exits and
+   requests, wire and downlink bytes, the card's ring launches and the
+   CPU edge's none, each tier's memory and parameter bytes against
+   ``lower_tiers``', and agreement with both tiers on the card; (c)
+   ``python -m repro_torch.launch.dryrun_collm`` with no card visible,
+   for ee-llm-7b at 128 x 32768 on every wire and qwen1.5-110b with the
+   cloud over a model axis of 4.  It runs alone, after phase 14;
+16. the kernel table as one JSON line (launches: phases 3 to 15; each
    kernel's other shapes under "shapes", phase 14's per-rank ones among
    them), the ``nvidia-smi`` line, and the status line ``{"ok": true,
    "device": {...}}``.
@@ -239,9 +258,9 @@ phases run in four processes at once, each group's phases in turn: 3-6
 here; 7 (started with phase 3's split θ); 8, 10 and 9; phase 2's small
 models, 11 and 12 (``GROUPS``).  Phase 13 needs most of the card and
 runs in a fifth process once the other four have ended, with phase 14
-(a) beside it; phase 14 (b) and (c) follow alone.  Each process
-counts its own launches and the script adds them up; the groups' output
-follows phase 6's.
+(a) beside it; phase 14 (b) and (c) follow alone, then phase 15, whose
+CPU edge loads the host's cores.  Each process counts its own launches
+and the script adds them up; the groups' output follows phase 6's.
 
 ``--profile`` adds ``torch.profiler`` windows over a few collaborative
 decode ticks of the sequential loop and of the batched engine on bf16 and
@@ -2987,7 +3006,8 @@ def two_tier_run(model, prompt, theta, wire, chunk, sync=False):
     rt.build()
     if sync:
         rt.channel = SyncedChannel(
-            lambda pkt, caches, pos: rt.collm.cloud_step(pkt, caches, pos),
+            lambda pkt, caches, pos: rt.cloud_collm.cloud_step(pkt, caches,
+                                                              pos),
             rt.cloud_device, edge_stream=rt.edge_stream,
             cloud_stream=rt.cloud_stream)
     ops = kernel_ops()
@@ -4941,6 +4961,327 @@ def phase_14(dev, ops) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the tiers on two devices, the edge on the CPU, the cloud on the
+# card
+# ---------------------------------------------------------------------------
+T_PROMPT, T_NEW, T_CHUNK = 256, 16, 64      # (b): one client; upload slices
+T_SMALL_PROMPT, T_SMALL_CHUNK = 40, 8       # (a)
+DRYRUN_WIRES = ("float32", "float16", "int8")   # (c), at 128 x 32768
+
+
+def host_rss() -> int:
+    """This process's resident host memory, bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return 0
+
+
+def param_bytes(model) -> int:
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def tiers_on(edge, cloud, theta, wire):
+    """A split ``TwoTierRuntime`` on the given tier models (their weights
+    shared, nothing copied), at ``theta`` on a ``wire`` wire."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.disagg import TwoTierRuntime
+    rt = TwoTierRuntime(edge, CollmConfig(theta=theta, wire_format=wire),
+                        edge.device, cloud.device, edge_dtype=edge.dtype,
+                        cloud_dtype=cloud.dtype, split=True)
+    rt.build(edge, cloud)
+    return rt
+
+
+def tiers_run(ops, rt, prompt, max_new, chunk=0) -> tuple:
+    """``rt.decode`` of one prompt with the launch counters set to 0 before
+    and read after; the run's wall, exits and requests added to info."""
+    reset(ops)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, info = rt.decode(prompt, max_new,
+                           max_seq=len(prompt) + max_new + 8,
+                           upload_chunk=chunk)
+    torch.cuda.synchronize()
+    info["wall_s"] = time.perf_counter() - t0
+    info["launched"] = counted(ops)
+    info["requests"] = info["channel"]["requests"]
+    info["exits"] = max_new - 1 - info["requests"]
+    return toks, info
+
+
+def split_of(info) -> float:
+    """A split θ over a two-tier run's ticks: between the two middle
+    values of each tick's larger exit confidence (a tick exits when
+    either exit clears θ), so about half the ticks exit.  Phases 3-8 take
+    the l_ee1 confidences alone; on ee-llm-7b's float32 edge their median
+    sent every tick of phase 15 (b) out at l_ee2."""
+    c = sorted(max(c12) for c12 in info["confidences"])
+    return (c[len(c) // 2 - 1] + c[len(c) // 2]) / 2
+
+
+def edge_launches(launched) -> int:
+    """Launches of the kernels only the edge tier calls: a CPU edge runs
+    their plain versions, so none."""
+    return sum(launched[k] for k in EXIT_KERNELS + ("quantize",))
+
+
+def phase_15a(dev, ops) -> dict:
+    """(a): a reduced ee-llm-7b in float32, the edge on the CPU, the cloud
+    on the card, against the full model's greedy stream and against both
+    tiers on the CPU."""
+    from repro_torch.configs.base import reduced
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(reduced(CFG, n_layers=4),
+                              exit_layers=(1, 2)).validate()
+    cpu = build_model(cfg, device="cpu", seed=SEED)
+    gpu = build_model(cfg, device=dev, seed=SEED)
+    gpu.load_state_dict(cpu.state_dict())
+    state = cpu.state_dict()
+    edge = Model(cfg, device="cpu", tier="edge").load_whole(state)
+    cloud = Model(cfg, device=dev, tier="cloud").load_whole(state)
+    cloud_cpu = Model(cfg, device="cpu", tier="cloud").load_whole(state)
+    prompt = np.random.default_rng(SEED + 15).integers(
+        0, cfg.vocab_size, T_SMALL_PROMPT)
+    n = MAX_NEW // 2
+    launched = dict.fromkeys(ops, 0)
+    ref = full_greedy(gpu, prompt, n)
+    exact, info = tiers_run(ops, tiers_on(edge, cloud, 1.1, "float32"),
+                            prompt, n)
+    launched = total(launched, info["launched"])
+    print(f"phase 15 (a) theta=1.1 float32, edge on the CPU, cloud on the "
+          f"card == full_step greedy: {exact == ref}")
+    check(exact == ref, "phase 15 (a): the two-device stream at theta=1.1 "
+          "with a float32 wire differs from the full model's greedy stream")
+    theta = split_of(info)
+    for wire in ("float16", "int8"):
+        for chunk in (0, T_SMALL_CHUNK):
+            got, gi = tiers_run(ops, tiers_on(edge, cloud, theta, wire),
+                                prompt, n, chunk)
+            want, wi = tiers_run(ops, tiers_on(edge, cloud_cpu, theta, wire),
+                                 prompt, n, chunk)
+            launched = total(launched, gi["launched"])
+            same = (got == want and gi["channel"] == wi["channel"]
+                    and gi["wire_bytes"] == wi["wire_bytes"])
+            print(f"phase 15 (a) theta={theta:.6g} {wire} upload_chunk="
+                  f"{chunk}: CPU edge + card cloud == CPU + CPU: {same} "
+                  f"(exits {gi['exits']}, cloud requests {gi['requests']}, "
+                  f"channel {gi['channel']}, downlink {gi['bytes_down']} B, "
+                  f"ring launches {gi['launched']['decode_attn']}, edge "
+                  f"kernel launches {edge_launches(gi['launched'])})")
+            check(same, f"phase 15 (a) {wire} chunk {chunk}: the two-device "
+                  f"run differs from both tiers on the CPU")
+            check(gi["exits"] > 0 and gi["requests"] > 0
+                  and gi["launched"]["decode_attn"] > 0
+                  and edge_launches(gi["launched"]) == 0,
+                  f"phase 15 (a) {wire}: no mix of exits and requests, no "
+                  f"ring launch on the card, or an edge kernel launched")
+    return launched
+
+
+def print_tiers_run(label, toks, info, n) -> None:
+    ticks = np.asarray(info["tick_s"]) * 1e3
+    trips = np.asarray(info["round_trip_s"]) * 1e3
+    print(f"phase 15 (b) {label}: {n / info['wall_s']:.2f} tokens/s "
+          f"({n} tokens in {info['wall_s']:.3f} s, prompt included); edge "
+          f"tick host mean {ticks.mean():.1f} ms median "
+          f"{np.median(ticks):.1f} ms; cloud round trip "
+          f"{trips.mean() if trips.size else float('nan'):.2f} ms mean over "
+          f"{trips.size}; exits {info['exits']}, cloud requests "
+          f"{info['requests']}; wire {info['wire_bytes'] / (n - 1):.0f} B a "
+          f"token; downlink {info['bytes_down']} B; ring launches "
+          f"{info['launched']['decode_attn']}, CPU edge kernel launches "
+          f"{edge_launches(info['launched'])}")
+
+
+def phase_15b(dev, ops, before_runs) -> tuple:
+    """(b): ee-llm-7b at full width and depth, the edge tier in float32 on
+    the CPU, the cloud tier in bf16 on the card; ``before_runs()`` is
+    called once the tiers are built, before the timed runs.  Returns
+    (launches, wire bytes a token of each wire)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.core.disagg import TwoTierRuntime
+    from repro_torch.models.transformer import Model
+    from repro_torch.models.registry import build_model
+    cfg = get_config("ee-llm-7b")
+    print(f"phase 15 (b) host: {os.cpu_count()} cores, torch threads "
+          f"{torch.get_num_threads()}; card: {nvidia_smi()}")
+    t0 = time.perf_counter()
+    whole = build_model(cfg, device=dev, dtype=torch.float32, seed=SEED)
+    torch.cuda.synchronize()
+    rss0, card0 = host_rss(), torch.cuda.memory_allocated()
+    rt = TwoTierRuntime(whole, CollmConfig(theta=1.1, wire_format="float32"),
+                        "cpu", dev, edge_dtype=torch.float32,
+                        cloud_dtype=torch.bfloat16)
+    rt.build()
+    del whole
+    free()
+    edge, cloud = rt.edge_model, rt.cloud_model
+    rss1, card1 = host_rss(), torch.cuda.memory_allocated()
+    low_edge, low_cloud, _ = rt.lower_tiers(1, T_PROMPT + T_NEW + 8)
+    print(f"phase 15 (b) tiers built in {time.perf_counter() - t0:.1f} s "
+          f"(the whole model drawn in float32 on the card, then split): "
+          f"edge {len(low_edge.param_names)} tensors, "
+          f"{param_bytes(edge) / 1e9:.3f} GB float32 on the CPU (host RSS "
+          f"{rss0 / 1e9:.2f} -> {rss1 / 1e9:.2f} GB); cloud "
+          f"{param_bytes(cloud) / 1e9:.3f} GB bf16 on the card (allocated "
+          f"{card0 / 1e9:.2f} GB with the whole model, {card1 / 1e9:.2f} GB "
+          f"after); lower_tiers parameter bytes: edge "
+          f"{low_edge.param_bytes}, cloud {low_cloud.param_bytes}")
+    check(param_bytes(edge) == low_edge.param_bytes
+          and param_bytes(cloud) == low_cloud.param_bytes,
+          "phase 15 (b): a tier's parameter bytes differ from lower_tiers'")
+    prompt = np.random.default_rng(SEED + 16).integers(0, cfg.vocab_size,
+                                                       T_PROMPT)
+    before_runs()
+    launched = dict.fromkeys(ops, 0)
+    exact, info = tiers_run(ops, rt, prompt, T_NEW)
+    theta = split_of(info)
+    modes = {"theta=1.1 float32": (1.1, "float32", 0),
+             f"split theta={theta:.6g} float16": (theta, "float16", 0),
+             f"split theta={theta:.6g} int8 upload_chunk={T_CHUNK}":
+                 (theta, "int8", T_CHUNK),
+             "theta=0 int8": (0.0, "int8", 0)}
+    runs = {}
+    for label, (th, wire, chunk) in modes.items():
+        runs[label] = (exact, info) if th == 1.1 else tiers_run(
+            ops, tiers_on(edge, cloud, th, wire), prompt, T_NEW, chunk)
+        toks, ri = runs[label]
+        launched = total(launched, ri["launched"])
+        print_tiers_run(label, toks, ri, T_NEW)
+        check(len(toks) == T_NEW and 0 <= min(toks)
+              and max(toks) < cfg.vocab_size, f"phase 15 (b) {label}: bad "
+              f"tokens")
+        check(edge_launches(ri["launched"]) == 0, f"phase 15 (b) {label}: "
+              f"an edge kernel launched")
+        check(ri["bytes_down"] == 4 * (1 + ri["requests"]),
+              f"phase 15 (b) {label}: downlink bytes")
+        check(not label.startswith("split")
+              or (ri["exits"] > 0 and ri["requests"] > 0),
+              f"phase 15 (b) {label}: no mix of exits and cloud requests")
+        check((ri["launched"]["decode_attn"] > 0) == (ri["requests"] > 0),
+              f"phase 15 (b) {label}: ring launches without cloud steps or "
+              f"cloud steps without them")
+    per_token = {wire: runs[label][1]["wire_bytes"] / (T_NEW - 1)
+                 for label, (th, wire, _) in modes.items() if th > 0}
+    check(per_token == {"float32": 16384, "float16": 8192, "int8": 4100}
+          and runs["theta=0 int8"][1]["requests"] == 0
+          and runs["theta=0 int8"][1]["exits"] == T_NEW - 1
+          and runs["theta=1.1 float32"][1]["exits"] == 0,
+          f"phase 15 (b): wire bytes a token {per_token}, or theta=0 or 1.1 "
+          f"did not route every token")
+    # both tiers on the card, from the same weights (the edge in float32),
+    # after a 2-token warm-up of the card's edge
+    on_card = Model(cfg, device=dev, tier="edge").load_whole(
+        edge.state_dict())
+    tiers_run(ops, tiers_on(on_card, cloud, 1.1, "float32"), prompt, 2)
+    for label, (th, wire, chunk) in modes.items():
+        toks, ci = tiers_run(ops, tiers_on(on_card, cloud, th, wire), prompt,
+                             T_NEW, chunk)
+        print(f"phase 15 (b) {label}, both tiers on the card: "
+              f"{T_NEW / ci['wall_s']:.2f} tokens/s; agreement with the CPU "
+              f"edge: {agreement([toks], [runs[label][0]])} (reported, not "
+              f"held: the edge's float32 products differ by device)")
+    del on_card, rt, edge, cloud
+    free()
+    return launched, per_token
+
+
+class DryRuns:
+    """(c): ``python -m repro_torch.launch.dryrun_collm`` with no card
+    visible, ee-llm-7b at 128 x 32768 on every wire and qwen1.5-110b with
+    its cloud over (1, 4), each in a process of its own, all started at
+    once; ``wait`` collects them, ``check`` reads their records."""
+
+    def __init__(self):
+        self.out = Path(tempfile.mkdtemp(prefix="dryrun_collm_"))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+                   PYTHONPATH=str(ROOT / "src"))
+        base = [sys.executable, "-m", "repro_torch.launch.dryrun_collm",
+                "--batch", "128", "--seq", "32768", "--out", str(self.out)]
+        cmds = {w: base + ["--arch", "ee-llm-7b", "--wire", w]
+                for w in DRYRUN_WIRES}
+        cmds["qwen1.5-110b tp4"] = base + ["--arch", "qwen1.5-110b",
+                                           "--wire", "float16",
+                                           "--cloud-tp", "4"]
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for k, c in cmds.items():
+            self.procs[k] = subprocess.Popen(
+                c, env=env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)
+
+    def wait(self) -> None:
+        errs = {k: p.communicate(timeout=300)[1]
+                for k, p in self.procs.items()}
+        for k, p in self.procs.items():
+            check(p.returncode == 0, f"phase 15 (c) dryrun_collm {k}: exit "
+                  f"{p.returncode}\n{errs[k][-2000:]}")
+        print(f"phase 15 (c): the dry runs took "
+              f"{time.perf_counter() - self.t0:.1f} s")
+
+    def stop(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.out, ignore_errors=True)
+
+    def check(self, per_token) -> None:
+        out = self.out
+        for w in DRYRUN_WIRES:
+            rec = json.loads((out / f"collm_ee-llm-7b_128x32768_{w}.json")
+                             .read_text())
+            tiers = {t: (rec[t]["cost_analysis"]["flops"],
+                         rec[t]["memory_analysis"]["argument_size_in_bytes"]
+                         / 1e9) for t in ("edge", "cloud")}
+            print(f"phase 15 (c) ee-llm-7b 128 x 32768 {w}: wire "
+                  f"{rec['wire_bytes_per_token']} B a decode step (128 x "
+                  f"{per_token.get(w)} live); edge flops "
+                  f"{tiers['edge'][0]:.4g}, arguments {tiers['edge'][1]:.1f} "
+                  f"GB; cloud flops {tiers['cloud'][0]:.4g}, arguments "
+                  f"{tiers['cloud'][1]:.1f} GB; lowered in {rec['lower_s']} s")
+            check(rec["wire_bytes_per_token"] == 128 * per_token[w],
+                  f"phase 15 (c) {w}: the dry run's wire bytes differ from "
+                  f"the live runtime's")
+        rec = json.loads((out / "collm_qwen1.5-110b_128x32768_float16_tp4dp1"
+                                ".json").read_text())
+        coll = rec["cloud"]["collectives"].get("all-reduce", {})
+        print(f"phase 15 (c) qwen1.5-110b 128 x 32768 float16, cloud over "
+              f"(1, 4): a rank's parameters "
+              f"{rec['cloud']['param_bytes'] / 1e9:.2f} GB, caches "
+              f"{rec['cloud']['cache_bytes'] / 1e9:.2f} GB; "
+              f"{coll.get('count')} all-reduces a step, "
+              f"{coll.get('wire_bytes', 0) / 1e6:.1f} MB on the wire; "
+              f"edge {rec['edge']['param_bytes'] / 1e9:.2f} GB")
+        check(coll.get("count", 0) > 0, "phase 15 (c): no collective in "
+              "qwen1.5-110b's cloud tier")
+
+
+def phase_15(dev, ops) -> dict:
+    """Phase 15: (c)'s dry runs start first and run beside (a) and (b)'s
+    build; (b)'s timed runs wait for them, since they load the host's
+    cores as the CPU edge does."""
+    t0 = time.perf_counter()
+    dry = DryRuns()
+    try:
+        got = phase_15a(dev, ops)
+        t0 = lap(t0, "phase 15 (a)")
+        launched, per_token = phase_15b(dev, ops, dry.wait)
+        t0 = lap(t0, "phase 15 (b)")
+        dry.check(per_token)
+    finally:
+        dry.stop()
+    got = total(got, launched)
+    print(f"phase 15 (the tiers on two devices) launches: {got}")
+    return got
+
+
+# ---------------------------------------------------------------------------
 # the serving phases' groups, one process each
 # ---------------------------------------------------------------------------
 # After phase 2's timings, which have the card to themselves, the serving
@@ -4954,7 +5295,8 @@ def phase_14(dev, ops) -> dict:
 GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
           "small-11-12": "phase 2's small models, phases 11 and 12",
           "13": "phase 13", "14a": "phase 14 (a)",
-          "14": "phase 14 (b), (c) and (d)"}
+          "14": "phase 14 (b), (c) and (d)",
+          "15": "phase 15 (the tiers on two devices)"}
 # Each process's share of the card's memory, GiB, over the most its phases
 # hold at once (3-6 12.5, 7 10.2, 8 28.1, 12 7.2): a process keeps what it
 # frees cached for itself, and without a cap the groups together filled
@@ -4972,8 +5314,12 @@ GROUPS = {"7": "phase 7", "8-10-9": "phases 8, 10 and 9",
 # twin) have the card to themselves after
 # both.  The caps hold the group processes; ranks are processes of their
 # own.
+# Phase 15 draws ee-llm-7b in float32 on the card (28 GB) beside its
+# bf16 cloud tier (10.4 GB), then holds the cloud tier and a float32 edge
+# tier on the card (24.5 GB); its edge on the CPU holds 14 GB of host
+# memory.  It runs last, alone: its CPU edge loads the host's cores.
 CAP_GIB = {"3-6": 16, "7": 13, "8-10-9": 34, "small-11-12": 9, "13": 76,
-           "14a": 2, "14": 76}
+           "14a": 2, "14": 76, "15": 44}
 
 
 def cap_memory(group: str) -> None:
@@ -5171,6 +5517,8 @@ def run_group(group, dev, ops, theta, profile) -> dict:
         return total(phase_14a(dev, ops), phase_14a_families(dev, ops))
     if group == "14":
         return phase_14(dev, ops)
+    if group == "15":
+        return phase_15(dev, ops)
     raise ValueError(f"no group {group!r}")
 
 
@@ -5307,7 +5655,7 @@ def main(argv=None) -> None:
             groups["7"] = Group("7", split)
     try:
         # with --profile every phase runs here: the profiles see no other
-        late = ("13", "14a", "14")
+        late = ("13", "14a", "14", "15")
         if not args.profile:
             cap_memory("3-6")
             groups.update((g, Group(g)) for g in GROUPS

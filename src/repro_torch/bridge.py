@@ -87,7 +87,11 @@ def _norm_tree(norm) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
 def jax_layout(model: nn.Module) -> Dict[str, Any]:
     """The JAX package's parameter pytree for ``model`` (a
     ``repro_torch.models.transformer.Model``), each leaf the port's
-    parameter or a ``Stacked`` run of them; nothing is copied."""
+    parameter or a ``Stacked`` run of them; nothing is copied.  A tier
+    model (one partition) has no such pytree and raises."""
+    if getattr(model, "tier", None) is not None:
+        raise ValueError(f"the {model.tier} tier holds one partition, not "
+                         f"the JAX package's pytree")
     cfg = model.cfg
     segments: List[Dict] = []
     for seg in model.segments:
@@ -213,15 +217,22 @@ def params_to_jax(model: nn.Module, cfg: Optional[ModelConfig] = None
 
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
-                    mesh=None, rank: int = 0) -> Dict[str, torch.Tensor]:
+                    mesh=None, rank: int = 0,
+                    tier: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """JAX params as numpy arrays -> the port's state dict (CPU tensors in
     the leaves' dtypes), leaf by leaf along ``jax_layout`` of a ``cfg``
     model on the meta device.  Raises unless the pytree and every leaf's
     shape are that model's.  With ``mesh`` (a ``(data, model)`` pair) the
     state dict of rank ``rank``'s share, for ``Model(cfg, axis=)`` at that
     rank's model index: each leaf sliced in numpy, so no whole tensor is
-    made."""
+    made.  With ``tier`` (``"edge"`` or ``"cloud"``) the state dict of
+    ``Model(cfg, tier=)``: only the leaves, and the layers of a stacked
+    leaf, that the tier holds."""
     model = Model(cfg, device="meta")
+    keep = None
+    if tier is not None:
+        keep = {n for n, _ in Model(cfg, device="meta",
+                                    tier=tier).named_parameters()}
     layout = jax_layout(model)
     if treedef_str(np_params) != treedef_str(layout):
         raise ValueError(f"the parameters are not {cfg.name}'s pytree")
@@ -241,6 +252,8 @@ def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, *,
                              f"{tuple(value.shape)} for {shape}")
         for t, v in zip(targets, values):
             name = names[id(t)]
+            if keep is not None and name not in keep:
+                continue
             if name in shards:
                 v = np.asarray(v)[shards[name][1]]
             state[name] = _tensor(v)

@@ -50,6 +50,13 @@ rows and gather the replies; single-row prefills run whole in every
 column.  The edge steps run on the same split weights, every row in
 every column.
 
+A ``CoLLM`` on a tier model (``Model(tier="edge" | "cloud")``, the
+two-tier runtime on two devices, ``core/disagg.py``) reaches that tier's
+partition alone: the edge steps and prefills read the embedding, layers
+1..l_ee2, the exit norms and the unembedding; the cloud steps and
+prefills layers l_ee1+1..L, the final norm and the unembedding.  A step
+of the other tier raises ``OtherTierError``.
+
 An encoder-decoder (whisper) or vision-prefix (paligemma) model goes
 through ``edge_prefill`` with its frames or patches and ``cloud_prefill``
 with the encoder's output, then the decode steps; the padded and chunked
@@ -70,7 +77,7 @@ from repro_torch.launch.mesh import check_pair
 from repro_torch.launch.sharding import merge_exits
 from repro_torch.models.blocks import BlockCtx
 from repro_torch.models.transformer import Caches, Model
-from repro_torch.serving.mesh_exec import mesh_context
+from repro_torch.serving.mesh_exec import MeshContext, mesh_context
 from repro_torch.tracing import span
 
 
@@ -170,7 +177,11 @@ class EdgeStepOut(NamedTuple):
 class CoLLM:
     """Binds a Model to the paper's partition + gating machinery."""
 
-    def __init__(self, model: Model, ccfg: CollmConfig = CollmConfig()):
+    def __init__(self, model: Model, ccfg: CollmConfig = CollmConfig(),
+                 *, mesh=None):
+        """``mesh``: a ``launch.mesh.CloudMesh`` to run on in place of
+        ``ccfg.cloud_mesh``'s (the dry run's recording mesh,
+        ``core/disagg.py``)."""
         cfg = model.cfg
         if len(cfg.exit_layers) < 1:
             raise ValueError("CE-CoLLM requires at least one exit layer")
@@ -206,6 +217,8 @@ class CoLLM:
                     "lacks its pages); use preemption='recompute'")
         self.model = model
         self.ccfg = ccfg
+        if mesh is not None:
+            self._mesh_ctx = MeshContext(mesh)
         self.mesh_ctx = mesh_context(self)
         self.model = self.mesh_ctx.place(model)
         self.l_ee1 = cfg.exit_layers[0]

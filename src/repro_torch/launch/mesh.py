@@ -153,6 +153,17 @@ def make_cloud_mesh(shape, *, device=None) -> CloudMesh:
     return mesh
 
 
+def recording_mesh(shape, device, rank: int = 0) -> CloudMesh:
+    """Rank ``rank``'s view of a ``(data, model)`` mesh of no processes:
+    both axes are recording axes (``sharding.recording_axis``), whose sums
+    are recorded and not communicated.  The dry run's stand-in for a
+    rank's groups (``launch/dryrun_collm.py``)."""
+    from repro_torch.launch.sharding import RECORDING
+    dims = check_pair(shape)
+    return CloudMesh(dims, rank, dims[0] * dims[1], torch.device(device),
+                     "record", {"model": RECORDING, "data": RECORDING})
+
+
 def one_at_a_time(mesh: CloudMesh, fn: Callable[[], Any]) -> Any:
     """``fn()`` on every rank: one rank after the other when ranks share a
     card (so that the peaks of building a rank's share, which draws each

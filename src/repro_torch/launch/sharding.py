@@ -67,18 +67,26 @@ under these shares, ``estimate_param_bytes_per_device`` the rules'.
 The collectives take an ``Axis`` (a rank's place on one mesh axis and
 its process group) and are the identity without one, so the
 single-device model runs the same code; each is counted under a kind
-of its own (``COUNTS``, ``SECONDS``), and none is called inside a
+of its own (``COUNTS``, ``SECONDS``), and its group size and tensor
+bytes recorded (``CALLS``, ``records``: what
+``roofline/collectives.wire_bytes`` takes), and none is called inside a
 per-token loop (the sLSTM gathers its heads once a call, after its time
 loop).  They use only ``all_reduce``:
 over NCCL on the cards' tensors, over gloo (ranks that share one card,
 or the CPU) on host tensors, a card's tensor staged through host memory
 (``Axis.staged``).  Sums are taken in float32.
+
+A recording axis (``recording_axis``, the group ``RECORDING``) stands in
+for a rank's groups where nothing runs (the dry run of
+``launch/dryrun_collm.py``, on tensors without storage): a sum over it
+is recorded like any other and communicates nothing; its result is its
+input, of the right shape and dtype.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Iterable, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -485,20 +493,53 @@ class Axis:
         return self.index * step, (self.index + 1) * step
 
 
+class _Recording:
+    """The process group of a recording axis."""
+
+    def __repr__(self) -> str:
+        return "RECORDING"
+
+
+RECORDING = _Recording()
+
+
+def recording_axis(index: int, size: int) -> Axis:
+    """Rank ``index``'s place on an axis of ``size`` ranks whose sums are
+    recorded and not communicated (the dry run's stand-in for a group)."""
+    return Axis(index, size, RECORDING)
+
+
 # collective calls made by this process, by kind, and the host seconds
-# spent in them (``reset_counts`` zeroes both)
+# spent in them; ``CALLS``: {(kind, group size, tensor bytes): calls}
+# (``reset_counts`` zeroes all three)
 _KINDS = ("reduce_model", "embed_lookup", "gather_vocab", "merge_exits",
           "gather_rows", "gather_heads", "sum_squares")
 COUNTS = dict.fromkeys(_KINDS, 0)
 SECONDS = dict.fromkeys(_KINDS, 0.0)
+CALLS: Dict[Tuple[str, int, int], int] = {}
 
 
 def reset_counts() -> None:
     for k in _KINDS:
         COUNTS[k], SECONDS[k] = 0, 0.0
+    CALLS.clear()
+
+
+def records() -> List[Dict[str, Any]]:
+    """``CALLS`` as records: {"kind", "op" (the HLO collective it is, an
+    ``all-reduce`` for every call here), "group", "bytes" (the tensor's,
+    each call), "count"}, in a fixed order."""
+    return [{"kind": kind, "op": "all-reduce", "group": group,
+             "bytes": nbytes, "count": n}
+            for (kind, group, nbytes), n in sorted(CALLS.items())]
 
 
 def _all_reduce(x: torch.Tensor, axis: Axis, kind: str) -> torch.Tensor:
+    key = (kind, axis.size, x.numel() * x.element_size())
+    CALLS[key] = CALLS.get(key, 0) + 1
+    if axis.group is RECORDING:
+        COUNTS[kind] += 1
+        return x
     import torch.distributed as dist
     t0 = time.perf_counter()
     if axis.staged and x.is_cuda:

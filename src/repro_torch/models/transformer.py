@@ -44,6 +44,18 @@ recurrent heads; activations stay whole between blocks.  ``init`` draws
 each parameter whole from the generator, one at a time, and keeps the
 rank's share, so a rank holds exactly its share of the single-device
 model and never the whole model.
+
+A ``tier`` model is one partition of the two-tier deployment
+(``core/disagg.py``), holding only what that tier runs: the ``"edge"``
+tier the embedding (and the encoder or ``vis_proj``), layers 1..l_ee2,
+the exit norms and the unembedding the exit heads read; the ``"cloud"``
+tier layers l_ee1+1..L, the final norm and the same unembedding (the
+embedding when tied, ``lm_head`` when not).  Its parameters keep the
+whole model's names; the place of a layer the other tier holds is an
+``OtherTier``, which holds nothing and raises when it is used, so a call
+into the other partition fails instead of running something else.  Its
+weights come from the whole model (``load_whole``) or from the JAX
+parameters (``bridge.params_from_jax(tier=)``).
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ from repro_torch.models.common import (dense_init_, embed_init_,
 from repro_torch.tracing import span
 
 Caches = Dict[int, List[Dict[str, Any]]]
+TIERS = ("edge", "cloud")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +119,39 @@ def build_segments(cfg: ModelConfig) -> Tuple[SegmentSpec, ...]:
                                     shared=kinds[start] == SHARED_ATTN))
             start = i
     return tuple(segs)
+
+
+class OtherTierError(AttributeError):
+    """A tier model was asked for a part that the other tier holds."""
+
+
+class OtherTier(nn.Module):
+    """The place of layer ``layer`` (0-based) in a tier model that does
+    not hold it: no parameters, and any attribute it lacks raises
+    ``OtherTierError`` naming the tier that holds the layer."""
+
+    def __init__(self, layer: int, holder: str):
+        super().__init__()
+        self.layer = layer
+        self.holder = holder
+
+    def __getattr__(self, name: str):
+        raise OtherTierError(f"layer {self.layer + 1} is held by the "
+                             f"{self.holder} tier ({name!r})")
+
+
+def tier_layers(cfg: ModelConfig, tier: Optional[str]) -> range:
+    """The 0-based layers a ``tier`` holds: the edge 1..l_ee2, the cloud
+    l_ee1+1..L (1-based), the whole model (``tier=None``) all."""
+    if tier is None:
+        return range(cfg.n_layers)
+    if tier not in TIERS:
+        raise ValueError(f"tier must be one of {TIERS}, got {tier!r}")
+    if not cfg.exit_layers:
+        raise ValueError("a tier needs the exit layers l_ee1, l_ee2")
+    if tier == "edge":
+        return range(cfg.exit_layers[-1])
+    return range(cfg.exit_layers[0], cfg.n_layers)
 
 
 class Encoder(nn.Module):
@@ -173,10 +219,12 @@ class Model(nn.Module):
     (encoder-decoder only) and ``vis_proj`` (vision prefix only).  Every
     parameter is in ``dtype`` except the MoE routers and Mamba2's
     ``a_log``, ``dt_bias`` and ``d_skip``, which stay float32.  ``axis``:
-    the model axis of a cloud-mesh rank, whose share this model is."""
+    the model axis of a cloud-mesh rank, whose share this model is.
+    ``tier``: ``"edge"`` or ``"cloud"`` for that partition alone (the
+    module docstring), None for the whole model."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype=torch.float32,
-                 axis: Optional[Axis] = None):
+                 axis: Optional[Axis] = None, tier: Optional[str] = None):
         super().__init__()
         self.cfg = cfg.validate()
         self.segments = build_segments(cfg)
@@ -184,23 +232,32 @@ class Model(nn.Module):
         if axis is not None and axis.size == 1:
             axis = None
         self.axis = axis
+        self.tier = tier
+        held = tier_layers(cfg, tier)
+        self.held_segments = tuple(i for i, s in enumerate(self.segments)
+                                   if s.start in held)
+        other = {"edge": "cloud", "cloud": "edge"}.get(tier)
+        edge, cloud = tier != "cloud", tier != "edge"
         self.kv_heads = head_split(cfg, axis).kv_heads
         kw = dict(device=device, dtype=dtype)
         d, v = cfg.d_model, cfg.vocab_size
         if axis is not None and v % axis.size == 0:
             v //= axis.size
-        self.embed = nn.Parameter(torch.empty(v, d, **kw))
+        if edge or cfg.tie_embeddings:
+            self.embed = nn.Parameter(torch.empty(v, d, **kw))
         self.layers = nn.ModuleList(
-            nn.Identity() if kind == SHARED_ATTN
+            OtherTier(i, other) if i not in held
+            else nn.Identity() if kind == SHARED_ATTN
             else make_block(cfg, kind, device=device, dtype=dtype, axis=axis)
-            for kind in cfg.block_kinds())
-        if any(s.shared for s in self.segments):
+            for i, kind in enumerate(cfg.block_kinds()))
+        if any(self.segments[si].shared for si in self.held_segments):
             self.shared = DecoderBlock(cfg, SHARED_ATTN, device=device,
                                        dtype=dtype, axis=axis)
-        self.final_norm = _final_norm_params(cfg, **kw)
-        if cfg.is_encdec:
+        if cloud:
+            self.final_norm = _final_norm_params(cfg, **kw)
+        if cfg.is_encdec and edge:
             self.encoder = Encoder(cfg, axis=axis, **kw)
-        if cfg.vision_tokens:
+        if cfg.vision_tokens and edge:
             # column-parallel; its columns are gathered (embed_inputs)
             dv = d // axis.size if axis is not None and d % axis.size == 0 \
                 else d
@@ -210,12 +267,12 @@ class Model(nn.Module):
         # per-exit read-out norms; the heads share the unembedding
         self.exit_norms = nn.ParameterDict(
             {str(l): nn.Parameter(torch.empty(d, **kw))
-             for l in cfg.exit_layers})
+             for l in (cfg.exit_layers if edge else ())})
         self.shards = self._shards()
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.unembed_weight().device
 
     # ------------------------------------------------------------------
     # the rank's share
@@ -289,7 +346,12 @@ class Model(nn.Module):
     def init(self, gen: torch.Generator) -> "Model":
         """Fill every parameter from ``gen`` with the JAX package's
         distributions (random weights: the repository has no trained 7B
-        checkpoint)."""
+        checkpoint).  A tier model takes its weights from the whole
+        model (``load_whole``) instead: drawing its parameters alone would
+        not give the whole model's."""
+        if self.tier is not None:
+            raise ValueError(f"the {self.tier} tier draws no weights of its "
+                             f"own: load_whole(a whole model's state_dict)")
         cfg = self.cfg
         with self._whole(self.embed):
             embed_init_(self.embed, gen)
@@ -415,8 +477,14 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def block(self, si: int, j: int) -> nn.Module:
         """Layer j of segment si: the shared block for a shared segment
-        (the JAX package's ``_seg_params``)."""
+        (the JAX package's ``_seg_params``).  Raises for a segment of the
+        other tier."""
         seg = self.segments[si]
+        if si not in self.held_segments:
+            other = "cloud" if self.tier == "edge" else "edge"
+            raise OtherTierError(
+                f"segment {si} (layers {seg.start + 1}..{seg.end}) is held "
+                f"by the {other} tier, not the {self.tier} tier")
         return self.shared if seg.shared else self.layers[seg.start + j]
 
     def run_segments(self, x: torch.Tensor, ctx: BlockCtx,
@@ -474,8 +542,8 @@ class Model(nn.Module):
         """Dense caches of ``batch`` rows: self-attention rings of
         ``max_seq`` slots (a vision prefix's patches take slots too),
         an encoder-decoder's cross entries of ``encoder_seq`` keys, and
-        recurrent state."""
-        seg_indices = (range(len(self.segments)) if seg_indices is None
+        recurrent state; by default of every segment the model holds."""
+        seg_indices = (self.held_segments if seg_indices is None
                        else seg_indices)
         return {si: [init_block_cache(self.cfg, batch, max_seq,
                                       self.segments[si].window,
@@ -496,7 +564,7 @@ class Model(nn.Module):
         quantized with per-row scales; otherwise in the model's dtype.
         Recurrent state stays dense per row: ``batch`` rows, which a
         partition with recurrent layers must name."""
-        seg_indices = (range(len(self.segments)) if seg_indices is None
+        seg_indices = (self.held_segments if seg_indices is None
                        else seg_indices)
         if batch < 1 and not self.attention_only(seg_indices):
             raise ValueError("recurrent layers keep dense per-row state: "

@@ -80,7 +80,7 @@ class MeshContext:
         if axis.size == 1 and model.device == self.mesh.device:
             return model
         shard = Model(model.cfg, device=self.mesh.device, dtype=model.dtype,
-                      axis=axis)
+                      axis=axis, tier=model.tier)
         shard.load_whole(model.state_dict())
         self.placements += 1
         return shard

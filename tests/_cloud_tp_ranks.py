@@ -158,10 +158,28 @@ def tp_rank(rank, world, dims, np_params):
     return out
 
 
+def cloud_step_records(model, dims, batch, max_seq, wire="float16"):
+    """``sharding.records()`` of one ``cloud_step`` of ``batch`` rows on
+    ``model`` (a rank's share of ``dims``), from empty caches of
+    ``max_seq`` positions: what ``TwoTierRuntime.lower_tiers`` records on
+    a recording mesh of ``dims``."""
+    from repro_torch.core.transport import quantize
+    collm = CoLLM(model, CollmConfig(wire_format=wire, cloud_mesh=dims))
+    caches = collm.init_cloud_cache(batch, max_seq)
+    upload = quantize(torch.zeros((batch, 1, model.cfg.d_model)), wire)
+    tsh.reset_counts()
+    with torch.no_grad():
+        collm.cloud_step(upload, caches, 0)
+    out = tsh.records()
+    tsh.reset_counts()
+    return out
+
+
 def moe_rank(rank, world, dims, np_params, tcfg, theta, prompts, x,
-             max_new):
+             max_new, tp_params=None):
     """A reduced MoE model on one rank of ``dims``: layer 0's MoE in both
-    forms on ``x`` and greedy streams."""
+    forms on ``x`` and greedy streams; with ``tp_params``, the collective
+    records of one tiny-ee-tp cloud step of 2 rows on the same mesh."""
     mesh = make_cloud_mesh(dims, device="cpu")
     model = Model(tcfg, device="cpu", axis=mesh.model_axis)
     model.load_state_dict(params_from_jax(np_params, tcfg, mesh=dims,
@@ -183,6 +201,11 @@ def moe_rank(rank, world, dims, np_params, tcfg, theta, prompts, x,
     out["sequential"] = r["tokens"]
     out["exits"] = int(r["stats"].exits_l1 + r["stats"].exits_l2)
     out["counts"] = dict(tsh.COUNTS)
+    if tp_params is not None:
+        tp = Model(TP_CFG, device="cpu", axis=mesh.model_axis)
+        tp.load_state_dict(params_from_jax(tp_params, TP_CFG, mesh=dims,
+                                           rank=rank))
+        out["tp_records"] = cloud_step_records(tp, dims, 2, 64)
     return out
 
 

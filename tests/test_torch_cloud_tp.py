@@ -22,12 +22,11 @@ the JAX package and of the port, token for token.
   JAX's ``estimate_param_bytes_per_device``; a second fleet places
   nothing again; the single-device default is inert; the refusals.
 
-Each test that needs ranks reads one spawn of them (``ranks``), each
-rank at one torch thread; both spawns run in the background while the
-tests compute the JAX package's streams.
+Each test that needs ranks reads one spawn of them (``tests/
+_cloud_tp_runs.py``), run once a test run by whichever xdist worker asks
+first, each rank at one torch thread; the spawns run in the background
+while the tests compute the JAX package's streams.
 """
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 import pytest
 
@@ -37,26 +36,20 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from _cloud_tp_ranks import (SCENARIOS, THETA, TIE_TOKENS,  # noqa: E402
-                             TP_CFG, exit_probe, moe_rank, run_scenario,
-                             tie_probe, tp_rank)
-from repro.configs.base import ModelConfig as JModelConfig  # noqa: E402
+                             TP_CFG, exit_probe, run_scenario, tie_probe)
+from _cloud_tp_runs import (MESH, moe_inputs, moe_ranks,  # noqa: E402
+                            tp_jax, tp_ranks)
 from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
 from repro.launch import sharding as jsh  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
-from repro.models.registry import build_model as jbuild  # noqa: E402
 from repro.serving.engine import ServingSystem as JServingSystem  # noqa: E402
 from repro_torch.bridge import param_leaves, params_from_jax  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
 from repro_torch.kernels.exit_head.ops import exit_heads  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
-from repro_torch.launch.mesh import spawn  # noqa: E402
 from repro_torch.models.transformer import Model  # noqa: E402
 from repro_torch.serving.engine import ServingSystem  # noqa: E402
-
-MESH = (2, 4)
-MOE_MESH = (1, 2)
-DEADLINE_S = 240
 
 
 def exit_logits_ref(h, w, eps):
@@ -79,13 +72,7 @@ class FakeMesh:
 
 @pytest.fixture(scope="module")
 def tp():
-    jcfg = JModelConfig(name="tiny-ee-tp", arch_type="dense", n_layers=4,
-                        d_model=128, n_heads=4, n_kv_heads=2, d_ff=256,
-                        vocab_size=256, tie_embeddings=True,
-                        exit_layers=(1, 2)).validate()
-    jm = jbuild(jcfg)
-    params = jm.init(jax.random.PRNGKey(0))
-    np_params = jax.tree.map(np.asarray, params)
+    jm, jcfg, params, np_params = tp_jax()
     model = Model(TP_CFG, device="cpu")
     model.load_state_dict(params_from_jax(np_params, TP_CFG))
     return {"jm": jm, "jcfg": jcfg, "params": params,
@@ -93,34 +80,17 @@ def tp():
 
 
 @pytest.fixture(scope="module")
-def ranks(tp):
-    """The two spawns of ranks, started at once in the background (the
-    tests compute the JAX package's streams meanwhile): the (2, 4) mesh's
-    eight ranks on tiny-ee-tp (``_cloud_tp_ranks.tp_rank``) and the
-    (1, 2) mesh's two on the reduced olmoe (``moe_rank``)."""
-    from _moe_parity import arch_of
-    pool = ThreadPoolExecutor(2)
-    tp_future = pool.submit(spawn, tp_rank, MESH[0] * MESH[1], device="cpu",
-                            timeout=DEADLINE_S,
-                            args=(MESH, tp["np_params"]), threads=1)
-    arch = arch_of("olmoe-1b-7b")
-    x = np.random.default_rng(2).normal(
-        size=(2, 48, arch.tcfg.d_model)).astype(np.float32)
-    moe_future = pool.submit(
-        spawn, moe_rank, MOE_MESH[0] * MOE_MESH[1], device="cpu",
-        timeout=DEADLINE_S,
-        args=(MOE_MESH, arch.np_params, arch.tcfg, arch.theta, arch.prompts,
-              x, 6), threads=1)
-    yield {"tp": tp_future, "moe": (arch, x, moe_future)}
-    pool.shutdown(wait=True)
+def tp_future(tp, tmp_path_factory):
+    """The (2, 4) mesh's eight ranks on tiny-ee-tp, in the background."""
+    return tp_ranks(tmp_path_factory, tp["np_params"])
 
 
 @pytest.fixture(scope="module")
-def tp_run(ranks):
-    return ranks["tp"].result()
+def tp_run(tp_future):
+    return tp_future.result()
 
 
-def test_tp_matrix_streams_equal_single_device(tp, ranks):
+def test_tp_matrix_streams_equal_single_device(tp, tp_future):
     """Every scenario of the JAX file's matrix: each of the eight ranks'
     streams equal the JAX package's single-device streams and the port's
     own, with prefix hits and preemptions counted alike."""
@@ -132,7 +102,7 @@ def test_tp_matrix_streams_equal_single_device(tp, ranks):
                                          CollmConfig(theta=THETA, **ckw)),
                            kind)
         assert own == wants[name], name
-    tp_run = ranks["tp"].result()
+    tp_run = tp_future.result()
     for name, want in wants.items():
         for rank, out in enumerate(tp_run):
             assert out["streams"][name] == want, (name, rank)
@@ -209,12 +179,13 @@ def test_tp_exit_heads_merge_to_the_whole_vocabulary(tp, tp_run):
                                        atol=0)
 
 
-def test_tp_moe_layer_and_streams_match_jax(ranks):
+def test_tp_moe_layer_and_streams_match_jax(tp, tmp_path_factory):
     """Reduced olmoe over (1, 2): each rank's d_ff half of every expert,
     summed, gives JAX's MoE layer in both forms (2e-5), and the streams
     (paged ``generate``, sequential collm with exits) equal JAX's and the
     port's single-device ones."""
-    arch, x, future = ranks["moe"]
+    arch, x = moe_inputs()
+    future = moe_ranks(tmp_path_factory, tp["np_params"])
     name = "olmoe-1b-7b"
     from _moe_parity import jax_config
     mp = jax.tree.map(lambda a: jnp.asarray(a[0]),

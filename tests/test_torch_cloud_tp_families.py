@@ -8,9 +8,12 @@ exits (1, 2): an sLSTM block, and the shared attention block twice),
 whisper-medium and paligemma-3b as ``tests/_encdec_parity.py`` does, and
 a whisper whose vocabulary of 515 divides no model axis (its embedding and
 head stay whole on every rank, and the exits' merge is the identity).
-One spawn of four ranks, one torch thread each, serves every model over
-the meshes (2, 2) and (1, 4) in turn (``_cloud_tp_family_ranks``), while
-the test computes the single-device streams of both packages:
+For each model one spawn of four ranks, one torch thread each, serves it
+over the meshes (2, 2) and (1, 4) in turn (``_cloud_tp_family_ranks``),
+while the single-device streams of both packages and the other
+single-device references are computed; each model's ranks and references
+are computed once a test run, by whichever xdist worker asks first
+(``_shared_run.shared``), and every test reads them:
 
 * in the modes ``cloud``, ``collm`` at the split θ on a float16 and an
   int8 wire, and ``standalone``, every rank's streams equal the port's
@@ -37,6 +40,7 @@ torch = pytest.importorskip("torch")
 from _cloud_tp_family_ranks import (MAX_NEW, MESHES, MODES,  # noqa: E402
                                     cloud_prefill_rows, family_rank,
                                     family_stream, state_packet)
+from _shared_run import shared  # noqa: E402
 from repro_torch.bridge import port_leaves  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
@@ -69,18 +73,43 @@ def _spec(name, arch):
     return spec
 
 
-@pytest.fixture(scope="module")
-def families():
-    """The five models and the ranks' results (a future), started before
-    the single-device streams are computed."""
-    archs = {n: _arch(n) for n in RECURRENT + PREFIXED}
-    specs = [_spec(n, a) for n, a in archs.items()]
+def _family(name):
+    """One model's ranks and single-device references: the ranks' results
+    (their spawn started before the references are computed), the port's
+    streams in every mode, the JAX package's collm stream, the whole
+    model's parameter bytes, the two-row cloud prefill's logits and, for a
+    recurrent model, the state packet."""
+    arch = _arch(name)
+    spec = _spec(name, arch)
     pool = ThreadPoolExecutor(1)
-    future = pool.submit(spawn, family_rank, 4, device="cpu",
-                         timeout=DEADLINE_S, args=(specs,), threads=1)
-    yield {"archs": archs, "specs": {s["name"]: s for s in specs},
-           "ranks": future}
-    pool.shutdown(wait=True)
+    ranks = pool.submit(spawn, family_rank, 4, device="cpu",
+                        timeout=DEADLINE_S, args=([spec],), threads=1)
+    pool.shutdown(wait=False)
+    out = {"cfg": spec["cfg"],
+           "want": {mode: family_stream(arch.tm, spec, mode)
+                    for mode in MODES},
+           "jax_want": _jax_collm(name, arch, spec),
+           "whole_bytes": sum(p.numel() * p.element_size()
+                              for p in arch.tm.parameters()),
+           "prefill_rows": cloud_prefill_rows(arch.tm, spec)}
+    if name in RECURRENT:
+        out["packet"] = state_packet(arch.tm, spec)
+    out["ranks"] = ranks.result()
+    return out
+
+
+@pytest.fixture(scope="module")
+def families(tmp_path_factory):
+    """{name: a future of ``_family(name)``}, each computed once a test
+    run; a test starts the ones it reads."""
+    futures = {}
+
+    def get(name):
+        if name not in futures:
+            futures[name] = shared(tmp_path_factory, f"family-{name}",
+                                   lambda: _family(name))
+        return futures[name]
+    return get
 
 
 def _jax_collm(name, arch, spec):
@@ -101,11 +130,10 @@ def _jax_collm(name, arch, spec):
 def test_mesh_streams_equal_single_device(families, name):
     """Every rank of (2, 2) and (1, 4), every mode: the port's
     single-device streams; collm on a float16 wire: the JAX package's."""
-    arch, spec = families["archs"][name], families["specs"][name]
-    want = {mode: family_stream(arch.tm, spec, mode) for mode in MODES}
-    jax_want = _jax_collm(name, arch, spec)
-    assert want["collm-float16"] == jax_want
-    outs = families["ranks"].result()
+    fam = families(name).result()
+    want = fam["want"]
+    assert want["collm-float16"] == fam["jax_want"]
+    outs = fam["ranks"]
     for rank, out in enumerate(outs):
         for dims in MESHES:
             got = out[(dims, name)]
@@ -130,17 +158,17 @@ def test_mesh_streams_equal_single_device(families, name):
 def test_mesh_param_bytes_match_the_estimate(families):
     """Each rank holds the rules' share of every parameter, and the
     port's listed departures (``sharding.param_share``) where it departs."""
-    outs = families["ranks"].result()
-    for name, spec in families["specs"].items():
+    for name in RECURRENT + PREFIXED:
+        families(name)
+    for name in RECURRENT + PREFIXED:
+        fam = families(name).result()
         for dims in MESHES:
-            want = tsh.rank_param_bytes(port_leaves(spec["cfg"]),
+            want = tsh.rank_param_bytes(port_leaves(fam["cfg"]),
                                         tsh.MeshShape(dims, tsh.AXES),
-                                        spec["cfg"])
-            for out in outs:
+                                        fam["cfg"])
+            for out in fam["ranks"]:
                 assert out[(dims, name)]["param_bytes"] == want, (name, dims)
-            whole = sum(p.numel() * p.element_size()
-                        for p in families["archs"][name].tm.parameters())
-            assert want < whole
+            assert want < fam["whole_bytes"]
 
 
 def test_state_packets_and_prefill_rows_equal_single_device(families):
@@ -149,17 +177,19 @@ def test_state_packets_and_prefill_rows_equal_single_device(families):
     bytes, its per-row scales to float32 rounding and its codes to one
     step.  A two-row ``cloud_prefill`` of every model (each data column
     prefilling its row at (2, 2)): the single device's logits."""
-    outs = families["ranks"].result()
-    for name, spec in families["specs"].items():
-        want = cloud_prefill_rows(families["archs"][name].tm, spec)
-        for out in outs:
+    for name in RECURRENT + PREFIXED:
+        families(name)
+    for name in RECURRENT + PREFIXED:
+        fam = families(name).result()
+        want = fam["prefill_rows"]
+        for out in fam["ranks"]:
             for dims in MESHES:
                 np.testing.assert_allclose(out[(dims, name)]["prefill_rows"],
                                            want, rtol=0, atol=2e-5)
     for name in RECURRENT:
-        arch, spec = families["archs"][name], families["specs"][name]
-        leaves, nbytes = state_packet(arch.tm, spec)
-        for out in outs:
+        fam = families(name).result()
+        leaves, nbytes = fam["packet"]
+        for out in fam["ranks"]:
             for dims in MESHES:
                 got, got_bytes = out[(dims, name)]["packet"]
                 assert got_bytes == nbytes

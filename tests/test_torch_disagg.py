@@ -9,7 +9,9 @@ with float16 the JAX runtime's stream; at θ = 0.5 with float16 every
 generated step uploads its packet (11 * d * 2 bytes after the prompt).
 Also an int8 wire, and the prompt upload streamed in slices
 (``upload_chunk``): the same streams as JAX's, and the same wire bytes,
-per slice, as JAX bills them.
+per slice, as JAX bills them.  The same scenarios with the tiers as two
+partition models: ``tests/test_torch_disagg_tiers.py``; ``lower_tiers``:
+``tests/test_torch_lower_tiers.py``.
 """
 import dataclasses
 
@@ -117,12 +119,3 @@ def test_channel_bills_each_packet():
     (rep,) = chan.poll()
     assert rep.handle == h and calls == [7] and float(rep.reply) == 8.0
     assert chan.stats.bytes_up == 16 and chan.stats.requests == 1
-
-
-def test_lower_tiers_waits_for_the_multi_device_port(tiers):
-    tm = tiers[2]
-    rt = TwoTierRuntime(tm, CollmConfig(), "cpu", "cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        rt.lower_tiers(1, 64)
-    with pytest.raises(ValueError):
-        TwoTierRuntime(tm, CollmConfig(), "cpu", "meta")

@@ -35,6 +35,12 @@ torch = pytest.importorskip("torch")
 # collects the suite, so this holds for the whole session.
 torch.set_num_threads(1)
 
+# One JAX compilation cache for every worker of the run, for the same
+# reason: the workers compile the same reference programs over and over.
+from _shared_run import share_jax_compiles  # noqa: E402
+
+share_jax_compiles()
+
 import jax  # noqa: E402
 
 from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
