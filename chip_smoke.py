@@ -4054,10 +4054,20 @@ def phase_13(dev, ops) -> dict:
 # ---------------------------------------------------------------------------
 # phase 14: the cloud mesh (ranks on torch.distributed)
 # ---------------------------------------------------------------------------
-MESHES_14A = ((1, 2), (1, 4), (2, 2))   # (a): tiny-ee-tp, float32
+MESHES_14A = ((1, 2), (1, 4), (2, 2), (2, 1))   # (a): tiny-ee-tp, float32
+SWAP_14 = ("swap", "swap-int8")          # (a), (b): swap preemption, both
+SWAP_SCHEDULE = [(2, 1), (2, 0)]         # slots swapped out at tick 2: each
+                                         # stream resumes in the other's
+                                         # slot, over a data axis of 2 in
+                                         # the other column
+MULTI_SWAP_SCHEDULES = [[(2, 0)], None, None, [(2, 0)]]   # (a): the first
+                                         # and last of four engines; the
+                                         # first takes the last's batcher
+                                         # row, the other column's
 COMMAND_R = "command-r-35b"              # (c), at full width and depth
 C_PROMPT, C_NEW = 256, 16                # (c): prompt tokens, new tokens
 B_F32_NEW = 8                            # (b): new tokens of the f32 check
+SWAP_NEW = 12                            # (b): new tokens of the swap runs
 MESH_KERNELS = ("decode_attn", "decode_attn_paged", "decode_attn_paged_int8",
                 "quantize_kv_write", "exit_heads")
 DEADLINE_14 = 420                        # seconds a spawn of ranks may take
@@ -4096,7 +4106,12 @@ def mesh_scenarios():
                                       chunked_prefill=True,
                                       prefix_share=True)),
             "preempt": ("preempt", dict(kv_layout="paged",
-                                        preemption="recompute"))}
+                                        preemption="recompute")),
+            "swap": ("swap", dict(kv_layout="paged", preemption="swap")),
+            "swap-int8": ("swap", dict(kv_layout="paged", kv_dtype="int8",
+                                       preemption="swap")),
+            "swap-multi": ("swap-multi", dict(kv_layout="paged",
+                                              preemption="swap"))}
 
 
 def mesh_prompts():
@@ -4108,9 +4123,10 @@ def mesh_prompts():
     return multi, prefix, preempt
 
 
-def mesh_scenario(model, theta, name, dims=None) -> tuple:
+def mesh_scenario(model, theta, name, dims=None, info=None) -> tuple:
     """One of ``mesh_scenarios`` on ``model`` (a rank's share under
-    ``dims``): (streams, exits, prefix-hit tokens, preemptions)."""
+    ``dims``): (streams, exits, prefix-hit tokens, preemptions); a swap
+    scenario fills ``info`` (``swap_info``)."""
     from repro_torch.core.collm import CollmConfig
     from repro_torch.serving.engine import ServingSystem
     kind, ckw = mesh_scenarios()[name]
@@ -4121,12 +4137,110 @@ def mesh_scenario(model, theta, name, dims=None) -> tuple:
         r = system.generate_multi(multi, 8)
     elif kind == "prefix":
         r = system.generate(prefix, 8)
+    elif kind == "swap-multi":     # four engines behind one CloudBatcher
+        r = system.generate_multi(multi + preempt[:1], 8,
+                                  preempt_schedules=MULTI_SWAP_SCHEDULES)
+    elif kind == "swap":
+        with SwapSpy() as spy:
+            r = system.generate(preempt, 8, num_slots=2,
+                                preempt_schedule=SWAP_SCHEDULE)
+        if info is not None:
+            info.update(swap_info(system, spy))
     else:
         r = system.generate(preempt, 8, num_slots=2,
                             preempt_schedule=[(2, 0)])
     st = r["stats"]
     return (r["tokens"], st.exits_l1 + st.exits_l2, st.prefix_hit_tokens,
             st.preemptions)
+
+
+class SwapSpy:
+    """Within it, the engine's preemptions and resumes are recorded as
+    (event, stream, slot), and each swap-out's pages snapshot timed on the
+    card (``seconds``: every snapshot, gathered and, over a data axis, sent
+    to every column)."""
+
+    def __enter__(self):
+        from repro_torch.serving.engine import BatchScheduler as BS
+        self.moves, self.seconds = [], []
+        self.saved = (BS._preempt, BS._resume, BS._swap_out_slot)
+        pre, res, snap = self.saved
+        spy = self
+
+        def spy_pre(sched, s):
+            spy.moves.append(("out", s.req.device_id, s.index))
+            return pre(sched, s)
+
+        def spy_res(sched, ck, slot):
+            spy.moves.append(("in", ck.req.device_id, slot.index))
+            return res(sched, ck, slot)
+
+        def spy_snap(sched, s):
+            sync()
+            t0 = time.perf_counter()
+            out = snap(sched, s)
+            sync()
+            spy.seconds.append(time.perf_counter() - t0)
+            return out
+        BS._preempt, BS._resume, BS._swap_out_slot = spy_pre, spy_res, \
+            spy_snap
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving.engine import BatchScheduler as BS
+        BS._preempt, BS._resume, BS._swap_out_slot = self.saved
+        return False
+
+    def crossed(self, columns: int, slots: int = 2) -> bool:
+        """Some stream resumed in another data column than it left."""
+        left = {d: s for ev, d, s in self.moves if ev == "out"}
+        per = slots // columns
+        return any(s // per != left[d] // per
+                   for ev, d, s in self.moves if ev == "in")
+
+
+def swap_info(system, spy) -> dict:
+    """A swap run's pool: its pages and columns, the rank's cloud pool
+    (pages, bytes), the swap pool's stats, the snapshots' seconds and
+    whether a resumed stream crossed columns."""
+    import dataclasses as dc
+    from repro_torch.models.cache_tree import cache_bytes
+    sched = next(iter(system._schedulers.values()))
+    node = sched.cloud_caches[next(iter(sched.cloud_caches))][0]["self"]
+    return {"pool_pages": sched.pool.num_pages,
+            "columns": sched.pool.columns,
+            "cloud_pages": int(node["kp"].shape[0]),
+            "cloud_bytes": cache_bytes(sched.cloud_caches),
+            "swap": dc.astuple(sched.swap.stats),
+            "snapshot_s": sum(spy.seconds),
+            "crossed": spy.crossed(sched.pool.columns),
+            "moves": list(spy.moves)}
+
+
+def check_swap_info(label, info, one, dims) -> None:
+    """A mesh's swap run against the single device's (``one``): the
+    swaps counted alike, the pool's pages alike, a rank's cloud pool its
+    column's P / D pages and a trash page (the single device's bytes in
+    that proportion without a model axis, the snapshots' bytes too), and
+    over a data axis a resumed stream in the other column."""
+    d = dims[0]
+    p = one["pool_pages"]
+    check(info["swap"][:2] == one["swap"][:2] == (2, 2),
+          f"{label}: swap counts {info['swap'][:2]}, single device "
+          f"{one['swap'][:2]}")
+    check(info["pool_pages"] == p and info["columns"] == d
+          and info["cloud_pages"] == p // d + 1,
+          f"{label}: pool of {info['pool_pages']} pages in "
+          f"{info['columns']} columns, {info['cloud_pages']} on the rank")
+    if dims[1] == 1:
+        check(info["cloud_bytes"] * (p + 1)
+              == one["cloud_bytes"] * (p // d + 1)
+              and info["swap"] == one["swap"],
+              f"{label}: cloud pool {info['cloud_bytes']} B or snapshots "
+              f"{info['swap']} off the single device's")
+    if d > 1:
+        check(info["crossed"], f"{label}: no stream resumed in another "
+              f"column ({info['moves']})")
 
 
 def rank_setup():
@@ -4146,9 +4260,10 @@ def rank_14a(rank, world, dims, state, theta) -> dict:
                   axis=mesh.model_axis).load_whole(state)
     ops = kernel_ops()
     reset(ops)
-    runs = {name: mesh_scenario(model, theta, name, dims)
+    swaps = {name: {} for name in SWAP_14}
+    runs = {name: mesh_scenario(model, theta, name, dims, swaps.get(name))
             for name in mesh_scenarios()}
-    return {"runs": runs, "launches": counted(ops),
+    return {"runs": runs, "launches": counted(ops), "swaps": swaps,
             "mesh": mesh.describe(), "device": str(mesh.device)}
 
 
@@ -4173,12 +4288,15 @@ def phase_14a(dev, ops) -> dict:
     theta = wide_theta(full["stats"])
     want = {name: mesh_scenario(cpu, theta, name)
             for name in mesh_scenarios()}
-    one = {name: mesh_scenario(gpu, theta, name) for name in mesh_scenarios()}
+    one_swap = {name: {} for name in SWAP_14}
+    one = {name: mesh_scenario(gpu, theta, name, info=one_swap.get(name))
+           for name in mesh_scenarios()}
     check(one == want, "14 (a): the card's single-device runs differ from "
           "the CPU's")
     check(want["prefix"][2] > 0 and want["preempt"][3] == 1
-          and want["dense"][1] > 0,
-          "14 (a): no prefix hits, preemption or exits")
+          and want["dense"][1] > 0 and want["swap"][3] == 2
+          and want["swap-multi"][3] == 2,
+          "14 (a): no prefix hits, preemptions or exits")
     print(f"14 (a) tiny-ee-tp float32, theta {theta:.6f}: single device "
           f"card == CPU in {len(want)} paths (exits {want['dense'][1]}, "
           f"prefix hits {want['prefix'][2]})")
@@ -4195,11 +4313,22 @@ def phase_14a(dev, ops) -> dict:
             for name in MESH_KERNELS:
                 check(out["launches"][name] > 0,
                       f"14 (a) {dims}: rank {rank} launched no {name}")
+            for name in SWAP_14:
+                check_swap_info(f"14 (a) {dims} rank {rank} {name}",
+                                out["swaps"][name], one_swap[name], dims)
             got = total(got, out["launches"])
         print(f"14 (a) {outs[0]['mesh']} on {outs[0]['device']}...: "
               f"{len(outs)} ranks x {len(want)} paths == single device; "
               f"rank 0 launches {outs[0]['launches']} "
               f"({time.perf_counter() - t1:.1f} s)")
+        for name in SWAP_14:
+            i, o = outs[0]["swaps"][name], one_swap[name]
+            print(f"  {name}: rank 0's cloud pool {i['cloud_pages']} pages "
+                  f"{i['cloud_bytes']} B (single device {o['cloud_pages']} "
+                  f"pages {o['cloud_bytes']} B), snapshots {i['swap'][2]} B "
+                  f"in {i['snapshot_s'] * 1e3:.3f} ms (single device "
+                  f"{o['swap'][2]} B in {o['snapshot_s'] * 1e3:.3f} ms), "
+                  f"moves {i['moves']}")
     print(f"phase 14 (a) launches: {got} in {time.perf_counter() - t0:.1f} s")
     return got
 
@@ -4247,6 +4376,29 @@ def ee_runs():
 
 def f32_runs():
     return {"dense": ("collm", {"wire_format": "float32"})}
+
+
+def swap_runs(model, prompts, max_new, theta, dims=None) -> dict:
+    """ee-llm-7b's swap paths: paged float and int8 pools with
+    ``preemption="swap"`` forced on both of two slots at tick 2
+    (``SWAP_SCHEDULE``), on a float16 wire: {label: (streams, tokens/s,
+    exits, cloud requests, ``swap_info``)}."""
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.serving.engine import ServingSystem
+    out = {}
+    for label, ckw in (("paged swap", {}),
+                       ("paged-int8 swap", {"kv_dtype": "int8"})):
+        system = ServingSystem(model, CollmConfig(
+            theta=theta, cloud_mesh=dims, kv_layout="paged",
+            page_size=G_PAGE, preemption="swap", **ckw))
+        with SwapSpy() as spy:
+            r = timed_generate(system, prompts, max_new, num_slots=2,
+                               preempt_schedule=SWAP_SCHEDULE)
+        st = r["stats"]
+        out[label] = (r["tokens"], st.tokens / r["seconds"],
+                      st.exits_l1 + st.exits_l2, st.cloud_requests,
+                      swap_info(system, spy))
+    return out
 
 
 def rank_bytes(model) -> int:
@@ -4412,6 +4564,18 @@ def rank_14b(rank, world, cfg, prompts, theta, max_new, streams) -> dict:
     out["launches"] = total(launches, counted(ops))
     out["collectives"] = dict(sharding.COUNTS)
     out["peak_gib"] = peak_gib()
+    # the same two ranks as a data axis of 2: the whole model on each, the
+    # paged pool split over the columns, swaps across them
+    del model
+    free()
+    swap_dims = (world, 1)
+    model = build_model(cfg, device=mesh.device, dtype=torch.bfloat16,
+                        seed=SEED)
+    reset(ops)
+    out["swap"] = swap_runs(model, prompts, SWAP_NEW, theta, swap_dims)
+    out["swap_launches"] = counted(ops)
+    out["launches"] = total(out["launches"], out["swap_launches"])
+    out["swap_peak_gib"] = peak_gib()
     return out
 
 
@@ -4439,9 +4603,12 @@ def phase_14b(dev, ops) -> dict:
     theta = split_theta(r["stats"])
     reset(ops)
     one = mesh_runs(model, prompts, MAX_NEW, theta, ee_runs())
+    one_swap = swap_runs(model, prompts, SWAP_NEW, theta)
     got = counted(ops)
     one_forced = {name: forced(model, prompts, one[name][0],
                                logits=name == "dense") for name in one}
+    one_forced.update({name: forced(model, prompts, one_swap[name][0],
+                                    logits=False) for name in one_swap})
     del model
     free()
     model = build_model(cfg, device=dev, dtype=torch.float32, seed=SEED)
@@ -4481,6 +4648,31 @@ def phase_14b(dev, ops) -> dict:
         got = total(got, out["launches"])
     check(outs[0]["bf16"]["dense"][0] == outs[1]["bf16"]["dense"][0],
           "14 (b): the ranks' streams differ")
+    for label, (toks, tps, exits, cloud, info) in one_swap.items():
+        print(f"14 (b) single {label}: {tps:.2f} tokens/s, exits {exits}, "
+              f"cloud requests {cloud}; cloud pool {info['cloud_pages']} "
+              f"pages {info['cloud_bytes'] / 1e6:.3f} MB, snapshots "
+              f"{info['swap'][2] / 1e6:.3f} MB in "
+              f"{info['snapshot_s'] * 1e3:.3f} ms, moves {info['moves']}")
+    for rank, out in enumerate(outs):
+        for name in ("decode_attn_paged", "decode_attn_paged_int8",
+                     "quantize_kv_write"):
+            check(out["swap_launches"][name] > 0,
+                  f"14 (b) (2, 1) rank {rank} launched no {name}")
+        for label, (toks, tps, exits, cloud, info) in out["swap"].items():
+            check_swap_info(f"14 (b) (2, 1) rank {rank} {label}", info,
+                            one_swap[label][4], (2, 1))
+            print(f"14 (b) (2, 1) rank {rank} {label}: {tps:.2f} tokens/s, "
+                  f"exits {exits}, cloud requests {cloud}; agreement with "
+                  f"the single device {agreement(toks, one_swap[label][0])}"
+                  f"; cloud pool {info['cloud_pages']} pages "
+                  f"{info['cloud_bytes'] / 1e6:.3f} MB, snapshots "
+                  f"{info['swap'][2] / 1e6:.3f} MB in "
+                  f"{info['snapshot_s'] * 1e3:.3f} ms, moves "
+                  f"{info['moves']}, peak {out['swap_peak_gib']:.2f} GiB")
+        first_splits(f"(b) (2, 1) rank {rank}", cfg, theta,
+                     {k: v[:4] for k, v in one_swap.items()}, one_forced,
+                     {k: v[:4] for k, v in out["swap"].items()})
     print(f"14 (b) float32 theta=1 over (1, 2) == single device: True; "
           f"{time.perf_counter() - t0:.1f} s")
     return got
@@ -4967,6 +5159,20 @@ def phase_14(dev, ops) -> dict:
 T_PROMPT, T_NEW, T_CHUNK = 256, 16, 64      # (b): one client; upload slices
 T_SMALL_PROMPT, T_SMALL_CHUNK = 40, 8       # (a)
 DRYRUN_WIRES = ("float32", "float16", "int8")   # (c), at 128 x 32768
+# (c): ``python -m repro_torch.launch.dryrun``'s named subset, a process
+# each: every assigned arch at decode_32k on the 16x16 mesh (``DryRuns``),
+# and each other shape kind once (train_4k with FSDP, prefill_32k on the pods, long_500k
+# on both meshes where it lowers, and where it is skipped).  ``--all`` takes
+# about ten minutes of one host core (xlstm-350m's training and prefill
+# steps ~1 min each), over the script's budget; its seconds per
+# combination: PERF.md
+DRYRUN_SUBSET = {
+    "train": ["--arch", "qwen1.5-110b", "--shape", "train_4k"],
+    "prefill": ["--arch", "gemma3-12b", "--shape", "prefill_32k",
+                "--multi-pod"],
+    "long": ["--arch", "zamba2-1.2b", "--shape", "long_500k",
+             "--both-meshes"],
+    "skip": ["--arch", "command-r-35b", "--shape", "long_500k"]}
 
 
 def host_rss() -> int:
@@ -5194,8 +5400,9 @@ def phase_15b(dev, ops, before_runs) -> tuple:
 class DryRuns:
     """(c): ``python -m repro_torch.launch.dryrun_collm`` with no card
     visible, ee-llm-7b at 128 x 32768 on every wire and qwen1.5-110b with
-    its cloud over (1, 4), each in a process of its own, all started at
-    once; ``wait`` collects them, ``check`` reads their records."""
+    its cloud over (1, 4), and ``python -m repro_torch.launch.dryrun`` over
+    ``DRYRUN_SUBSET``, each in a process of its own, all started at once;
+    ``wait`` collects them, ``check`` reads their records."""
 
     def __init__(self):
         self.out = Path(tempfile.mkdtemp(prefix="dryrun_collm_"))
@@ -5208,6 +5415,14 @@ class DryRuns:
         cmds["qwen1.5-110b tp4"] = base + ["--arch", "qwen1.5-110b",
                                            "--wire", "float16",
                                            "--cloud-tp", "4"]
+        self.port = self.out / "dryrun"
+        from repro_torch.configs.registry import ASSIGNED
+        subset = {**{f"decode {a}": ["--arch", a, "--shape", "decode_32k"]
+                     for a in ASSIGNED}, **DRYRUN_SUBSET}
+        for k, argv in subset.items():
+            cmds[f"dryrun {k}"] = [sys.executable, "-m",
+                                   "repro_torch.launch.dryrun", "--out",
+                                   str(self.port)] + argv
         self.t0 = time.perf_counter()
         self.procs = {}
         for k, c in cmds.items():
@@ -5260,6 +5475,38 @@ class DryRuns:
               f"edge {rec['edge']['param_bytes'] / 1e9:.2f} GB")
         check(coll.get("count", 0) > 0, "phase 15 (c): no collective in "
               "qwen1.5-110b's cloud tier")
+        self.check_port()
+
+    def check_port(self) -> None:
+        """Every record of ``repro_torch.launch.dryrun`` ok or skipped, ok
+        ones with FLOPs; every arch and every shape kind covered."""
+        recs = [json.loads(f.read_text())
+                for f in sorted(self.port.glob("*.json"))]
+        ok = [r for r in recs if r["status"] == "ok"]
+        for r in recs:
+            check(r["status"] in ("ok", "skipped"),
+                  f"phase 15 (c) dryrun {r['arch']} {r['shape']} "
+                  f"{r['mesh']}: {r['status']} {r.get('error')}")
+            if r["status"] == "ok":
+                check(r["cost_analysis"]["flops"] > 0,
+                      f"phase 15 (c) dryrun {r['arch']} {r['shape']}: no "
+                      f"flops")
+                print(f"phase 15 (c) dryrun {r['arch']} {r['shape']} "
+                      f"{r['mesh']}: arguments "
+                      f"{r['arg_bytes_per_device'] / 1e9:.3f} GB a device "
+                      f"(fsdp {r['fsdp']}), flops "
+                      f"{r['cost_analysis']['flops']:.4g} at rank 0's share "
+                      f"({r['step']['rows']} rows, {r['step']['dtype']}), "
+                      f"{r['lower_s']} s")
+        archs = {r["arch"] for r in ok}
+        kinds = {r["shape"] for r in ok} | {r["shape"] for r in recs
+                                            if r["status"] == "skipped"}
+        check(len(archs) == 10 and kinds == {"decode_32k", "train_4k",
+                                             "prefill_32k", "long_500k"},
+              f"phase 15 (c) dryrun: {sorted(archs)} {sorted(kinds)}")
+        print(f"phase 15 (c) dryrun: {len(ok)} ok, {len(recs) - len(ok)} "
+              f"skipped, {len(archs)} archs, step passes "
+              f"{sum(r['lower_s'] for r in ok):.1f} s in all")
 
 
 def phase_15(dev, ops) -> dict:

@@ -21,6 +21,11 @@ _MODULES = (qwen1_5_110b, gemma3_12b, command_r_35b, stablelm_12b,
             whisper_medium, paligemma_3b, ee_llm_7b)
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
+# the assigned architectures (every one but the paper's ee-llm-7b), in
+# the JAX package's order: what ``launch/dryrun.py --all`` runs
+ASSIGNED = ("granite-moe-3b-a800m", "qwen1.5-110b", "xlstm-350m",
+            "olmoe-1b-7b", "gemma3-12b", "paligemma-3b", "command-r-35b",
+            "zamba2-1.2b", "whisper-medium", "stablelm-12b")
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -47,7 +47,10 @@ model group.  The data axis splits the rows of a pooled cloud cache
 whose batch it divides: the cloud steps (``cloud_step``, its masked and
 ring forms, ``full_step``, ``invalidate_rows_after``) run the column's
 rows and gather the replies; single-row prefills run whole in every
-column.  The edge steps run on the same split weights, every row in
+column.  A paged pool whose pages it also divides holds the column's
+block of them: the steps read the block table in the column's local ids
+(``_local_pages``), and a chunk prefill runs in the column that holds
+the row.  The edge steps run on the same split weights, every row in
 every column.
 
 A ``CoLLM`` on a tier model (``Model(tier="edge" | "cloud")``, the
@@ -74,7 +77,7 @@ from repro_torch.core.exits import (ExitDecision, evaluate_exit,
 from repro_torch.core.transport import FORMATS, dequantize, quantize
 from repro_torch.kernels.exit_quant.ops import exit_quant
 from repro_torch.launch.mesh import check_pair
-from repro_torch.launch.sharding import merge_exits
+from repro_torch.launch.sharding import merge_exits, share_column
 from repro_torch.models.blocks import BlockCtx
 from repro_torch.models.transformer import Caches, Model
 from repro_torch.serving.mesh_exec import MeshContext, mesh_context
@@ -207,14 +210,7 @@ class CoLLM:
                              "True (suffix-only compute needs chunk-"
                              "granular admission)")
         if ccfg.cloud_mesh is not None:
-            data, _ = check_pair(ccfg.cloud_mesh)
-            if data > 1 and ccfg.preemption == "swap":
-                raise NotImplementedError(
-                    "CollmConfig fields ['cloud_mesh', 'preemption'] select "
-                    "a feature that is not ported yet (cloud_mesh: ROADMAP "
-                    "A.11b.2: swap preemption over a data axis, where a "
-                    "resumed stream may land in another column, whose pool "
-                    "lacks its pages); use preemption='recompute'")
+            check_pair(ccfg.cloud_mesh)
         self.model = model
         self.ccfg = ccfg
         if mesh is not None:
@@ -259,10 +255,13 @@ class CoLLM:
 
     def init_cloud_cache_paged(self, batch: int, num_pages: int,
                                page_size: int) -> Caches:
-        """A paged cloud pool for ``batch`` rows: whole in every data
-        column, each column writing only its rows' pages; the dense per-row
-        entries (recurrent state, cross caches) hold the column's rows
-        only, as ``init_cloud_cache``'s do."""
+        """A paged cloud pool for ``batch`` rows.  Under a data axis that
+        divides ``batch`` and ``num_pages`` the column holds its block of
+        ``num_pages / D`` pages and a trash page (``MeshContext.
+        page_block``; the allocator is ``PagePool(columns=D)``), else the
+        whole pool, each column writing only its rows' pages; the dense
+        per-row entries (recurrent state, cross caches) hold the column's
+        rows only, as ``init_cloud_cache``'s do."""
         return self._paged_rows(batch, num_pages, page_size, self.cloud_segs)
 
     def init_main_cache_paged(self, batch: int, num_pages: int,
@@ -272,9 +271,10 @@ class CoLLM:
     def _paged_rows(self, batch: int, num_pages: int, page_size: int,
                     segs) -> Caches:
         lo, hi = self.mesh_ctx.rows(batch)
+        block = self.mesh_ctx.page_block(batch, num_pages)
         return self.mesh_ctx.row_caches(self.model.init_paged_cache(
-            num_pages, page_size, segs, kv_dtype=self.ccfg.kv_dtype,
-            batch=hi - lo), batch)
+            block[1] if block else num_pages, page_size, segs,
+            kv_dtype=self.ccfg.kv_dtype, batch=hi - lo), batch, block)
 
     def _rows_of(self, caches: Caches, b: int) -> Tuple[int, int]:
         """[lo, hi) of a ``b``-row step's rows that ``caches`` hold."""
@@ -483,13 +483,29 @@ class CoLLM:
         """Cloud prefill of one uploaded hidden chunk (h1: (1, C, d));
         returns (logits (1, V) at the chunk's true last position, caches).
         Only the prompt's final chunk's logits matter; earlier chunks run
-        for the KV they write."""
+        for the KV they write.  On a pool split over the data axis only
+        the column that holds the row's pages runs the chunk, and its
+        logits reach every column (``sharding.share_column``)."""
         c = h1.shape[1]
-        wm = (torch.arange(c, device=h1.device) < chunk_len)[None]
-        x, _, caches = self.model.decode_from_hidden(
-            h1, caches, pos0, self.cloud_segs, block_tbl=block_tbl,
-            write_mask=wm)
-        return self.model.logits(x[:, chunk_len - 1]), caches
+        block = getattr(caches, "pages", None)
+        owner = True
+        if block is not None:
+            ids = block_tbl[0].cpu()
+            owner = bool(((ids >= block[0]) & (ids < block[0] + block[1]))
+                         .any())
+            block_tbl = _local_pages(caches, block_tbl)
+        if owner:
+            wm = (torch.arange(c, device=h1.device) < chunk_len)[None]
+            x, _, caches = self.model.decode_from_hidden(
+                h1, caches, pos0, self.cloud_segs, block_tbl=block_tbl,
+                write_mask=wm)
+            logits = self.model.logits(x[:, chunk_len - 1])
+        else:
+            logits = torch.zeros((1, self.model.cfg.vocab_size),
+                                 dtype=self.model.dtype, device=h1.device)
+        if block is not None:
+            logits = share_column(logits, caches.axis, owner)
+        return logits, caches
 
     # ------------------------------------------------------------------
     # decode steps
@@ -558,6 +574,7 @@ class CoLLM:
         lo, hi = self._rows_of(caches, b)
         upload, pos, block_tbl, write_mask = _take_rows(
             (upload, pos, block_tbl, write_mask), lo, hi, b)
+        block_tbl = _local_pages(caches, block_tbl)
         hidden = dequantize(upload, self.model.dtype)
         x, _, caches = self.model.decode_from_hidden(
             hidden, caches, pos, self.cloud_segs, block_tbl=block_tbl,
@@ -579,6 +596,10 @@ class CoLLM:
                               device=self.model.device)
         lo, hi = self._rows_of(caches, cut.shape[0])
         dense_cut = cut[lo:hi]
+        if getattr(caches, "pages", None) is not None:
+            # a split pool holds its own rows' pages alone
+            cut = dense_cut
+            block_tbl = _local_pages(caches, block_tbl[lo:hi])
         for layers in caches.values():
             for c in layers:
                 if "self" not in c:
@@ -592,7 +613,8 @@ class CoLLM:
                 thr = torch.full((p.shape[0],), torch.iinfo(torch.int32).max,
                                  dtype=torch.int32, device=p.device)
                 # the trash page (id 0) may collect several rows'
-                # thresholds; its markers are always -1, never >= a cut
+                # thresholds (and a split pool's foreign rows'); its
+                # markers are always -1, never >= a cut
                 dest = torch.where(block_tbl >= 0, block_tbl, 0).reshape(-1)
                 thr[dest.long()] = cut.repeat_interleave(block_tbl.shape[1])
                 p.masked_fill_(p >= thr[:, None], -1)
@@ -659,6 +681,7 @@ class CoLLM:
         lo, hi = self._rows_of(caches, b)
         token, pos, block_tbl = _take_rows((token, pos, block_tbl), lo, hi,
                                            b)
+        block_tbl = _local_pages(caches, block_tbl)
         x, _, caches = self.model.decode_step(token, caches, pos,
                                               collect_exits=False,
                                               block_tbl=block_tbl)
@@ -673,7 +696,8 @@ class CoLLM:
         (max_pending, B, 1, d) hidden states, ``ring_pos`` (max_pending, B)
         positions and ``count`` (B,) entries held.  Paged layout: every row
         gets a fixed identity-mapped run of pages covering ``max_seq``
-        (the step consults no host allocator)."""
+        (the step consults no host allocator); under a data axis that
+        divides ``batch`` a column's rows' runs are its block of pages."""
         m = self.model
         k = self.ccfg.max_pending
         dev = m.device
@@ -782,6 +806,20 @@ class CoLLM:
                 "confidences": {l: d.confidence
                                 for l, d in out.decisions.items()}}
         return next_token, info, new_state
+
+
+def _local_pages(caches: Caches, block_tbl: Optional[torch.Tensor]
+                 ) -> Optional[torch.Tensor]:
+    """A block table of the allocator's page ids as ``caches`` address
+    them: unchanged for a whole pool; for a data column's block of pages
+    (``RowCaches.pages``) its local ids, and -1 (the column's trash page)
+    for a page of another column."""
+    block = getattr(caches, "pages", None)
+    if block is None or block_tbl is None:
+        return block_tbl
+    first, n = block
+    mine = (block_tbl >= first) & (block_tbl < first + n)
+    return torch.where(mine, block_tbl - (first - 1), -1).to(torch.int32)
 
 
 def _take_rows(items, lo: int, hi: int, b: int):

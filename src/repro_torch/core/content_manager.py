@@ -223,6 +223,11 @@ class ContentManager:
         c.cloud_slot = self._cloud_free_slots.pop()
         return c.cloud_slot
 
+    def next_cloud_slot(self) -> Optional[int]:
+        """The row ``assign_cloud_slot`` hands out next (None: none free)."""
+        free = getattr(self, "_cloud_free_slots", None)
+        return free[-1] if free else None
+
     def cloud_slot(self, device_id: str) -> Optional[int]:
         c = self._clients.get(device_id)
         return None if c is None else c.cloud_slot

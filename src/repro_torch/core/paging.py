@@ -32,6 +32,17 @@ Physical page 0 is reserved as the **trash page**: rows without a mapping
 (inactive slots, masked cloud rows) have their writes redirected there with
 ``pos = -1``, so a masked step needs no merge of old and new caches.
 
+A pool of ``columns`` > 1 is split over a data axis of that many columns
+(``serving/mesh_exec.py``): column c owns the slots of its block
+(``num_slots / columns`` contiguous slots) and the pages of its block
+(ids ``c * n + 1 .. (c + 1) * n`` for ``n = num_pages / columns``), and a
+slot takes pages from its own column's free list only, so the device
+pool of a column holds only its ``n`` pages (local ids ``1 .. n``, its
+own trash page 0; ``column_block``).  Counts scoped to one slot's column
+(``free_in``, ``available_in``, ``evict_prefix(column=)``) are what
+admission asks; with one column they are the pool's totals, and the pool
+is the single device's page for page.
+
 Admission is **optimistic**: the pool no longer keeps a worst-case
 reservation ledger — a stream is admitted when its *prompt* pages (plus a
 configurable ``watermark`` of held-back headroom pages) fit the free list,
@@ -51,7 +62,7 @@ list); the device-side paged cache layout lives in
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +74,15 @@ PREEMPT_POLICIES = ("youngest", "fewest-pages", "lru")
 
 def pages_needed(tokens: int, page_size: int) -> int:
     return -(-tokens // page_size)
+
+
+def column_block(num_pages: int, columns: int,
+                 column: int) -> Tuple[int, int]:
+    """(first id, pages) of ``column``'s block of a pool of ``num_pages``
+    split over ``columns``: global id g is local id ``g - first + 1`` on
+    the column's device pool, whose page 0 is its own trash page."""
+    n = num_pages // columns
+    return column * n + 1, n
 
 
 class OutOfPages(RuntimeError):
@@ -141,19 +161,29 @@ class PagePool:
 
     def __init__(self, num_pages: int, page_size: int, num_slots: int,
                  max_logical: int, watermark: int = 0,
-                 prefix_cache: bool = False):
+                 prefix_cache: bool = False, columns: int = 1):
         if num_pages < 1:
             raise ValueError("PagePool needs at least one usable page")
         if not 0 <= watermark < num_pages:
             raise ValueError(
                 f"watermark must be in [0, num_pages): {watermark}")
+        if columns < 1 or num_pages % columns or num_slots % columns:
+            raise ValueError(
+                f"a pool split over {columns} columns needs pages "
+                f"({num_pages}) and slots ({num_slots}) that they divide")
         self.num_pages = num_pages
         self.page_size = page_size
         self.num_slots = num_slots
         self.max_logical = max_logical
         self.watermark = watermark
-        # physical ids 1..num_pages; 0 is the trash page
-        self._free: List[int] = list(range(num_pages, 0, -1))
+        self.columns = columns
+        self._col_pages = num_pages // columns
+        self._col_slots = num_slots // columns
+        # physical ids 1..num_pages, column c's block c*n+1..(c+1)*n, each
+        # column's free list popping its lowest id first; 0 is the trash
+        n = self._col_pages
+        self._frees: List[List[int]] = [list(range((c + 1) * n, c * n, -1))
+                                        for c in range(columns)]
         self._owned: List[List[int]] = [[] for _ in range(num_slots)]
         self.block_table = np.full((num_slots, max_logical), -1, np.int32)
         self.stats = PagePoolStats()
@@ -164,10 +194,45 @@ class PagePool:
         self._unfilled: set = set()            # trie pages awaiting compute
         self._clock = 0                        # LRU clock for trie entries
 
+    # -- columns -----------------------------------------------------------
+    def column_of_slot(self, slot: int) -> int:
+        return slot // self._col_slots
+
+    def column_of_page(self, page: int) -> int:
+        return (page - 1) // self._col_pages
+
+    def foreign_pages(self, slot: int, pages: Sequence[int]) -> int:
+        """How many of ``pages`` lie outside ``slot``'s column."""
+        col = self.column_of_slot(slot)
+        return sum(1 for p in pages if self.column_of_page(p) != col)
+
+    @property
+    def _free(self) -> List[int]:
+        """The free list (the columns' lists one after the other), as the
+        JAX package's pool holds it."""
+        return [p for free in self._frees for p in free]
+
     # -- capacity ----------------------------------------------------------
     @property
     def free_pages(self) -> int:
-        return len(self._free)
+        return sum(len(f) for f in self._frees)
+
+    def free_in(self, slot: int) -> int:
+        """Free pages of ``slot``'s column."""
+        return len(self._frees[self.column_of_slot(slot)])
+
+    def reclaimable_in(self, slot: int) -> int:
+        col = self.column_of_slot(slot)
+        return sum(1 for p in self._cached if self._ref.get(p, 0) == 1
+                   and self.column_of_page(p) == col)
+
+    def available_in(self, slot: int) -> int:
+        """``available_pages`` of ``slot``'s column (the watermark held
+        back in each column)."""
+        if self.columns == 1:
+            return self.available_pages
+        return self.free_in(slot) + self.reclaimable_in(slot) \
+            - self.watermark
 
     @property
     def reclaimable_pages(self) -> int:
@@ -227,11 +292,12 @@ class PagePool:
             raise ValueError(
                 f"slot {slot}: logical page {logical} beyond max_logical "
                 f"{self.max_logical}")
-        if not self._free:
+        free = self._frees[self.column_of_slot(slot)]
+        if not free:
             raise OutOfPages(
                 f"slot {slot}: no free pages for logical page {logical} "
                 f"({self.pages_in_use()}/{self.num_pages} in use)")
-        page = self._free.pop()
+        page = free.pop()
         self._owned[slot].append(page)
         self.block_table[slot, logical] = page
         self._ref[page] = 1
@@ -264,11 +330,12 @@ class PagePool:
             raise ValueError(f"slot {slot}: logical page {logical} unmapped")
         if not self.is_shared(src):
             raise ValueError(f"page {src} is private, no copy needed")
-        if not self._free:
+        free = self._frees[self.column_of_slot(slot)]
+        if not free:
             raise OutOfPages(
                 f"slot {slot}: no free pages for CoW of logical page "
                 f"{logical} ({self.pages_in_use()}/{self.num_pages} in use)")
-        dst = self._free.pop()
+        dst = free.pop()
         self._ref[src] -= 1
         self._ref[dst] = 1
         owned = self._owned[slot]
@@ -293,7 +360,8 @@ class PagePool:
             if self._ref[page] == 0:
                 del self._ref[page]
                 freed.append(page)
-        self._free.extend(freed)
+        for page in freed:
+            self._frees[self.column_of_page(page)].append(page)
         self.stats.frees += len(freed)
         self._owned[slot] = []
         self.block_table[slot, :] = -1
@@ -405,14 +473,19 @@ class PagePool:
         walk(self._root)
         return out
 
-    def evict_prefix(self, need: int) -> List[int]:
+    def evict_prefix(self, need: int,
+                     column: Optional[int] = None) -> List[int]:
         """Reclaim least-recently-used prefix-cache entries until ``need``
         pages came back to the free list (or nothing evictable remains).
         Returns the freed ids — the engine must invalidate their ``pos``
-        markers on device before they are reallocated."""
+        markers on device before they are reallocated.  ``column``: only
+        entries whose page lies in that column (or that hold no page)."""
         freed: List[int] = []
         while len(freed) < need:
             cands = self._evictable()
+            if column is not None and self.columns > 1:
+                cands = [c for c in cands if c[3] is None
+                         or self.column_of_page(c[3]) == column]
             if not cands:
                 break
             progress = False
@@ -427,7 +500,7 @@ class PagePool:
                     self._ref[page] -= 1
                     if self._ref[page] == 0:
                         del self._ref[page]
-                        self._free.append(page)
+                        self._frees[self.column_of_page(page)].append(page)
                         self.stats.frees += 1
                         freed.append(page)
                         if len(freed) >= need:

@@ -55,8 +55,21 @@ GSPMD's one contiguous block of a packed dimension would give one rank
     (rule: the largest non-batch dimension, inside a head for ``S`` and
     the sLSTM states); the mLSTM conv tail is whole, Mamba2's keeps the
     rank's ``x`` channels beside the whole B, C.  Paged pools follow the
-    rule on a ``(1, M)`` mesh (KV heads over ``model``); over a data axis
-    the pool stays whole in every column (ROADMAP A.11b.2).
+    rule on a ``(1, M)`` mesh (KV heads over ``model``).  Over a data
+    axis of D that divides the pool's rows and its pages, the page axis
+    is split as the rule splits it, except that each column keeps a trash
+    page of its own (so a masked write stays local): a column holds
+    ``P / D + 1`` pages, its block of the allocator's ids
+    (``core/paging.PagePool(columns=)``); else the pool stays whole in
+    every column, each column writing only its rows' pages.
+
+Where the split pool departs from GSPMD's: under the rule any row reads
+any page, since the page axis is one array; in the port a row reads only
+its column's pages, so a column admits only into its own block, and a
+stream can wait for pages while another column has room.  A page that
+must cross columns (a swap snapshot, a prefix-cache hit on another
+column's pages) crosses through one sum over the data axis
+(``share_column``).
 
 Everything else of the four families follows the rules: the shared
 attention block's and the encoder's attention and FFN, cross-attention,
@@ -513,7 +526,7 @@ def recording_axis(index: int, size: int) -> Axis:
 # spent in them; ``CALLS``: {(kind, group size, tensor bytes): calls}
 # (``reset_counts`` zeroes all three)
 _KINDS = ("reduce_model", "embed_lookup", "gather_vocab", "merge_exits",
-          "gather_rows", "gather_heads", "sum_squares")
+          "gather_rows", "gather_heads", "sum_squares", "share_column")
 COUNTS = dict.fromkeys(_KINDS, 0)
 SECONDS = dict.fromkeys(_KINDS, 0.0)
 CALLS: Dict[Tuple[str, int, int], int] = {}
@@ -655,3 +668,16 @@ def gather_rows(x: torch.Tensor, axis: Optional[Axis], lo: int,
                        device=x.device)
     full[lo:lo + x.shape[0]] = x
     return _all_reduce(full, axis, "gather_rows").to(x.dtype)
+
+
+def share_column(x: torch.Tensor, axis: Optional[Axis],
+                 owner: bool) -> torch.Tensor:
+    """One data column's tensor on every rank of the data group: the
+    owner column passes ``x``, every other column a tensor of the same
+    shape and dtype whose values are ignored; a zero buffer and one sum in
+    float32 (exact for float32, bf16, int8 and positions below 2**24)."""
+    if not _live(axis):
+        return x
+    buf = (x.to(torch.float32, copy=True) if owner
+           else torch.zeros(x.shape, dtype=torch.float32, device=x.device))
+    return _all_reduce(buf, axis, "share_column").to(x.dtype)

@@ -31,6 +31,7 @@ import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
@@ -208,9 +209,13 @@ def _hidden_blocks(qpos: torch.Tensor, kpos: torch.Tensor, q_rows: int,
                    kv_chunk: int, *, causal: bool, window: int,
                    prefix_len: int) -> list:
     """``hidden[i][j]``: the mask hides kv chunk ``j`` from every query of
-    pass ``i`` (``q_rows`` queries a pass), read once on the host."""
+    pass ``i`` (``q_rows`` queries a pass), read once on the host.  On
+    tensors without storage (the dry run's ``FakeTensorMode``) nothing
+    can be read, and no chunk is skipped: every pass runs every chunk."""
     qp = qpos.reshape(-1, q_rows)
     kp = kpos.reshape(-1, kv_chunk)
+    if is_fake(qp) or is_fake(kp):
+        return [[False] * kp.shape[0] for _ in range(qp.shape[0])]
     qlo, qhi, klo, khi = (t.tolist() for t in (qp.amin(1), qp.amax(1),
                                                kp.amin(1), kp.amax(1)))
     return [[(causal and k0 > q1 and not (prefix_len and k0 < prefix_len))
@@ -498,15 +503,18 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(cfg.resolved_head_dim)
+    # tensors without storage (the dry run) take the one-pass form: the
+    # same products as the chunked scan with nothing skipped, no loop
+    direct = is_fake(q)
     if cross:
-        out = (_direct_attention if s * sk <= _DIRECT_LIMIT else
+        out = (_direct_attention if direct or s * sk <= _DIRECT_LIMIT else
                _chunked_attention)(q, k, v, positions, kpos, causal=False,
                                    window=0, prefix_len=0, scale=scale)
-    elif window and s > window:
+    elif window and s > window and not direct:
         out = _banded_attention(q, k, v, positions, positions,
                                 window=window, scale=scale)
     else:
-        out = (_direct_attention if s * s <= _DIRECT_LIMIT else
+        out = (_direct_attention if direct or s * s <= _DIRECT_LIMIT else
                _chunked_attention)(q, k, v, positions, positions,
                                    causal=causal, window=window,
                                    prefix_len=prefix_len, scale=scale)

@@ -38,6 +38,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 import torch.nn.functional as F
 from torch import nn
 
@@ -102,9 +103,14 @@ def _experts(p: MoE, xf: torch.Tensor, experts: torch.Tensor,
     flat = experts.reshape(-1)
     order = torch.argsort(flat, stable=True)          # dropped pairs first
     # pairs an expert (dropped first), read by the host once: index_add_
-    # where torch.bincount on CUDA would read the maximum first
-    counts = flat.new_zeros(e + 1).index_add_(
-        0, flat + 1, torch.ones_like(flat)).tolist()
+    # where torch.bincount on CUDA would read the maximum first; on
+    # tensors without storage (the dry run) nothing can be read, and the
+    # pairs count as spread evenly over the experts, none dropped
+    if is_fake(flat):
+        counts = [0] + [t * k // e + (ex < t * k % e) for ex in range(e)]
+    else:
+        counts = flat.new_zeros(e + 1).index_add_(
+            0, flat + 1, torch.ones_like(flat)).tolist()
     y = xf.new_zeros((t * k, xf.shape[-1]))
     start = counts[0]
     for ex in range(e):

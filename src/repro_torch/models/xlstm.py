@@ -33,6 +33,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 import torch.nn.functional as F
 from torch import nn
 
@@ -351,13 +352,24 @@ def slstm_forward(p: SLSTMBlock, cfg: ModelConfig, x: torch.Tensor,
         st = state or init_slstm_cache(cfg, b, device=x.device, axis=p.axis)
         pre = _slstm_inputs(p, xn)
         rec = {g: getattr(p, "r" + g).float() for g in _SLSTM_GATES}
-        hs = []
-        for t in range(s):
-            h_out, st = _slstm_cell(rec,
-                                    {g: v[:, t] for g, v in pre.items()},
-                                    st, h, hd)
-            hs.append(h_out)
-        hs = per_head_rmsnorm(torch.stack(hs, 2), p.head_norm, cfg.norm_eps)
+        if is_fake(x):
+            # tensors without storage (the dry run): one cell over all S
+            # steps as rows, the loop's products and shapes without it
+            rows = {k: v.repeat_interleave(s, 0) for k, v in st.items()}
+            h_out, rows = _slstm_cell(
+                rec, {g: v.reshape(b * s, -1) for g, v in pre.items()},
+                rows, h, hd)
+            st = {k: v.reshape(b, s, h, hd)[:, -1] for k, v in rows.items()}
+            hs = h_out.reshape(b, s, h, hd).transpose(1, 2)
+        else:
+            hs = []
+            for t in range(s):
+                h_out, st = _slstm_cell(rec,
+                                        {g: v[:, t] for g, v in pre.items()},
+                                        st, h, hd)
+                hs.append(h_out)
+            hs = torch.stack(hs, 2)
+        hs = per_head_rmsnorm(hs, p.head_norm, cfg.norm_eps)
         x = x + _slstm_out(p, hs, d).to(x.dtype)
         return _slstm_ffn(p, cfg, x), st
 

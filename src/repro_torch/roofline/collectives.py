@@ -4,7 +4,8 @@
 The JAX package reads its collectives out of compiled HLO text; the
 port's are explicit calls (``launch/sharding.py``: ``reduce_model``,
 ``embed_lookup``, ``gather_vocab``, ``merge_exits``, ``gather_heads``,
-``sum_squares``, ``gather_rows``, every one an all-reduce), each recorded
+``sum_squares``, ``gather_rows``, ``share_column``, every one an
+all-reduce), each recorded
 with its group size and tensor bytes (``sharding.records()``).
 ``wire_bytes`` turns such records into the JAX package's per-device
 estimate with its ring factors:

@@ -19,7 +19,11 @@ of ``serving/mesh_exec.py`` (a data column's rows, ``RowCaches``):
     gathered out of every paged cache node into host memory, and written
     back into freshly allocated pages (int8 pages carry their scale leaves
     along); and the device half of a copy-on-write split, one physical
-    page copied into another across every paged node;
+    page copied into another across every paged node.  A tree of a data
+    column's block of pages (``RowCaches.pages``) takes the allocator's
+    ids and touches its own pages alone; a slot's pages gathered there
+    reach every column through one sum over the data axis
+    (``column_pages``), and ``copy_across`` moves pages between columns;
   * the batcher's chunked admission with prefix sharing: a prompt's full
     pages already in the batcher's own radix cache are mapped, not
     computed, and the rest is prefilled one uploaded chunk at a time.
@@ -38,6 +42,7 @@ import torch
 
 from repro_torch.core.content_manager import ContentManager
 from repro_torch.core.paging import OutOfPages, PagePool, pages_needed
+from repro_torch.launch.sharding import share_column
 from repro_torch.models.attention import (paged_reset_pages,
                                           paged_scatter_prefill)
 from repro_torch.models.cache_tree import cache_bytes, map_tensors
@@ -96,11 +101,15 @@ def _scatter_row_paged(full: Pytree, row: Pytree, j: Optional[int],
     logical prompt page, -1 entries redirect to the trash page); any other
     cache leaf is a dense per-row scatter at row j exactly like the dense
     layout.  A pool of a data column's rows [lo, hi) (``RowCaches``)
-    writes every row's pages (the pool is whole in every column) and
-    only its own rows' dense entries (``j`` None: not this column's)."""
+    writes only its own rows' dense entries (``j`` None: not this
+    column's), and every row's pages where the pool is whole in every
+    column, its own rows' pages where it holds its block alone."""
     rows = getattr(full, "rows", None)
     if rows is not None:
         j = j - rows[0] if rows[0] <= j < rows[1] else None
+        if full.pages is not None:
+            pages = (_local_ids(full, pages) if j is not None
+                     else np.full_like(np.asarray(pages), -1))
     if isinstance(full, dict):
         if "kp" in full:
             return paged_scatter_prefill(full, row, pages)
@@ -114,9 +123,27 @@ def _scatter_row_paged(full: Pytree, row: Pytree, j: Optional[int],
     return full if j is None else _put_row(full, row, j)
 
 
+def _local_ids(caches: Pytree, ids) -> np.ndarray:
+    """The allocator's page ids as ``caches`` address them: as they are
+    for a whole pool, a column's local ids for its block of pages
+    (``RowCaches.pages``), -1 (the trash page) for another column's."""
+    ids = np.asarray(ids, np.int32)
+    block = getattr(caches, "pages", None)
+    if block is None:
+        return ids
+    first, n = block
+    mine = (ids >= first) & (ids < first + n)
+    return np.where(mine, ids - (first - 1), -1).astype(np.int32)
+
+
 def _reset_pages_tree(caches: Pytree, pages) -> Pytree:
     """Invalidate freed physical pages across every paged cache node, so a
-    page returned to the free list never leaks a retired stream's K/V."""
+    page returned to the free list never leaks a retired stream's K/V (a
+    column's block: its own pages among them)."""
+    if getattr(caches, "pages", None) is not None:
+        pages = [int(p) for p in _local_ids(caches, pages) if p > 0]
+        if not pages:
+            return caches
     if isinstance(caches, dict):
         if "kp" in caches:
             return paged_reset_pages(caches, pages)
@@ -179,7 +206,12 @@ def _write_pages_tree(caches: Pytree, phys, data: Pytree) -> Pytree:
     """Swap-in: write snapshotted page contents (on the cache's device)
     into freshly allocated physical pages, in place.  Duplicate ids in
     ``phys`` carry identical data (``_pad_pages``), so overlapping writes
-    are benign."""
+    are benign.  A column's block of pages is written only where ``phys``
+    (one slot's pages, all in one column) are its own."""
+    if getattr(caches, "pages", None) is not None:
+        phys = _local_ids(caches, phys)
+        if (phys < 0).any():
+            return caches
     if isinstance(caches, dict):
         if "kp" in caches:
             ids = torch.as_tensor(phys, dtype=torch.long,
@@ -198,7 +230,12 @@ def _copy_pages_tree(caches: Pytree, src: int, dst: int) -> Pytree:
     """Copy-on-write device half: duplicate physical page ``src`` into
     ``dst``, in place, across every paged cache node.  Every leaf of a node
     is copied, so int8 nodes' scale rows and the ``pos`` markers ride
-    along with K/V."""
+    along with K/V.  Both pages lie in one column (a split copies into
+    the slot's column); another column's block is left as it is."""
+    if getattr(caches, "pages", None) is not None:
+        src, dst = (int(p) for p in _local_ids(caches, [src, dst]))
+        if src < 0 or dst < 0:
+            return caches
     if isinstance(caches, dict):
         if "kp" in caches:
             for v in caches.values():
@@ -219,18 +256,69 @@ def snapshot_to_device(snap: Pytree, device) -> Pytree:
     return out
 
 
+def column_pages(caches: Pytree, phys, owner: bool) -> Pytree:
+    """Pages ``phys`` (the allocator's ids) of every paged node of
+    ``caches``, the same on every rank: gathered where each column holds
+    them valid (no data axis, or ``caches`` not split by rows); else the
+    ``owner`` column gathers them and one sum over the data axis hands the
+    whole tree, its leaves flattened into one buffer, to every column
+    (``sharding.share_column``).  A column that does not own them passes
+    zeros of the same shapes."""
+    ids = _local_ids(caches, phys)
+    tree = _gather_pages_tree(caches, np.where(ids < 0, 0, ids))
+    axis = getattr(caches, "axis", None)
+    if getattr(caches, "rows", None) is None or axis is None \
+            or axis.size == 1:
+        return tree
+    leaves: List[torch.Tensor] = []
+    map_tensors(tree, leaves.append)
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in leaves])
+    flat = share_column(flat, axis, owner)
+    it, at = iter(leaves), [0]
+
+    def take(t):
+        n = next(it).numel()
+        out = flat[at[0]:at[0] + n].reshape(t.shape).to(t.dtype)
+        at[0] += n
+        return out
+    return map_tensors(tree, take)
+
+
+def copy_across(caches: Pytree, src, dst) -> Pytree:
+    """Copy pages ``src`` into pages ``dst`` (the allocator's ids, of one
+    column each) across every paged node, where ``dst`` lies in another
+    column than ``src`` (a prefix-cache hit on another column's pages):
+    ``column_pages`` from the column that owns ``src``, written by the
+    column that owns ``dst``; on a whole pool a plain device copy."""
+    if getattr(caches, "pages", None) is None:
+        for a, b in zip(src, dst):
+            _copy_pages_tree(caches, int(a), int(b))
+        return caches
+    owner = bool((_local_ids(caches, src) > 0).all())
+    _write_pages_tree(caches, dst, column_pages(caches, src, owner))
+    return caches
+
+
+def _owns(caches: Pytree, slot: int) -> bool:
+    rows = getattr(caches, "rows", None)
+    return rows is None or rows[0] <= slot < rows[1]
+
+
 def gather_slot_pages(pool: PagePool, slot: int, caches: Pytree):
     """Swap-out core: copy one slot's physical pages out of a paged cache
     tree into host memory.  Returns ``(logical, host_tree)`` — the slot's
     logical page indices and the page contents as CPU tensors (None when
-    the slot owns nothing)."""
+    the slot owns nothing).  Over a data axis that splits the rows, the
+    slot's column gathers them and every rank receives the same snapshot
+    (``column_pages``), so a stream may resume in any column."""
     tbl_row = pool.block_table[slot]
     logical = np.nonzero(tbl_row >= 0)[0].astype(np.int32)
     if not len(logical):
         return logical, None
     padded = _pad_pages(tbl_row[logical].astype(np.int32))
-    return logical, map_tensors(_gather_pages_tree(caches, padded),
-                                 lambda t: t.to("cpu"))
+    return logical, map_tensors(
+        column_pages(caches, padded, _owns(caches, slot)),
+        lambda t: t.to("cpu"))
 
 
 def rebind_slot_pages(pool: PagePool, slot: int,
@@ -339,7 +427,9 @@ class CloudBatcher:
             n_pages = num_pages or num_slots * pages_needed(self.max_ctx, ps)
             self.pool = PagePool(n_pages, ps, num_slots,
                                  pages_needed(self.max_ctx, ps),
-                                 prefix_cache=collm.ccfg.prefix_share)
+                                 prefix_cache=collm.ccfg.prefix_share,
+                                 columns=collm.mesh_ctx.page_columns(
+                                     num_slots, n_pages))
             row_seq = _bucket(self.max_ctx)
             self.caches = collm.init_cloud_cache_paged(
                 num_slots, self.pool.num_pages, ps)
@@ -352,16 +442,21 @@ class CloudBatcher:
 
         self._pending: List[_Entry] = []
         self._budget: Dict[str, int] = {}   # device_id -> prompt+max_new
+        # a prefix hit on another data column's pages: (shared, own) page
+        # pairs copied into the row's column before its first chunk
+        self._copies: Dict[str, list] = {}
         self.stats = BatcherStats()
 
     # -- capacity / lifecycle ----------------------------------------------
-    def _outstanding_pages(self) -> int:
-        """Worst-case pages still owed to admitted streams: each active
-        client's token budget minus the pages it already owns."""
+    def _outstanding_pages(self, row: int) -> int:
+        """Worst-case pages still owed to admitted streams of ``row``'s
+        column: each active client's token budget minus the pages it
+        already owns."""
         out = 0
+        col = self.pool.column_of_slot(row)
         for dev, budget in self._budget.items():
             slot = self.cm.cloud_slot(dev)
-            if slot is None:
+            if slot is None or self.pool.column_of_slot(slot) != col:
                 continue
             out += max(0, pages_needed(budget, self.pool.page_size)
                        - self.pool.owned_pages(slot))
@@ -372,18 +467,26 @@ class CloudBatcher:
         ``hit_pages`` discounts prompt pages a prospective prefix-cache hit
         would map instead of allocating (``PagePool.can_admit``), and pages
         held only by the prefix cache count as available: they come back
-        on demand through ``evict_prefix``."""
+        on demand through ``evict_prefix``.  On a pool split over the data
+        axis the pages are counted in the column of the row the stream
+        would take (``ContentManager.next_cloud_slot``), and a hit is not
+        discounted (it may lie in another column and be copied)."""
         if self.cm.cloud_slots_free() <= 0:
             return False
         if self.pool is not None:
+            slot = self.cm.next_cloud_slot()
+            if self.pool.columns > 1:
+                hit_pages = 0
             need = pages_needed(budget_tokens, self.pool.page_size) \
                 - hit_pages
-            if need > self.pool.num_pages:
+            cap = self.pool.num_pages // self.pool.columns
+            if need > cap:
                 raise ValueError(
                     f"stream of {budget_tokens} tokens needs more pages "
-                    f"than the cloud pool has ({self.pool.num_pages})")
-            avail = (self.pool.free_pages + self.pool.reclaimable_pages
-                     - self._outstanding_pages())
+                    f"than the cloud pool has ({cap}"
+                    + (" a column)" if self.pool.columns > 1 else ")"))
+            avail = (self.pool.free_in(slot) + self.pool.reclaimable_in(slot)
+                     - self._outstanding_pages(slot))
             return need <= avail
         return True
 
@@ -396,7 +499,7 @@ class CloudBatcher:
         try:
             self.pool.alloc(slot, lp)
         except OutOfPages:
-            freed = self.pool.evict_prefix(1)
+            freed = self.pool.evict_prefix(1, self.pool.column_of_slot(slot))
             if not freed:
                 raise
             _reset_pages_tree(self.caches, freed)
@@ -470,8 +573,15 @@ class CloudBatcher:
         if hit_pages:
             hit = self.pool.match_prefix(toks)
             shared = list(hit.pages[:hit_pages])
+            copies = []
             for lp, page in enumerate(shared):
-                self.pool.share_page(slot, lp, page)
+                if self.pool.foreign_pages(slot, [page]):
+                    self._alloc(slot, lp)
+                    copies.append((page, int(self.pool.block_table[slot, lp])))
+                else:
+                    self.pool.share_page(slot, lp, page)
+            if copies:
+                self._copies[device_id] = copies
             self.pool.stats.prefix_hit_tokens += len(shared) * ps
             self.stats.prefix_hit_tokens += len(shared) * ps
         for lp in range(len(shared), pages_needed(true_len, ps)):
@@ -493,6 +603,10 @@ class CloudBatcher:
         if slot is None:
             raise KeyError(f"{device_id} has no cloud slot "
                            "(admit_begin first)")
+        copies = self._copies.pop(device_id, None)
+        if copies:             # the shared pages are filled by now
+            src, dst = zip(*copies)
+            copy_across(self.caches, src, dst)
         row_tbl = torch.tensor(self.pool.block_table[slot:slot + 1],
                                device=self.collm.model.device)
         logits, self.caches = self.collm.cloud_prefill_chunk(
@@ -514,6 +628,7 @@ class CloudBatcher:
         free its pages (invalidated on the device), return its pool row."""
         self.cancel(device_id, 0)
         self._budget.pop(device_id, None)
+        self._copies.pop(device_id, None)
         slot = self.cm.release_cloud_slot(device_id)
         if slot is None or self.pool is None:
             return

@@ -86,7 +86,7 @@ from repro_torch.serving.cloud_batcher import (CloudBatcher, _bucket,
                                                _scatter_row,
                                                _scatter_row_paged,
                                                _write_pages_tree, all_paged,
-                                               build_upload_ring,
+                                               build_upload_ring, copy_across,
                                                gather_slot_pages,
                                                rebind_slot_pages,
                                                snapshot_to_device)
@@ -360,11 +360,14 @@ class _Slot:
     # ``prefill_wait`` / ``prefill_wait_cloud`` list shared page ids (the
     # engine's pool / the batcher's) still being computed by their owning
     # stream: the sharer stalls until they are filled, then computes only
-    # its suffix.
+    # its suffix.  ``prefill_copies``: (shared page, own page) pairs of a
+    # hit on another data column's pages, copied into the slot's column
+    # once filled (a pool split over the data axis).
     prefill_prompt: Optional[np.ndarray] = None
     prefill_pos: int = 0
     prefill_wait: List[int] = dataclasses.field(default_factory=list)
     prefill_wait_cloud: List[int] = dataclasses.field(default_factory=list)
+    prefill_copies: List[tuple] = dataclasses.field(default_factory=list)
 
 
 @dataclasses.dataclass
@@ -543,10 +546,17 @@ class BatchScheduler:
             ps = self.ccfg.page_size
             self.max_ctx = max_ctx or max_seq
             n_pages = num_pages or num_slots * pages_needed(max_seq, ps)
+            # a pooled cloud (or main) cache on a data axis that divides
+            # the slots and pages holds one column's block of pages, so
+            # each slot allocates in its column (edge-only engines: 1)
+            pooled = mode == "cloud" or (mode == "collm"
+                                         and self._batcher is None)
             self.pool = PagePool(n_pages, ps, num_slots,
                                  pages_needed(self.max_ctx, ps),
                                  watermark=watermark,
-                                 prefix_cache=self._prefix_share)
+                                 prefix_cache=self._prefix_share,
+                                 columns=collm.mesh_ctx.page_columns(
+                                     num_slots, n_pages) if pooled else 1)
             row_seq = _bucket(self.max_ctx)
         else:
             self.max_ctx = max_seq
@@ -662,13 +672,17 @@ class BatchScheduler:
             temperature=self.temperature, top_k=self.top_k).cpu().numpy()
 
     # -- admission ----------------------------------------------------------
-    def _outstanding_pages(self) -> int:
-        """Worst-case pages still owed to the active streams: the
-        never-preempt (``preemption="off"``) admission check, so that an
-        admitted stream can always finish."""
+    def _same_column(self, a: int, b: int) -> bool:
+        return self.pool.column_of_slot(a) == self.pool.column_of_slot(b)
+
+    def _outstanding_pages(self, slot: int) -> int:
+        """Worst-case pages still owed to the active streams of ``slot``'s
+        column: the never-preempt (``preemption="off"``) admission check,
+        so that an admitted stream can always finish."""
         out = 0
         for s in self.slots:
-            if not s.active or s.req is None:
+            if not s.active or s.req is None \
+                    or not self._same_column(s.index, slot):
                 continue
             worst = pages_needed(len(s.req.prompt) + s.req.max_new,
                                  self.pool.page_size)
@@ -683,19 +697,19 @@ class BatchScheduler:
                     out += 1
         return out
 
-    def _fits_now(self, need_pages: int) -> bool:
-        """Optimistic admission: do ``need_pages`` fit the free list right
-        now?  The watermark holds back decode headroom — except when
-        nothing is running, where it would wedge the pool instead of
-        protecting it."""
-        free = self.pool.available_pages
+    def _fits_now(self, need_pages: int, slot: int) -> bool:
+        """Optimistic admission: do ``need_pages`` fit ``slot``'s column's
+        free list right now?  The watermark holds back decode headroom —
+        except when nothing is running, where it would wedge the pool
+        instead of protecting it."""
+        free = self.pool.available_in(slot)
         if not any(s.active for s in self.slots):
             # reclaimable = prefix-cache pages nobody maps: evictable on
             # demand, so an idle pool full of cached prefixes never wedges
-            free = self.pool.free_pages + self.pool.reclaimable_pages
+            free = self.pool.free_in(slot) + self.pool.reclaimable_in(slot)
         return need_pages <= free
 
-    def _admissible(self, req: Request, p_len: int, pad: int,
+    def _admissible(self, req: Request, p_len: int, pad: int, slot: int,
                     hit_pages: int = 0, batcher_hit: int = 0) -> bool:
         """Capacity check.  Impossible requests raise; a request the paged
         pool could serve but not *right now* stays queued (back-pressure).
@@ -705,7 +719,8 @@ class BatchScheduler:
         worst case, so a decode alloc can never fail.  ``hit_pages``
         prompt pages come from the radix prefix cache (shared mappings,
         not fresh allocations) and are discounted; pages only the prefix
-        cache holds count as reclaimable."""
+        cache holds count as reclaimable.  Pages are counted in ``slot``'s
+        column (the whole pool without a split)."""
         if p_len + req.max_new > self.max_ctx or pad > self._row_seq:
             raise ValueError(
                 f"request {req.device_id}: prompt {p_len} + max_new "
@@ -719,17 +734,19 @@ class BatchScheduler:
         need_worst = pages_needed(p_len + req.max_new, self.pool.page_size)
         if self._prefix_share and p_len % self.pool.page_size:
             need_worst += 1     # CoW split of the shared or cached tail page
-        if need_worst > self.pool.num_pages:
+        cap = self.pool.num_pages // self.pool.columns
+        if need_worst > cap:
             raise ValueError(
                 f"request {req.device_id}: needs {need_worst} pages but the "
-                f"pool only has {self.pool.num_pages}")
+                f"pool only has {cap}"
+                + (" a column" if self.pool.columns > 1 else ""))
         if self.preemption == "off":
             return need_worst - hit_pages <= (
-                self.pool.free_pages + self.pool.reclaimable_pages
-                - self._outstanding_pages())
+                self.pool.free_in(slot) + self.pool.reclaimable_in(slot)
+                - self._outstanding_pages(slot))
         need_now = max(0, pages_needed(p_len, self.pool.page_size)
                        - hit_pages)
-        if not self._fits_now(need_now):
+        if not self._fits_now(need_now, slot):
             return False
         if self._adaptive is not None and any(s.active for s in self.slots):
             # fluid-ODE admission gate: hold the request while its
@@ -765,7 +782,7 @@ class BatchScheduler:
         try:
             self.pool.alloc(idx, lp)
         except OutOfPages:
-            freed = self.pool.evict_prefix(1)
+            freed = self.pool.evict_prefix(1, self.pool.column_of_slot(idx))
             if not freed:
                 raise
             self._reset_freed(freed)
@@ -798,11 +815,12 @@ class BatchScheduler:
         if self._preempted:
             return admitted
         dev = self.model.device
-        for slot in self.slots:
-            if slot.active or slot.req is not None or not queue:
-                # a finished-but-uncollected slot keeps its req until
-                # _collect copies the results out — never reuse it here
-                continue
+        while queue:
+            # a finished-but-uncollected slot keeps its req until _collect
+            # copies the results out — never reuse it here
+            free = [s for s in self.slots if not s.active and s.req is None]
+            if not free:
+                break
             req: Request = queue[0]
             if req.arrival_t > self.vnow:
                 # open-loop replay: the head request has not arrived yet,
@@ -836,9 +854,18 @@ class BatchScheduler:
                         1 if terminal[0] is not None else 0)
                 else:
                     hit_pages = min(len(hit.pages), cap)
-            if not self._admissible(req, p_len, pad, hit_pages=hit_pages,
-                                    batcher_hit=b_hit):
-                break                       # FIFO back-pressure: wait for pages
+            # the first free slot whose column has room (one column: the
+            # first free slot); none: FIFO back-pressure, wait for pages
+            used = _hit_list(hit, hit_pages, terminal)
+            if self.pool is None or self.pool.columns == 1:
+                free = free[:1]
+            slot = next((s for s in free if self._admissible(
+                req, p_len, pad, s.index,
+                hit_pages=hit_pages - self.pool.foreign_pages(s.index, used)
+                if self.pool is not None else hit_pages,
+                batcher_hit=b_hit)), None)
+            if slot is None:
+                break
             queue.popleft()
             if self._chunked:
                 self._admit_chunked(slot, req, prompt, hit, hit_pages,
@@ -920,11 +947,17 @@ class BatchScheduler:
         st = GenStats()
         n_full_shared = min(hit_pages, len(hit.pages)) if hit else 0
         shared = list(hit.pages[:n_full_shared]) if hit else []
-        for lp, page in enumerate(shared):
-            pool.share_page(slot.index, lp, page)
         tail_page = terminal[0] if terminal is not None else None
-        if tail_page is not None:
-            pool.share_page(slot.index, len(shared), tail_page)
+        slot.prefill_copies = []
+        for lp, page in enumerate(shared + ([tail_page] if tail_page
+                                            is not None else [])):
+            if pool.foreign_pages(slot.index, [page]):
+                # another column's page: a private copy in this column
+                self._alloc_page(slot.index, lp)
+                slot.prefill_copies.append(
+                    (page, int(pool.block_table[slot.index, lp])))
+            else:
+                pool.share_page(slot.index, lp, page)
         hit_toks = p_len if terminal is not None else n_full_shared * ps
         if hit_toks:
             pool.stats.prefix_hit_tokens += hit_toks
@@ -956,6 +989,7 @@ class BatchScheduler:
             # the memoized greedy first token stands in for the whole
             # prefill: exit decisions and cloud logits are deterministic
             # functions of the (identical) prompt
+            self._copy_foreign(slot)
             tok = int(terminal[1])
             st.tokens = 1
             slot.tokens = [tok]
@@ -998,6 +1032,7 @@ class BatchScheduler:
                     and not self._batcher.pages_filled(s.prefill_wait_cloud):
                 return
             s.prefill_wait_cloud = []
+        self._copy_foreign(s)
         st, req = s.stats, s.req
         prompt = s.prefill_prompt
         p_len = len(prompt)
@@ -1054,6 +1089,17 @@ class BatchScheduler:
             # stream's own first decode write copies the now-shared tail
             pool.insert_terminal(s.index, [int(t) for t in prompt], tok)
         self._maybe_finish(s)
+
+    def _copy_foreign(self, s: _Slot) -> None:
+        """Copy the filled pages of a prefix hit on another data column
+        into the slot's own pages, in every cache tree (the cloud's
+        through the data axis: ``copy_across``)."""
+        if not s.prefill_copies:
+            return
+        src, dst = zip(*s.prefill_copies)
+        for tree in self._trees():
+            copy_across(tree, src, dst)
+        s.prefill_copies = []
 
     def _first_token(self, fetched: Dict, prefill_logits, st: GenStats) -> int:
         """First token from the prompt's last position — same decision tree
@@ -1170,7 +1216,8 @@ class BatchScheduler:
                                  self.pool.owned_pages(v.index),
                                  self.pool.shared_pages(v.index))
                  for v in self.slots
-                 if v.active and v is not s and v.prefill_prompt is None]
+                 if v.active and v is not s and v.prefill_prompt is None
+                 and self._same_column(v.index, s.index)]
         try:
             victim = select_victim(cands, self.preempt_policy)
         except OutOfPages:
@@ -1204,7 +1251,8 @@ class BatchScheduler:
                 break
             except OutOfPages:
                 self.oops += 1
-                freed = self.pool.evict_prefix(1)
+                freed = self.pool.evict_prefix(
+                    1, self.pool.column_of_slot(s.index))
                 if freed:
                     self._reset_freed(freed)
                     continue
@@ -1320,14 +1368,16 @@ class BatchScheduler:
         resumed = False
         while self._preempted:
             slot = next((s for s in self.slots
-                         if not s.active and s.req is None), None)
-            if slot is None or not self._resumable(self._preempted[0]):
+                         if not s.active and s.req is None
+                         and self._resumable(self._preempted[0], s.index)),
+                        None)
+            if slot is None:
                 break
             self._resume(self._preempted.popleft(), slot)
             resumed = True
         return resumed
 
-    def _resumable(self, ck: _Checkpoint) -> bool:
+    def _resumable(self, ck: _Checkpoint, slot: int) -> bool:
         req = ck.req
         p_len = len(req.prompt)
         if self._batcher is not None \
@@ -1338,7 +1388,7 @@ class BatchScheduler:
         need = (ck.swap_pages if ck.swap_key is not None
                 else pages_needed(p_len + len(ck.tokens) - 1,
                                   self.pool.page_size))
-        return self._fits_now(need)
+        return self._fits_now(need, slot)
 
     def _resume_pad(self, length: int) -> int:
         """Prefill bucket for a resume prefix: the usual power-of-two
@@ -1391,9 +1441,10 @@ class BatchScheduler:
         bind them in the slot's block table (pages are row-agnostic)."""
         if snap["trees"] is None or not len(snap["logical"]):
             return
-        short = len(snap["logical"]) - self.pool.free_pages
+        short = len(snap["logical"]) - self.pool.free_in(slot.index)
         if short > 0:       # reclaim cached prefix pages for the rebind
-            self._reset_freed(self.pool.evict_prefix(short))
+            self._reset_freed(self.pool.evict_prefix(
+                short, self.pool.column_of_slot(slot.index)))
         padded = rebind_slot_pages(self.pool, slot.index, snap["logical"])
         self._tbl_device = None
         trees = snapshot_to_device(snap["trees"], self.model.device)
@@ -2203,6 +2254,17 @@ def run_multi(scheds: Sequence[BatchScheduler],
         s.last_virtual_time = s.vnow - v
     makespan = max(s.last_virtual_time for s in scheds)
     return results, stats, makespan
+
+
+def _hit_list(hit, hit_pages: int, terminal) -> List[int]:
+    """The page ids a chunked admission maps from a prefix hit: its first
+    ``hit_pages`` full pages and a terminal's tail page."""
+    if hit is None:
+        return []
+    pages = list(hit.pages[:min(hit_pages, len(hit.pages))])
+    if terminal is not None and terminal[0] is not None:
+        pages.append(terminal[0])
+    return pages
 
 
 def _fetch_decisions(decisions) -> Dict[int, tuple]:

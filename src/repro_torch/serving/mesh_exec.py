@@ -15,10 +15,16 @@ One ``MeshContext`` per ``CoLLM`` owns
     contiguous share of the rows (``RowCaches``), the cloud steps run
     those rows, and the replies are gathered to every rank
     (``sharding.gather_rows``); a batch it does not divide runs whole in
-    every column.  Paged pools have no batch axis and stay whole in every
-    column; each column writes only its rows' pages, and a paged tree's
-    dense per-row entries (recurrent state, cross caches: batch first)
-    hold the column's rows only;
+    every column.  A paged pool whose rows and pages the data axis
+    divides is split too (``page_block``): the column holds its block of
+    the allocator's page ids, local ids 1..n, and a trash page of its
+    own; a pool it does not divide stays whole in every column, each
+    column writing only its rows' pages.  A paged tree's dense per-row
+    entries (recurrent state, cross caches: batch first) hold the
+    column's rows only.  Pages cross columns through one sum over the
+    data axis (``sharding.share_column``): a swapped-out stream's
+    snapshot reaches every rank, and a prefix-cache hit on another
+    column's pages is copied into the row's column;
   * ``check_streams``: a run under a mesh ends by gathering every rank's
     token streams and raising if any differ.
 
@@ -37,6 +43,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.core.paging import column_block
 from repro_torch.launch.mesh import CloudMesh, make_cloud_mesh
 from repro_torch.launch.sharding import batch_axes, gather_rows
 from repro_torch.models.transformer import Model
@@ -44,11 +51,17 @@ from repro_torch.models.transformer import Model
 
 class RowCaches(dict):
     """A pooled cache tree ({segment: [layer cache, ...]}) of ``batch``
-    rows of which this data column holds rows [lo, hi)."""
+    rows of which this data column holds rows [lo, hi); ``axis`` is the
+    data axis.  ``pages``: (first, n) when the tree's page pool is the
+    column's block of global page ids first..first + n - 1 (local ids
+    1..n), None when it holds every page."""
 
-    def __init__(self, tree: dict, lo: int, hi: int, batch: int):
+    def __init__(self, tree: dict, lo: int, hi: int, batch: int,
+                 axis=None, pages: Optional[Tuple[int, int]] = None):
         super().__init__(tree)
         self.rows = (lo, hi, batch)
+        self.axis = axis
+        self.pages = pages
 
 
 class MeshContext:
@@ -91,11 +104,30 @@ class MeshContext:
             return 0, batch
         return self.mesh.data_axis.block(batch)
 
-    def row_caches(self, tree: dict, batch: int) -> dict:
+    def row_caches(self, tree: dict, batch: int,
+                   pages: Optional[Tuple[int, int]] = None) -> dict:
         lo, hi = self.rows(batch)
         if (lo, hi) == (0, batch):
             return tree
-        return RowCaches(tree, lo, hi, batch)
+        return RowCaches(tree, lo, hi, batch, self.mesh.data_axis, pages)
+
+    def page_columns(self, batch: int, num_pages: int) -> int:
+        """The columns a paged pool of ``batch`` rows and ``num_pages``
+        pages is split into: the data axis where it divides both, else 1
+        (the pool is whole in every column)."""
+        if not self.active or (self.rows(batch) == (0, batch)
+                               or num_pages % self.mesh.data_axis.size):
+            return 1
+        return self.mesh.data_axis.size
+
+    def page_block(self, batch: int,
+                   num_pages: int) -> Optional[Tuple[int, int]]:
+        """(first global id, pages) of this column's block of such a pool
+        (``paging.column_block``); None for a whole pool."""
+        d = self.page_columns(batch, num_pages)
+        if d == 1:
+            return None
+        return column_block(num_pages, d, self.mesh.data_axis.index)
 
     def gather_rows(self, x: torch.Tensor, lo: int,
                     batch: int) -> torch.Tensor:

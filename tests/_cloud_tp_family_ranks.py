@@ -173,14 +173,21 @@ def cloud_prefill_rows(model, spec, cloud_mesh=None):
     return logits.numpy()
 
 
-def family_rank(rank, world, specs):
+def family_rank(rank, world, specs, swap_params=None):
     """Every spec's streams in every mode on one rank of each of
     ``MESHES`` in turn, with the rank's parameter bytes, its collectives,
     a two-row cloud prefill and, for a recurrent model, its state
-    packet."""
+    packet; with ``swap_params`` (tiny-ee-tp's, as numpy) also the swap
+    scenarios of ``_cloud_tp_ranks`` on its share of (2, 2)."""
     out = {}
     for dims in MESHES:
         mesh = make_cloud_mesh(dims, device="cpu")
+        if swap_params is not None and dims == (2, 2):
+            from _cloud_tp_ranks import TP_CFG, swap_ranks
+            tp = Model(TP_CFG, device="cpu", axis=mesh.model_axis)
+            tp.load_state_dict(params_from_jax(swap_params, TP_CFG,
+                                               mesh=dims, rank=rank))
+            out["swap"] = swap_ranks(tp, dims)
         for spec in specs:
             cfg = spec["cfg"]
             model = Model(cfg, device="cpu", axis=mesh.model_axis)

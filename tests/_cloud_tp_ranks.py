@@ -3,6 +3,7 @@
 starts each rank in a fresh process that imports this module by name, so
 it imports the port alone (no JAX): the parent test computes the JAX
 package's side and passes the weights in as numpy arrays."""
+import dataclasses
 import time
 
 import numpy as np
@@ -15,8 +16,10 @@ from repro_torch.core.exits import evaluate_exits
 from repro_torch.launch import sharding as tsh
 from repro_torch.launch.mesh import make_cloud_mesh
 from repro_torch.models import moe as tmoe
+from repro_torch.models.cache_tree import cache_bytes
 from repro_torch.models.transformer import Model
-from repro_torch.serving.engine import ServingSystem
+from repro_torch.serving.cloud_batcher import CloudBatcher
+from repro_torch.serving.engine import BatchScheduler, ServingSystem
 from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 
 # the JAX file's untrained tiny GQA model: 4 heads over model = 4, 2 KV
@@ -40,7 +43,20 @@ SCENARIOS = {
     "prefix": ("prefix", dict(kv_layout="paged", page_size=PS,
                               chunked_prefill=True, prefix_share=True)),
     "preempt": ("preempt", dict(kv_layout="paged", preemption="recompute")),
+    "swap": ("swap", dict(kv_layout="paged", preemption="swap")),
+    "swap-int8": ("swap", dict(kv_layout="paged", kv_dtype="int8",
+                               preemption="swap")),
+    "swap-multi": ("swap-multi", dict(kv_layout="paged", preemption="swap")),
 }
+SWAP = ("swap", "swap-int8")
+# both streams of two slots swapped out at tick 2: each resumes in the
+# other's slot, so over a data axis of 2 in the other column
+SWAP_SCHEDULE = [(2, 1), (2, 0)]
+# four single-slot engines behind one CloudBatcher of four rows: the first
+# and the last swapped out at tick 2; the first resumes first and takes the
+# last's row (the batcher hands out rows last in, first out), the other
+# column's over a data axis of 2
+MULTI_SWAP_SCHEDULES = [[(2, 0)], None, None, [(2, 0)]]
 
 
 def tp_prompts():
@@ -63,13 +79,144 @@ def run_scenario(system, kind):
     multi, prefix, preempt = tp_prompts()
     if kind == "multi":
         r = system.generate_multi(multi, MAX_NEW)
+    elif kind == "swap-multi":
+        r = system.generate_multi(multi + preempt[:1], MAX_NEW,
+                                  preempt_schedules=MULTI_SWAP_SCHEDULES)
     elif kind == "prefix":
         r = system.generate(prefix, MAX_NEW)
     else:
         r = system.generate(preempt, MAX_NEW, num_slots=2,
-                            preempt_schedule=[(2, 0)])
+                            preempt_schedule=SWAP_SCHEDULE if kind == "swap"
+                            else [(2, 0)])
     st = r["stats"]
     return r["tokens"], int(st.prefix_hit_tokens), int(st.preemptions)
+
+
+def swap_run(system):
+    """The swap scenario through the port's ``system``: (``run_scenario``'s
+    result, what the mesh's swap checks read: each preemption and resume
+    as (event, stream, slot), the swap pool's stats, the pool's pages and
+    columns, and the cloud pool's pages and bytes)."""
+    moves = []
+    pre, res = BatchScheduler._preempt, BatchScheduler._resume
+
+    def spy_pre(self, s):
+        moves.append(("out", s.req.device_id, s.index))
+        return pre(self, s)
+
+    def spy_res(self, ck, slot):
+        moves.append(("in", ck.req.device_id, slot.index))
+        return res(self, ck, slot)
+    BatchScheduler._preempt, BatchScheduler._resume = spy_pre, spy_res
+    try:
+        result = run_scenario(system, "swap")
+    finally:
+        BatchScheduler._preempt, BatchScheduler._resume = pre, res
+    sched = next(iter(system._schedulers.values()))
+    node = sched.cloud_caches[next(iter(sched.cloud_caches))][0]["self"]
+    return result, {"moves": moves,
+                    "swap": dataclasses.astuple(sched.swap.stats),
+                    "pool_pages": sched.pool.num_pages,
+                    "columns": sched.pool.columns,
+                    "cloud_pages": int(node["kp"].shape[0]),
+                    "cloud_bytes": cache_bytes(sched.cloud_caches),
+                    "page_bytes": sum(
+                        cache_bytes(c["self"]) // c["self"]["kp"].shape[0]
+                        for layers in sched.cloud_caches.values()
+                        for c in layers)}
+
+
+def check_swap(ranks, single, dims):
+    """The swap checks of one scenario over every rank's ``swap_run``
+    result ``ranks`` on ``dims``, against the single device's ``single``:
+    the streams and both swaps; the swap pool's counts, its bytes equal on
+    every rank (and the single device's without a model axis); a resumed
+    stream in another data column than the one it left; the pool's pages
+    the single device's, the cloud pool of a rank its column's P / D and
+    a trash page, its bytes that many pages (the single device's bytes in
+    that proportion where the rank holds every KV head)."""
+    d = dims[0]
+    (want, _, _), want_info = single
+    assert want_info["swap"][:2] == (2, 2)
+    pages = want_info["pool_pages"]
+    for (streams, _, preempts), info in ranks:
+        assert streams == want and preempts == 2
+        assert info["swap"] == ranks[0][1]["swap"]
+        assert info["swap"][:2] == want_info["swap"][:2]
+        if dims[1] == 1:
+            assert info["swap"] == want_info["swap"]
+        left = {dev: slot for ev, dev, slot in info["moves"] if ev == "out"}
+        per_col = 2 // d
+        assert any(slot // per_col != left[dev] // per_col
+                   for ev, dev, slot in info["moves"] if ev == "in")
+        assert info["pool_pages"] == pages and info["columns"] == d
+        assert info["cloud_pages"] == pages // d + 1
+        assert info["cloud_bytes"] == info["page_bytes"] * (pages // d + 1)
+        if dims[1] == 1:
+            assert info["cloud_bytes"] * (pages + 1) == \
+                want_info["cloud_bytes"] * (pages // d + 1)
+
+
+def multi_swap_run(system):
+    """The ``CloudBatcher``'s swap scenario through the port's ``system``:
+    (``run_scenario``'s result, each cloud row swapped out and in as
+    (event, stream, row), the batcher's rows, its pool's pages and
+    columns, and the rank's cloud pool pages)."""
+    moves, seen = [], {}
+    out_, in_ = CloudBatcher.swap_out, CloudBatcher.swap_in
+
+    def spy_out(self, dev):
+        seen["batcher"] = self
+        moves.append(("out", dev, self.cm.cloud_slot(dev)))
+        return out_(self, dev)
+
+    def spy_in(self, dev, snap):
+        res = in_(self, dev, snap)
+        moves.append(("in", dev, self.cm.cloud_slot(dev)))
+        return res
+    CloudBatcher.swap_out, CloudBatcher.swap_in = spy_out, spy_in
+    try:
+        result = run_scenario(system, "swap-multi")
+    finally:
+        CloudBatcher.swap_out, CloudBatcher.swap_in = out_, in_
+    b = seen["batcher"]
+    node = b.caches[next(iter(b.caches))][0]["self"]
+    return result, {"moves": moves, "rows": b.B,
+                    "pool_pages": b.pool.num_pages,
+                    "columns": b.pool.columns,
+                    "cloud_pages": int(node["kp"].shape[0])}
+
+
+def check_multi_swap(ranks, single, dims):
+    """The batcher's swap scenario over every rank's ``multi_swap_run``
+    result on ``dims`` against the single device's: the streams and both
+    swaps, the batcher's pool split in ``dims[0]`` columns (a rank holding
+    its P / D pages and a trash page), a swapped-in row in another data
+    column than the one it left."""
+    d = dims[0]
+    (want, _, _), want_info = single
+    pages = want_info["pool_pages"]
+    for (streams, _, preempts), info in ranks:
+        assert streams == want and preempts == 2
+        assert info["moves"] == want_info["moves"]
+        assert info["pool_pages"] == pages and info["columns"] == d
+        assert info["cloud_pages"] == pages // d + 1
+        left = {dev: row for ev, dev, row in info["moves"] if ev == "out"}
+        per = info["rows"] // d
+        assert any(row // per != left[dev] // per
+                   for ev, dev, row in info["moves"] if ev == "in")
+
+
+def swap_ranks(model, dims):
+    """``swap_run`` of both swap scenarios, and ``multi_swap_run``, on a
+    rank's share of ``dims``."""
+    out = {}
+    for name in SWAP + ("swap-multi",):
+        system = ServingSystem(model, CollmConfig(
+            theta=THETA, cloud_mesh=dims, **SCENARIOS[name][1]))
+        out[name] = (swap_run(system) if name in SWAP
+                     else multi_swap_run(system))
+    return out
 
 
 def exit_probe(model):
@@ -114,7 +261,11 @@ def tp_rank(rank, world, dims, np_params):
     out = {"coords": mesh.coords, "backend": mesh.backend,
            "heads": model.layers[0].attn.split.heads,
            "kv_heads": model.kv_heads, "streams": {}}
+    out["swap"] = swap_ranks(model, dims)
     for name, (kind, ckw) in SCENARIOS.items():
+        if name in out["swap"]:
+            out["streams"][name] = out["swap"][name][0]
+            continue
         system = ServingSystem(model, CollmConfig(theta=THETA,
                                                   cloud_mesh=dims, **ckw))
         out["streams"][name] = run_scenario(system, kind)
@@ -206,6 +357,11 @@ def moe_rank(rank, world, dims, np_params, tcfg, theta, prompts, x,
         tp.load_state_dict(params_from_jax(tp_params, TP_CFG, mesh=dims,
                                            rank=rank))
         out["tp_records"] = cloud_step_records(tp, dims, 2, 64)
+        # the same two ranks as a data axis of 2: swap across columns
+        swap_dims = (world, 1)
+        whole = Model(TP_CFG, device="cpu")
+        whole.load_state_dict(params_from_jax(tp_params, TP_CFG))
+        out["swap"] = swap_ranks(whole, swap_dims)
     return out
 
 

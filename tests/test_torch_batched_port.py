@@ -12,7 +12,6 @@ the four that this port's async-channel slice accepted now run, and so do
 the five of speculative drafting and preemption and the six of chunked
 prefill, prefix sharing, open-loop arrivals, SLOs and adaptive control.
 """
-import re
 
 import numpy as np
 import pytest
@@ -142,29 +141,6 @@ def _leaves(caches):
 
 class _OtherChannel(CloudChannel):
     pass
-
-
-# still refused: CollmConfig field -> (config kwargs, ROADMAP item, the
-# arch it is refused for; None: the small dense model).  The cloud mesh
-# serves every family; swap preemption over its data axis waits for
-# A.11b.2.
-REFUSED_CONFIG = {
-    "cloud_mesh": (dict(cloud_mesh=(2, 1), kv_layout="paged",
-                        preemption="swap"), "A.11b.2", None),
-}
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED_CONFIG))
-def test_refused_options_raise(pair, name):
-    """Every option not ported yet raises, naming its ROADMAP item."""
-    from repro_torch.configs.registry import get_smoke_config
-    from repro_torch.models.transformer import Model
-    kw, item, arch = REFUSED_CONFIG[name]
-    model = pair[2] if arch is None else Model(get_smoke_config(arch),
-                                               device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=f"{name}: ROADMAP {re.escape(item)}"):
-        ServingSystem(model, CollmConfig(**kw))
 
 
 @pytest.mark.parametrize("name", ["adaptive", "resume_cost", "arrivals",

@@ -35,8 +35,10 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from _cloud_tp_ranks import (SCENARIOS, THETA, TIE_TOKENS,  # noqa: E402
-                             TP_CFG, exit_probe, run_scenario, tie_probe)
+from _cloud_tp_ranks import (SCENARIOS, SWAP, THETA,  # noqa: E402
+                             TIE_TOKENS, TP_CFG, check_multi_swap,
+                             check_swap, exit_probe, multi_swap_run,
+                             run_scenario, swap_run, tie_probe)
 from _cloud_tp_runs import (MESH, moe_inputs, moe_ranks,  # noqa: E402
                             tp_jax, tp_ranks)
 from repro.core.collm import CollmConfig as JCollmConfig  # noqa: E402
@@ -44,7 +46,6 @@ from repro.launch import sharding as jsh  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro.serving.engine import ServingSystem as JServingSystem  # noqa: E402
 from repro_torch.bridge import param_leaves, params_from_jax  # noqa: E402
-from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
 from repro_torch.kernels.exit_head.ops import exit_heads  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
@@ -90,22 +91,42 @@ def tp_run(tp_future):
     return tp_future.result()
 
 
-def test_tp_matrix_streams_equal_single_device(tp, tp_future):
+def test_tp_matrix_streams_equal_single_device(tp, tp_future,
+                                               tmp_path_factory):
     """Every scenario of the JAX file's matrix: each of the eight ranks'
     streams equal the JAX package's single-device streams and the port's
-    own, with prefix hits and preemptions counted alike."""
-    wants = {}
+    own, with prefix hits and preemptions counted alike.  The swap
+    scenarios over (2, 4) and, on the olmoe spawn's two ranks, (2, 1):
+    each stream swapped out and resumed in the other data column, on a
+    pool split over the data axis (``check_swap``), and behind one
+    ``CloudBatcher`` whose pool is split (``check_multi_swap``)."""
+    wants, singles = {}, {}
     for name, (kind, ckw) in SCENARIOS.items():
         wants[name] = run_scenario(JServingSystem(
             tp["jm"], tp["params"], JCollmConfig(theta=THETA, **ckw)), kind)
-        own = run_scenario(ServingSystem(tp["model"],
-                                         CollmConfig(theta=THETA, **ckw)),
-                           kind)
+        system = ServingSystem(tp["model"], CollmConfig(theta=THETA, **ckw))
+        if name in SWAP:
+            singles[name] = swap_run(system)
+            own = singles[name][0]
+        elif kind == "swap-multi":
+            singles[name] = multi_swap_run(system)
+            own = singles[name][0]
+        else:
+            own = run_scenario(system, kind)
         assert own == wants[name], name
     tp_run = tp_future.result()
     for name, want in wants.items():
         for rank, out in enumerate(tp_run):
             assert out["streams"][name] == want, (name, rank)
+    moe_run = moe_ranks(tmp_path_factory, tp["np_params"]).result()
+    for name in SWAP:
+        check_swap([out["swap"][name] for out in tp_run], singles[name],
+                   MESH)
+        check_swap([out["swap"][name] for out in moe_run], singles[name],
+                   (2, 1))
+    for run, dims in ((tp_run, MESH), (moe_run, (2, 1))):
+        check_multi_swap([out["swap"]["swap-multi"] for out in run],
+                         singles["swap-multi"], dims)
     toks, hits, preempts = tp_run[0]["streams"]["prefix"]
     assert hits > 0
     assert tp_run[0]["streams"]["preempt"][2] == 1
@@ -224,17 +245,14 @@ def test_single_device_default_is_inert(tp):
 
 
 def test_cloud_mesh_refusals(tp, tp_run):
-    """A bad pair, no process group, a world of the wrong size, and swap
-    preemption over a data axis each raise (a recurrent model no longer
-    does: ``tests/test_torch_cloud_tp_families.py``)."""
+    """A bad pair, no process group and a world of the wrong size each
+    raise (a recurrent model no longer does: ``tests/
+    test_torch_cloud_tp_families.py``; nor swap preemption over a data
+    axis: ``test_tp_matrix_streams_equal_single_device``)."""
     with pytest.raises(ValueError, match="pair"):
         ServingSystem(tp["model"], CollmConfig(cloud_mesh=(0, 4)))
     with pytest.raises(ValueError, match="process group"):
         ServingSystem(tp["model"], CollmConfig(cloud_mesh=MESH))
-    with pytest.raises(NotImplementedError, match="A.11b"):
-        ServingSystem(Model(get_smoke_config("xlstm-350m"), device="cpu"),
-                      CollmConfig(cloud_mesh=(2, 1), kv_layout="paged",
-                                  preemption="swap"))
     for out in tp_run:
         assert "needs 2 ranks but the process group has 8" in \
             out["wrong_world"]

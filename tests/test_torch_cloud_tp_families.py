@@ -29,6 +29,12 @@ are computed once a test run, by whichever xdist worker asks first
   is the single device's: every row's scale (the whole row's absmax, not
   a rank's) within float32 rounding of it, each code within one step (the
   rank's sums round differently), and the same wire bytes.
+
+The xlstm-350m spawn also serves ``tests/_cloud_tp_ranks.py``'s swap
+scenarios on tiny-ee-tp over (2, 2): the paged pool split over the data
+axis, both streams swapped out and resumed in the other column, on float
+and int8 pages (``check_swap``), and behind one ``CloudBatcher``
+(``check_multi_swap``).
 """
 from concurrent.futures import ThreadPoolExecutor
 
@@ -40,12 +46,16 @@ torch = pytest.importorskip("torch")
 from _cloud_tp_family_ranks import (MAX_NEW, MESHES, MODES,  # noqa: E402
                                     cloud_prefill_rows, family_rank,
                                     family_stream, state_packet)
+from _cloud_tp_ranks import (SCENARIOS, SWAP, THETA,  # noqa: E402
+                             check_multi_swap, check_swap, multi_swap_run,
+                             run_scenario, swap_run)
 from _shared_run import shared  # noqa: E402
 from repro_torch.bridge import port_leaves  # noqa: E402
 from repro_torch.launch import sharding as tsh  # noqa: E402
 from repro_torch.launch.mesh import spawn  # noqa: E402
 
 RECURRENT = ("xlstm-350m", "zamba2-1.2b")
+SWAP_FAMILY = "xlstm-350m"      # its spawn also serves the swap scenarios
 PREFIXED = ("whisper-medium", "paligemma-3b", "whisper-515")
 DEADLINE_S = 400
 
@@ -81,9 +91,14 @@ def _family(name):
     recurrent model, the state packet."""
     arch = _arch(name)
     spec = _spec(name, arch)
+    swap = None
+    if name == SWAP_FAMILY:
+        from _cloud_tp_runs import tp_jax
+        swap = tp_jax()
     pool = ThreadPoolExecutor(1)
     ranks = pool.submit(spawn, family_rank, 4, device="cpu",
-                        timeout=DEADLINE_S, args=([spec],), threads=1)
+                        timeout=DEADLINE_S,
+                        args=([spec], swap and swap[3]), threads=1)
     pool.shutdown(wait=False)
     out = {"cfg": spec["cfg"],
            "want": {mode: family_stream(arch.tm, spec, mode)
@@ -94,7 +109,32 @@ def _family(name):
            "prefill_rows": cloud_prefill_rows(arch.tm, spec)}
     if name in RECURRENT:
         out["packet"] = state_packet(arch.tm, spec)
+    if swap is not None:
+        out["swap"] = _swap_wants(swap)
     out["ranks"] = ranks.result()
+    return out
+
+
+def _swap_wants(swap):
+    """tiny-ee-tp's single-device swap scenarios: {name: (the JAX
+    package's streams, the port's ``swap_run`` or ``multi_swap_run``)}."""
+    from repro.core.collm import CollmConfig as JCollmConfig
+    from repro.serving.engine import ServingSystem as JServingSystem
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.core.collm import CollmConfig
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving.engine import ServingSystem
+    from _cloud_tp_ranks import TP_CFG
+    jm, _, params, np_params = swap
+    model = Model(TP_CFG, device="cpu")
+    model.load_state_dict(params_from_jax(np_params, TP_CFG))
+    out = {}
+    for name in SWAP + ("swap-multi",):
+        kind, ckw = SCENARIOS[name]
+        run = swap_run if name in SWAP else multi_swap_run
+        out[name] = (run_scenario(JServingSystem(
+            jm, params, JCollmConfig(theta=THETA, **ckw)), kind),
+            run(ServingSystem(model, CollmConfig(theta=THETA, **ckw))))
     return out
 
 
@@ -147,6 +187,11 @@ def test_mesh_streams_equal_single_device(families, name):
                 assert counts["sum_squares"] > 0
             # whisper-515's vocabulary is whole on every rank
             assert (counts["merge_exits"] == 0) == (name == "whisper-515")
+    if name == SWAP_FAMILY:
+        for sname, (jax_want, single) in fam["swap"].items():
+            assert single[0] == jax_want, sname
+            check = check_swap if sname in SWAP else check_multi_swap
+            check([out["swap"][sname] for out in outs], single, (2, 2))
     collm = want["collm-float16"]
     if name in RECURRENT:
         assert collm[1] > 0 and collm[2] > 0

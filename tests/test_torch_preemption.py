@@ -47,8 +47,8 @@ from repro_torch.core.collm import CoLLM, CollmConfig  # noqa: E402
 from repro_torch.core.content_manager import ContentManager  # noqa: E402
 from repro_torch.core.paging import (PREEMPT_POLICIES,  # noqa: E402
                                      OutOfPages, PagePool, SwapPool,
-                                     VictimCandidate, pages_needed,
-                                     select_victim)
+                                     VictimCandidate, column_block,
+                                     pages_needed, select_victim)
 from repro_torch.models.attention import (init_paged_attn_cache,  # noqa: E402
                                           paged_gather, paged_reset_pages,
                                           paged_scatter_prefill)
@@ -416,6 +416,59 @@ def test_pagepool_random_ops_invariants(seed):
         for s in range(num_slots):
             assert pool.owned_pages(s) == len(owned[s])
     assert dataclasses.asdict(pool.stats) == dataclasses.asdict(jpool.stats)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pagepool_columns_random_ops_invariants(seed):
+    """A pool split over D data columns (``columns=``), random allocs and
+    frees: a slot takes pages only from its column's block, runs dry only
+    when that block is used up, never hands out the trash page or one
+    page twice; every column's pages are conserved after every op; the
+    totals are those of a single pool of the same pages."""
+    rng = random.Random(seed)
+    d = rng.choice([2, 4])
+    per = rng.randint(1, 4)
+    num_slots = d * rng.randint(1, 2)
+    max_logical = rng.randint(2, 6)
+    pool = PagePool(d * per, 4, num_slots, max_logical, columns=d)
+    assert pool.free_pages == pool.num_pages == d * per
+    col_slots = num_slots // d
+    owned = {s: set() for s in range(num_slots)}
+    for _ in range(rng.randint(20, 80)):
+        slot = rng.randrange(num_slots)
+        c = slot // col_slots
+        first, n = column_block(d * per, d, c)
+        assert (first, n) == (c * per + 1, per)
+        assert pool.column_of_slot(slot) == c
+        if rng.random() < 0.65:
+            lp = rng.randrange(max_logical)
+            before = pool.block_table[slot, lp]
+            try:
+                page = pool.alloc(slot, lp)
+            except OutOfPages:
+                assert pool.free_in(slot) == 0 and before == -1
+                continue
+            assert first <= page < first + n
+            assert pool.column_of_page(page) == c
+            assert pool.foreign_pages(slot, [page]) == 0
+            if before == -1:
+                assert all(page not in o for o in owned.values())
+                owned[slot].add(page)
+            else:
+                assert page == before
+        else:
+            assert set(pool.free_slot(slot)) == owned[slot]
+            owned[slot] = set()
+        for cc in range(d):
+            used = sum(len(owned[s]) for s in owned if s // col_slots == cc)
+            assert pool.free_in(cc * col_slots) + used == per
+            assert pool.available_in(cc * col_slots) == per - used
+        in_use = sum(len(o) for o in owned.values())
+        assert pool.free_pages + in_use == pool.num_pages
+        assert sorted(pool._free) == sorted(
+            set(range(1, d * per + 1)) - set().union(*owned.values()))
+    with pytest.raises(ValueError, match="columns"):
+        PagePool(d * per + 1, 4, num_slots, max_logical, columns=d)
 
 
 def test_select_victim_policies():
